@@ -1,0 +1,144 @@
+"""PointNet++ semantic segmentation (SSG), eval mode.
+
+The architecture of the JAX package's models/pointnet2.py: four set
+abstractions, four feature propagations run deepest first, then the head
+cls_fc (Linear, BN, ReLU), Dropout (identity in eval) and cls_out (Linear and
+BN on the logits, no ReLU). Modules are named after the JAX parameter tree
+(sa_{k}.mlp_0, fp_{k}.mlp, cls_fc, cls_out), so models/convert.py maps one
+to one. Input (B, N, 3 + C) channels-last; output (B, N, num_classes) float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from pointnet2_scannet_tpu_torch.models.layers import PointwiseMLP
+from pointnet2_scannet_tpu_torch.models.modules import FeaturePropagation, SetAbstraction
+
+
+@dataclasses.dataclass(frozen=True)
+class PointNet2Spec:
+    """Static architecture description."""
+
+    num_classes: int
+    input_channels: int  # feature channels beyond xyz
+    npoints: tuple[int, ...]
+    radii: tuple[tuple[float, ...], ...]  # per level, per scale
+    nsamples: tuple[tuple[int, ...], ...]
+    sa_mlps: tuple[tuple[tuple[int, ...], ...], ...]  # level -> scale -> widths
+    fp_mlps: tuple[tuple[int, ...], ...]
+    cls_fc: tuple[int, ...] = (128,)
+    dropout: float = 0.5
+    use_xyz: bool = True
+    bn: bool = True
+
+    @property
+    def sa_out_channels(self) -> tuple[int, ...]:
+        return tuple(sum(m[-1] for m in level) for level in self.sa_mlps)
+
+    @property
+    def skip_channels(self) -> tuple[int, ...]:
+        return (self.input_channels,) + self.sa_out_channels
+
+
+def ssg_spec(num_classes: int = 20, input_channels: int = 0) -> PointNet2Spec:
+    """Single-scale grouping: npoints 1024/256/64/16, radii 0.1/0.2/0.4/0.8,
+    32 neighbours per level."""
+    return PointNet2Spec(
+        num_classes=num_classes,
+        input_channels=input_channels,
+        npoints=(1024, 256, 64, 16),
+        radii=((0.1,), (0.2,), (0.4,), (0.8,)),
+        nsamples=((32,), (32,), (32,), (32,)),
+        sa_mlps=(
+            ((32, 32, 64),),
+            ((64, 64, 128),),
+            ((128, 128, 256),),
+            ((256, 256, 512),),
+        ),
+        fp_mlps=((128, 128), (256, 128), (256, 256), (256, 256)),
+    )
+
+
+class PointNet2SemSeg(nn.Module):
+    """Encoder-decoder PointNet++ over fixed-size point columns.
+
+    Built on the CPU, initialised from `generator` (flax's he_normal, zero
+    biases, identity BatchNorm), then moved to `device`; the module starts in
+    eval mode, the only mode ported so far.
+    """
+
+    def __init__(
+        self,
+        spec: PointNet2Spec,
+        *,
+        device: torch.device | str | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.spec = spec
+        c = spec.input_channels
+        for lvl in range(len(spec.npoints)):
+            sa = SetAbstraction(
+                spec.npoints[lvl], spec.radii[lvl], spec.nsamples[lvl],
+                spec.sa_mlps[lvl], c, use_xyz=spec.use_xyz, bn=spec.bn,
+            )
+            self.add_module(f"sa_{lvl}", sa)
+            c = sa.out_channels
+        for lvl in reversed(range(len(spec.fp_mlps))):
+            fp = FeaturePropagation(
+                spec.fp_mlps[lvl], c + spec.skip_channels[lvl], bn=spec.bn
+            )
+            self.add_module(f"fp_{lvl}", fp)
+            c = spec.fp_mlps[lvl][-1]
+        self.cls_fc = PointwiseMLP(c, spec.cls_fc, bn=spec.bn)
+        self.cls_out = PointwiseMLP(
+            spec.cls_fc[-1], (spec.num_classes,), bn=spec.bn, last_act=False
+        )
+        for m in self.modules():
+            if isinstance(m, PointwiseMLP):
+                m.reset_parameters(generator)
+        if device is not None:
+            self.to(device)
+        self.eval()
+
+    def forward(self, pc: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
+        xyz = pc[..., :3].contiguous()
+        features = pc[..., 3:].contiguous() if pc.shape[-1] > 3 else None
+        l_xyz = [xyz]
+        l_feats = [features]
+        for lvl in range(len(spec.npoints)):
+            new_xyz, new_feats = getattr(self, f"sa_{lvl}")(l_xyz[lvl], l_feats[lvl])
+            l_xyz.append(new_xyz)
+            l_feats.append(new_feats)
+        for lvl in reversed(range(len(spec.fp_mlps))):  # deepest level first
+            l_feats[lvl] = getattr(self, f"fp_{lvl}")(
+                l_xyz[lvl], l_xyz[lvl + 1], l_feats[lvl], l_feats[lvl + 1]
+            )
+        h = self.cls_fc(l_feats[0])  # Dropout: identity in eval mode
+        return self.cls_out(h).to(torch.float32)
+
+
+def get_model(
+    num_classes: int,
+    is_msg: bool = False,
+    input_channels: int = 6,
+    use_xyz: bool = True,
+    bn: bool = True,
+    *,
+    device: torch.device | str | None = None,
+    generator: torch.Generator | None = None,
+) -> PointNet2SemSeg:
+    """Factory with the JAX package's get_model arguments (SSG only)."""
+    if is_msg:
+        raise NotImplementedError(
+            "the MSG model is not ported yet (ROADMAP queue 1, item 9)"
+        )
+    spec = dataclasses.replace(
+        ssg_spec(num_classes, input_channels), use_xyz=use_xyz, bn=bn
+    )
+    return PointNet2SemSeg(spec, device=device, generator=generator)

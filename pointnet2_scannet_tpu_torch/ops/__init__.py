@@ -1,0 +1,29 @@
+"""Point-cloud ops of the port, channels-last, dispatched by device.
+
+A CPU tensor runs the op's plain PyTorch version; a CUDA tensor launches the
+hand-written kernel in ops/cuda/ (or raises). Indices are int32 throughout.
+"""
+
+from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
+from pointnet2_scannet_tpu_torch.ops.interpolate import three_interpolate, three_nn
+from pointnet2_scannet_tpu_torch.ops.neighborhood import (
+    ball_query,
+    group_all,
+    group_points,
+    group_with_idx,
+    query_and_group,
+)
+from pointnet2_scannet_tpu_torch.ops.sampling import furthest_point_sample, gather_points
+
+__all__ = [
+    "pairwise_sqdist",
+    "furthest_point_sample",
+    "gather_points",
+    "ball_query",
+    "group_points",
+    "group_with_idx",
+    "query_and_group",
+    "group_all",
+    "three_nn",
+    "three_interpolate",
+]

@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The four sources compile with nvcc into one shared library with a plain C
+interface, loaded through ctypes: no PyTorch headers are compiled, so a cold
+build takes seconds. The library is named after a hash of the sources and
+the flags, so a changed source rebuilds and an unchanged one loads the
+library already built. Nothing here runs at import time; the first kernel
+launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("fps.cu", "ball_query.cu", "gather.cu", "three_nn.cu")
+HEADERS = ("sqdist.cuh",)
+# sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
+# so every distance rounds like the plain PyTorch versions (see sqdist.cuh).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_SIGNATURES = {
+    "p2_fps": [_vp, _i, _i, _i, _i, _vp, _vp],
+    "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _vp, _vp],
+    "p2_gather": [_vp, _vp, _i, _i, _i, _i, _vp, _vp],
+    "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the last nvcc run, if any
+build_log: str = ""  # nvcc/ptxas output of the last build (registers, smem)
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is not None:
+        path = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path() -> pathlib.Path:
+    return BUILD_DIR / f"libpn2_kernels_{_digest()}.so"
+
+
+def _build(target: pathlib.Path) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        path = library_path()
+        if not path.exists():
+            _build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.p2_error_string.argtypes = [ctypes.c_int]
+        lib.p2_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = library().p2_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err} ({msg})")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on the tensor's device, as a C pointer."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def require(t, what: str, dtypes, ndim: int, last: int | None = None) -> None:
+    """Raise on a tensor the kernels do not take: not on a CUDA device, of
+    another dtype or rank, or not contiguous."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} must lie on a CUDA device, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if t.dim() != ndim or (last is not None and t.shape[-1] != last):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
