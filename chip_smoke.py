@@ -4,17 +4,31 @@
     python3 chip_smoke.py
 
 1. The card: torch's device name and nvidia-smi's name and power limit.
-2. Build the four CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
-3. Each kernel against its plain PyTorch version on the card at the serving
-   path's shapes (32 columns of 8192 points, the four SSG levels): indices and
-   gathers must be equal bit for bit; both times from CUDA events after a
-   warm-up.
-4. Serve synthetic scenes through scripts/infer_torch.py at SSG full width
+2. Build the five CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
+3. Each forward kernel against its plain PyTorch version on the card at the
+   serving path's shapes (32 columns of 8192 points, the four SSG levels):
+   indices and gathers must be equal bit for bit; both times from CUDA events
+   after a warm-up.
+4. The scatter-add (every gather's backward) at the seven shapes of the SSG
+   train step, its indices the ball-query and 3-NN outputs of phase 3: equal
+   bit for bit to the plain version run on CPU copies, and to itself across
+   two launches.
+5. Serve synthetic scenes through scripts/infer_torch.py at SSG full width
    (xyz + color + normal, 8192-point columns, batch 32, float32) with weights
    drawn from a seeded generator: the prediction files must hold labels in
-   [0, 20), every kernel's launch counter must have moved in that run, and
-   one batch's logits must agree with the plain path on the CPU.
-5. Print one JSON line of kernel results, the card line, and last
+   [0, 20), every forward kernel's launch counter must have moved in that
+   run, and one batch's logits must agree with the plain path on the CPU.
+6. Train through scripts/train_torch.py at the same width: 32 synthetic
+   scenes, batch 32, 3 epochs of one step and one validation each. Losses
+   must be finite, the run dir's artifacts must exist, and all five launch
+   counters must have moved in that run.
+7. One train step on the card against one on the CPU (2 full-width columns,
+   Dropout off): loss, gradients and BatchNorm statistics within the stated
+   bounds. Two train steps on the card from one state and batch must give
+   the same bits.
+8. The steady-state train step at batch 32 x 8192 (forward, loss, backward,
+   Adam, confusion matrix), timed with CUDA events.
+9. Print one JSON line of kernel results, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; so does a run without a CUDA device or
@@ -40,6 +54,19 @@ LEVELS = ((8192, 1024, 0.1, 6), (1024, 256, 0.2, 64), (256, 64, 0.4, 128), (64, 
 # logits of the card vs the CPU: f32 matmuls sum in another order in cuBLAS
 # and in the CPU BLAS; every index the ops produce is identical
 LOGIT_RTOL = LOGIT_ATOL = 1e-4
+# channels of the features each FP level interpolates (FP0 .. FP3)
+FP_CHANNELS = (128, 256, 256, 512)
+# one train step, card vs CPU: f32 summation order is the only difference.
+# Loss and BatchNorm statistics are held to fixed bounds. The gradients are
+# held against a float64 step on the CPU: the card's float32 gradients may be
+# at most TRAIN_GRAD_VS_CPU times as far from it (per-tensor relative L2,
+# worst and median tensor) as the CPU's float32 gradients are. A fixed bound
+# does not hold: the train-mode BatchNorm backward below the head
+# (dy - mean(dy) - x_hat * mean(dy * x_hat)) cancels most of dy, which
+# magnifies float32 rounding to ~1e-3 relative on the CPU alone.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_VS_CPU = 2.0
+TRAIN_BN_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -81,8 +108,10 @@ def serving_columns(n_scenes: int):
     return np.concatenate([ds.get_scene(i)[0] for i in range(len(ds))])
 
 
-def check_kernels(torch) -> dict:
-    """Phase 3: every kernel vs its plain version at the path's shapes."""
+def check_kernels(torch) -> tuple[dict, list]:
+    """Phase 3: every forward kernel vs its plain version at the path's
+    shapes. Also returns the (label, idx (B, J), N, C) of every gather whose
+    gradient the train step takes, from these ball-query and 3-NN outputs."""
     from pointnet2_scannet_tpu_torch.ops.cuda import (
         ball_query_kernel as bq,
         fps_kernel as fps,
@@ -108,6 +137,7 @@ def check_kernels(torch) -> dict:
 
     results = {m.NAME: {"module": m, "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
                for m in (fps, bq, ga, nn3)}
+    backward = []
 
     def compare(mod, label, kernel_fn, plain_fn):
         got, want = kernel_fn(), plain_fn()
@@ -144,7 +174,46 @@ def check_kernels(torch) -> dict:
         compare(nn3, f"three_nn n={n_in} m={n_out}",
                 lambda: nn3.three_nn_cuda(x, q),
                 lambda: nn3.three_nn_plain(x, q))
-    return results
+        if k > 0:  # SA1 groups input data: no gradient is taken there
+            backward.append((f"SA{k + 1} grouping", nidx, n_in, 3 + c))
+        nn_idx = nn3.three_nn_cuda(x, q)[1].reshape(BATCH, -1)
+        backward.append((f"FP{k} interpolation", nn_idx, n_out, FP_CHANNELS[k]))
+    return results, backward
+
+
+def check_scatter(torch, backward) -> dict:
+    """Phase 4: the scatter-add kernel against its plain version on CPU
+    copies (which adds in ascending j, as the kernel does) and against a
+    second launch, bit for bit; times against the plain version on the card
+    (unordered atomics)."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    r = {"module": sc, "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    for label, idx, n, c in sorted(backward, key=lambda b: b[0]):
+        j = idx.shape[1]
+        g = torch.randn((BATCH, j, c), generator=gen, device="cuda")
+        g *= 10.0 ** (torch.rand((BATCH, j, 1), generator=gen, device="cuda") * 6 - 3)
+        got = sc.scatter_add_cuda(idx, g, n)
+        again = sc.scatter_add_cuda(idx, g, n)
+        want = sc.scatter_add_plain(idx.cpu(), g.cpu(), n)
+        got = got.cpu()
+        err = float((got.double() - want.double()).abs().max())
+        equal = torch.equal(got, want)
+        repeat = torch.equal(again.cpu(), got)
+        ms = cuda_ms(lambda: sc.scatter_add_cuda(idx, g, n), torch)
+        plain_ms = cuda_ms(lambda: sc.scatter_add_plain(idx, g, n), torch)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        print(f"kernel scatter_add {label} (B={BATCH}, J={j}, N={n}, C={c}): {ms:.4f} ms, "
+              f"plain on the card {plain_ms:.4f} ms, max_abs_err vs CPU plain {err}, "
+              f"{'equal' if equal else 'DIFFERENT'}, second launch "
+              f"{'equal' if repeat else 'DIFFERENT'}", flush=True)
+        if not (equal and repeat):
+            raise RuntimeError(f"scatter_add {label}: kernel differs from the CPU plain version "
+                               f"or from its own second launch (max_abs_err {err})")
+    return {sc.NAME: r}
 
 
 def serve(torch, tmp: pathlib.Path) -> dict:
@@ -167,9 +236,7 @@ def serve(torch, tmp: pathlib.Path) -> dict:
                       generator=torch.Generator().manual_seed(0))
     save_state_dict(run, "model_best", model.state_dict())
 
-    spec = importlib.util.spec_from_file_location("infer_torch", ROOT / "scripts" / "infer_torch.py")
-    infer_torch = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(infer_torch)
+    infer_torch = load_script("infer_torch")
     args = infer_torch.parse_args([
         "--folder", str(run), "--device", "cuda", "--synthetic",
         "--synthetic_scenes", "4", "--batch_size", str(BATCH), "--out", str(tmp / "out"),
@@ -182,7 +249,8 @@ def serve(torch, tmp: pathlib.Path) -> dict:
     launches = kernels.launch_counts()
     print(f"serve: launches {launches}", flush=True)
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    missing = [k for k, n in launches.items() if n == 0]
+    # serving runs under inference_mode: every kernel but the backward's
+    missing = [k for k, n in launches.items() if n == 0 and k != "scatter_add"]
     if missing:
         raise RuntimeError(f"the serving run launched no {missing} kernel")
 
@@ -234,6 +302,166 @@ def serve(torch, tmp: pathlib.Path) -> dict:
     return stats
 
 
+def load_script(name: str):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_cli(torch, tmp: pathlib.Path) -> dict:
+    """Phase 6: training through scripts/train_torch.py, through the kernels."""
+    import math
+
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    train_torch = load_script("train_torch")
+    args = train_torch.parse_args([
+        "--synthetic", "--synthetic_scenes", str(BATCH), "--batch_size", str(BATCH),
+        "--epoch", "3", "--npoints", str(NPOINTS), "--use_color", "--use_normal",
+        "--verbose", "1", "--device", "cuda", "--tag", "chip_smoke",
+        "--output_root", str(tmp / "train"),
+    ])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_dir, best = train_torch.train(args)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train: launches {launches}", flush=True)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"the training run launched no {missing} kernel")
+    for name in ("model_best.pt", "model_last.pt", "config.json", "best.txt",
+                 "model_last.train.pt", "tensorboard/all_scalars.json"):
+        if not (run_dir / name).is_file():
+            raise RuntimeError(f"the training run wrote no {name}")
+    scalars = json.loads((run_dir / "tensorboard" / "all_scalars.json").read_text())
+    losses = [v for _, v in scalars["train/loss"]] + [v for _, v in scalars["val/loss"]]
+    if len(scalars["train/loss"]) != 3 or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"train/val losses {losses}: not 3 epochs of finite values")
+    print(f"train: 3 steps of {BATCH} x {NPOINTS} and 3 validations in {took:.2f} s; losses "
+          f"{losses}; best val voxel mIoU {best['voxel_miou']:.4f}; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    return {"launches": launches, "peak_gib": peak}
+
+
+def train_batch(torch, n: int, device):
+    """A train batch of n full-width chunks of synthetic scenes, on device."""
+    from pointnet2_scannet_tpu_torch.config import DataConfig
+    from pointnet2_scannet_tpu_torch.data import make_synthetic_store
+    from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
+    from pointnet2_scannet_tpu_torch.data.pipeline import BatchLoader, to_device
+
+    cfg = DataConfig(npoints=NPOINTS, use_color=True, use_normal=True)
+    ds = ChunkedSceneDataset(make_synthetic_store(n, seed=0), cfg, phase="train", seed=0)
+    ds.generate_chunks()
+    return to_device(next(iter(BatchLoader(ds, n, drop_last=True))), device)
+
+
+def fresh_state(torch, dropout: float, device, seed: int = 0):
+    """A train state over a seeded SSG model at full width."""
+    import dataclasses
+
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, ssg_spec
+
+    spec = dataclasses.replace(ssg_spec(20, 6), dropout=dropout)
+    model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(seed), device=device)
+    return ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=seed)
+
+
+def grad_errors(got: dict, want: dict) -> list:
+    """Per-tensor relative L2 error of gradients, sorted, worst first."""
+    return sorted(((float((got[k].double() - w).norm() / w.norm()), k) for k, w in want.items()),
+                  reverse=True)
+
+
+def train_step_card_vs_cpu(torch) -> None:
+    """Phase 7a: one train step from the same weights on the card and on the
+    CPU (float32 both, and float64 on the CPU as the reference), Dropout
+    off."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
+        state = fresh_state(torch, 0.0, device)
+        state.model.to(dtype)
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in train_batch(torch, 2, device).items()}
+        res = ts.train_step(state, batch, num_classes=20)
+        m = state.model
+        out[(device, dtype)] = (
+            float(res["loss"]), {k: p.grad.cpu() for k, p in m.named_parameters()},
+            {k: b.cpu() for k, b in m.named_buffers() if b.is_floating_point()},
+        )
+    ref = out[("cpu", torch.float64)][1]
+    (cpu_loss, cpu_g, cpu_b), (gpu_loss, gpu_g, gpu_b) = (
+        out[("cpu", torch.float32)], out[("cuda", torch.float32)])
+    direct, card, cpu = grad_errors(gpu_g, cpu_g), grad_errors(gpu_g, ref), grad_errors(cpu_g, ref)
+    med = len(card) // 2
+    bn_err = max(float((gpu_b[k] - b).abs().max()) for k, b in cpu_b.items())
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    print(f"train step card vs CPU (2 x {NPOINTS}): loss {gpu_loss} vs {cpu_loss} (rel "
+          f"{loss_err:.2e}); BatchNorm stats max abs err {bn_err:.2e}; gradients, per-tensor "
+          f"relative L2 over {len(card)} tensors, worst / median: card vs CPU float32 "
+          f"{direct[0][0]:.2e} ({direct[0][1]}) / {direct[med][0]:.2e}; vs CPU float64: card "
+          f"{card[0][0]:.2e} ({card[0][1]}) / {card[med][0]:.2e}, CPU float32 {cpu[0][0]:.2e} "
+          f"({cpu[0][1]}) / {cpu[med][0]:.2e}", flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise RuntimeError("train step: the card's loss disagrees with the CPU's")
+    if not (card[0][0] <= TRAIN_GRAD_VS_CPU * cpu[0][0]
+            and card[med][0] <= TRAIN_GRAD_VS_CPU * cpu[med][0]):
+        raise RuntimeError("train step: the card's gradients are further from the float64 "
+                           "reference than the CPU's float32 gradients allow")
+    for k, b in cpu_b.items():
+        torch.testing.assert_close(gpu_b[k], b, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
+
+
+def train_step_repeat_and_time(torch) -> dict:
+    """Phase 7b and 8: two identical steps on the card give the same bits;
+    then the warm step at batch 32, timed with CUDA events."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    batch = train_batch(torch, BATCH, "cuda")
+    states = []
+    for _ in range(2):
+        state = fresh_state(torch, 0.5, "cuda")
+        ts.train_step(state, batch, num_classes=20)
+        states.append(state.model.state_dict())
+    differ = [k for k, v in states[0].items() if not torch.equal(states[1][k], v)]
+    print(f"train step determinism (B={BATCH}, Dropout 0.5): {len(states[0])} tensors, "
+          f"{len(differ)} differ", flush=True)
+    if differ:
+        raise RuntimeError(f"two identical train steps on the card differ in {differ[:5]}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):  # warm: allocator, cuBLAS heuristics
+        ts.train_step(state, batch, num_classes=20)
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ts.train_step(state, batch, num_classes=20)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out["loss"])):
+        raise RuntimeError("the steady-state train step's loss is not finite")
+    times = sorted(s.elapsed_time(e) for s, e in events)
+    ms = times[len(times) // 2]
+    pps = BATCH * NPOINTS / (ms / 1e3)
+    print(f"train steady state: step of {BATCH} x {NPOINTS} in {ms:.2f} ms median of "
+          f"{len(times)} (min {times[0]:.2f}, max {times[-1]:.2f}): {pps:.0f} points/s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return {"ms": ms, "points_per_s": pps}
+
+
 def main() -> int:
     import torch
 
@@ -257,9 +485,14 @@ def main() -> int:
         if "registers" in line or "entry function" in line:
             print(f"  {line.strip()}")
 
-    kernels = check_kernels(torch)
+    kernels, backward = check_kernels(torch)
+    kernels.update(check_scatter(torch, backward))
+    del backward
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         stats = serve(torch, pathlib.Path(tmp))
+        train = train_cli(torch, pathlib.Path(tmp))
+    train_step_card_vs_cpu(torch)
+    train_step_repeat_and_time(torch)
 
     print(json.dumps({"kernels": [
         {
@@ -267,7 +500,7 @@ def main() -> int:
             "route": "cuda",
             "source": r["module"].SOURCE,
             "replaces": r["module"].REPLACES,
-            "launches": stats["launches"][name],
+            "launches": stats["launches"][name] + train["launches"][name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

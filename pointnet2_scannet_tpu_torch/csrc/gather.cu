@@ -3,7 +3,7 @@
 // Replaces pointnet2_scannet_tpu/ops/pallas/vmem_gather_kernel.py
 // (_vmem_gather_fwd_only, reached through vmem_gather / vmem_gather_any).
 // float32 and int32 rows move as raw 32-bit words, so the copy is bit-exact
-// for both. Forward only: the scatter-add backward is a later kernel.
+// for both. The backward is scatter_add.cu.
 //
 // Bound on the card: bytes. The TPU kernel rebuilt a gather out of 128-lane
 // selects because the TPU has no general gather; the card loads any address,

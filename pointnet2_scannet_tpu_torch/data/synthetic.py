@@ -13,12 +13,15 @@ import numpy as np
 from pointnet2_scannet_tpu_torch.config import NUM_CLASSES
 
 
-def _class_color(label: int, rng: np.random.Generator) -> np.ndarray:
+def _class_colors(label: int, n: int, rng: np.random.Generator) -> np.ndarray:
+    """n colours of one class: its base colour plus N(0, 12) noise. One
+    (n, 3) draw takes the same numbers from the stream as the JAX package's
+    n draws of 3."""
     base = np.array(
         [((label * 53) % 256), ((label * 101 + 40) % 256), ((label * 181 + 90) % 256)],
         np.float32,
     )
-    return np.clip(base + rng.normal(0, 12, 3), 0, 255)
+    return np.clip(base + rng.normal(0, 12, (n, 3)), 0, 255)
 
 
 def make_synthetic_scene(
@@ -34,7 +37,7 @@ def make_synthetic_scene(
 
     def emit(pts, normal, label):
         n = len(pts)
-        colors = np.stack([_class_color(label, rng) for _ in range(n)])
+        colors = _class_colors(label, n, rng)
         normals = np.tile(np.asarray(normal, np.float32), (n, 1))
         inst = np.full((n, 1), len(rows), np.float32)
         lab = np.full((n, 1), float(label), np.float32)

@@ -1,11 +1,20 @@
 """Pointwise MLP: Linear (no bias under BatchNorm), BatchNorm, ReLU.
 
 Channels-last: a 1x1 convolution over (B, N, C) or (B, M, K, C) is a Linear
-on the last axis. BatchNorm runs in eval mode only (eps 1e-5, running
-statistics), computed in flax's order — (x - mean) * (rsqrt(var + eps) *
-scale) + bias — so the port rounds like the JAX package. Train-mode
-BatchNorm (the JAX package keeps the biased batch variance) is ROADMAP queue
-1, item 5.
+on the last axis. BatchNorm follows flax's nn.BatchNorm, which the JAX
+package's chunked train step runs (layers.py:118-126), not torch's:
+
+- train mode normalises with the batch statistics over every axis but the
+  last, in at least float32, with flax's fast variance
+  max(E[x^2] - E[x]^2, 0), and moves the running statistics by
+  0.9 * old + 0.1 * batch with that *biased* variance (torch would store
+  the unbiased one);
+- eval mode normalises with the running statistics;
+- both compute (x - mean) * (rsqrt(var + eps) * scale) + bias, eps 1e-5, in
+  flax's order, so the port rounds like the JAX package.
+
+The row-masked two-pass MaskedBatchNorm of the whole-scene step
+(layers.py:27-91) is not ported yet (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ from torch import nn
 # flax's he_normal draws a normal truncated at two standard deviations and
 # divides by this constant, the std of the standard normal truncated there
 _TRUNC_STD = 0.87962566103423978
+BN_MOMENTUM = 0.9  # flax convention: new = m * old + (1 - m) * batch
+BN_EPS = 1e-5
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
@@ -53,7 +64,7 @@ class PointwiseMLP(nn.Module):
         for i, w in enumerate(self.widths):
             self.add_module(f"dense_{i}", nn.Linear(c, w, bias=not bn, device=device))
             if bn:
-                self.add_module(f"bn_{i}", nn.BatchNorm1d(w, eps=1e-5, device=device))
+                self.add_module(f"bn_{i}", nn.BatchNorm1d(w, eps=BN_EPS, device=device))
             c = w
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -67,18 +78,29 @@ class PointwiseMLP(nn.Module):
                 getattr(self, f"bn_{i}").reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (ROADMAP queue 1, item 5); "
-                "call .eval() first"
-            )
         n = len(self.widths)
         for i in range(n):
             x = getattr(self, f"dense_{i}")(x)
             if self.bn:
-                bn = getattr(self, f"bn_{i}")
-                mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-                x = (x - bn.running_mean) * mul + bn.bias
+                x = _batch_norm(x, getattr(self, f"bn_{i}"), self.training)
             if self.last_act or i < n - 1:
                 x = torch.relu(x)
         return x
+
+
+def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tensor:
+    """flax nn.BatchNorm over the last axis; in train mode it also moves
+    bn's running statistics (in place, outside autograd)."""
+    if not train:
+        mean, var = bn.running_mean, bn.running_var
+    else:
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = tuple(range(x.dim() - 1))
+        mean = xs.mean(dims)
+        var = torch.clamp((xs * xs).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
+            bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean) * mul + bn.bias

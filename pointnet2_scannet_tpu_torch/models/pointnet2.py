@@ -1,11 +1,17 @@
-"""PointNet++ semantic segmentation (SSG), eval mode.
+"""PointNet++ semantic segmentation (SSG).
 
 The architecture of the JAX package's models/pointnet2.py: four set
 abstractions, four feature propagations run deepest first, then the head
-cls_fc (Linear, BN, ReLU), Dropout (identity in eval) and cls_out (Linear and
-BN on the logits, no ReLU). Modules are named after the JAX parameter tree
-(sa_{k}.mlp_0, fp_{k}.mlp, cls_fc, cls_out), so models/convert.py maps one
-to one. Input (B, N, 3 + C) channels-last; output (B, N, num_classes) float32.
+cls_fc (Linear, BN, ReLU), Dropout and cls_out (Linear and BN on the logits,
+no ReLU). Modules are named after the JAX parameter tree (sa_{k}.mlp_0,
+fp_{k}.mlp, cls_fc, cls_out), so models/convert.py maps one to one. Input
+(B, N, 3 + C) channels-last; output (B, N, num_classes) float32.
+
+model.train() / model.eval() switch BatchNorm (batch statistics and running
+updates, or running statistics) and the head Dropout, which in train mode
+zeroes each activation with probability spec.dropout and scales the kept
+ones by 1 / (1 - p), like flax's nn.Dropout. Its mask comes from the
+torch.Generator handed to forward, so a seed fixes it.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ class PointNet2SemSeg(nn.Module):
 
     Built on the CPU, initialised from `generator` (flax's he_normal, zero
     biases, identity BatchNorm), then moved to `device`; the module starts in
-    eval mode, the only mode ported so far.
+    eval mode.
     """
 
     def __init__(
@@ -105,7 +111,11 @@ class PointNet2SemSeg(nn.Module):
             self.to(device)
         self.eval()
 
-    def forward(self, pc: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, pc: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """generator: the Dropout mask's random stream, on pc's device; needed
+        in train mode when spec.dropout > 0."""
         spec = self.spec
         xyz = pc[..., :3].contiguous()
         features = pc[..., 3:].contiguous() if pc.shape[-1] > 3 else None
@@ -119,8 +129,20 @@ class PointNet2SemSeg(nn.Module):
             l_feats[lvl] = getattr(self, f"fp_{lvl}")(
                 l_xyz[lvl], l_xyz[lvl + 1], l_feats[lvl], l_feats[lvl + 1]
             )
-        h = self.cls_fc(l_feats[0])  # Dropout: identity in eval mode
+        h = self.cls_fc(l_feats[0])
+        if self.training and spec.dropout > 0.0:
+            h = _dropout(h, spec.dropout, generator)
         return self.cls_out(h).to(torch.float32)
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate, scale kept values by
+    1 / (1 - rate)."""
+    if generator is None:
+        raise ValueError("train-mode Dropout needs a torch.Generator (forward(pc, generator))")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def get_model(

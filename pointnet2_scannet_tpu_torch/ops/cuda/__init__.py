@@ -14,10 +14,11 @@ from pointnet2_scannet_tpu_torch.ops.cuda import (
     ball_query_kernel,
     fps_kernel,
     gather_kernel,
+    scatter_kernel,
     three_nn_kernel,
 )
 
-KERNELS = (fps_kernel, ball_query_kernel, gather_kernel, three_nn_kernel)
+KERNELS = (fps_kernel, ball_query_kernel, gather_kernel, three_nn_kernel, scatter_kernel)
 
 
 def reset_launch_counts() -> None:

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The four sources compile with nvcc into one shared library with a plain C
-interface, loaded through ctypes: no PyTorch headers are compiled, so a cold
-build takes seconds. The library is named after a hash of the sources and
+Each source compiles with its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface, loaded
+through ctypes: no PyTorch headers are compiled, so a cold build takes
+seconds. The library is named after a hash of the sources and
 the flags, so a changed source rebuilds and an unchanged one loads the
 library already built. Nothing here runs at import time; the first kernel
 launch builds.
@@ -21,15 +22,14 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fps.cu", "ball_query.cu", "gather.cu", "three_nn.cu")
+SOURCES = ("fps.cu", "ball_query.cu", "gather.cu", "three_nn.cu", "scatter_add.cu")
 HEADERS = ("sqdist.cuh",)
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
 # so every distance rounds like the plain PyTorch versions (see sqdist.cuh).
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _vp = ctypes.c_void_p
@@ -39,10 +39,11 @@ _SIGNATURES = {
     "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _vp, _vp],
     "p2_gather": [_vp, _vp, _i, _i, _i, _i, _vp, _vp],
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
+    "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp],
 }
 
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of the last nvcc run, if any
+build_seconds: float | None = None  # wall time of the last build, if any
 build_log: str = ""  # nvcc/ptxas output of the last build (registers, smem)
 
 
@@ -74,15 +75,39 @@ def library_path() -> pathlib.Path:
 def _build(target: pathlib.Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    stem = f"{target.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{pathlib.Path(s).stem}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{stem}.so.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    logs = []
+    try:
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        codes = []
+        for proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            codes.append(proc.returncode)
+        if not any(codes):
+            link = subprocess.run(
+                [_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            logs.append(link.stdout + link.stderr)
+            codes.append(link.returncode)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    if any(codes):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
 
 

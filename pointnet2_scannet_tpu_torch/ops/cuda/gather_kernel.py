@@ -6,8 +6,8 @@ Replaces pointnet2_scannet_tpu/ops/pallas/vmem_gather_kernel.py
 On the card the gather is bound by bytes; the rows on the serving path are 3
 to 259 words wide and unaligned, so the kernel reads one 32-bit word at a
 time but writes 4 consecutive output words per thread with one 16-byte
-store. Forward only: the scatter-add backward waits for its own kernel
-(ROADMAP queue 2, h).
+store. Its backward is the deterministic scatter-add of scatter_kernel.py,
+wired in ops/sampling.gather_points.
 """
 
 from __future__ import annotations
@@ -34,11 +34,6 @@ def gather_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) float32/int32 x (B, J) int32 on the card -> (B, J, C);
     launches gather.cu. Indices must lie in [0, N)."""
     global launches
-    if src.requires_grad:
-        raise NotImplementedError(
-            "gather_cuda is forward only; its scatter-add backward is ROADMAP "
-            "queue 2, h (run under torch.inference_mode())"
-        )
     build.require(src, "src", (torch.float32, torch.int32), 3)
     build.require(idx, "idx", (torch.int32,), 2)
     B, N, C = src.shape

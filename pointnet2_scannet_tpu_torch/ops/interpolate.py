@@ -2,8 +2,9 @@
 
 three_nn returns squared distances, ascending, lowest index on ties (the JAX
 package's ops/interpolate.py). three_interpolate is the gather form
-(interpolate.py:74-93): plain PyTorch on every device, since the JAX package
-leaves it to XLA and has no Pallas kernel for it.
+(interpolate.py:74-93): one gather_points of the 3n neighbour rows, so its
+gradient is the same deterministic scatter-add as every other gather's, then
+the weighted sum in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from pointnet2_scannet_tpu_torch.ops.cuda import on_cuda, three_nn_kernel
+from pointnet2_scannet_tpu_torch.ops.sampling import gather_points
 
 
 def three_nn(
@@ -28,8 +30,6 @@ def three_interpolate(
     """(B, m, C) x (B, n, 3) x (B, n, 3) -> (B, n, C):
     out[b, j] = sum_i weight[b, j, i] * points[b, idx[b, j, i]]."""
     B, n, _ = idx.shape
-    C = points.shape[-1]
-    index = idx.reshape(B, 3 * n, 1).to(torch.int64).expand(-1, -1, C)
-    g = torch.gather(points, 1, index).reshape(B, n, 3, C)
+    g = gather_points(points, idx.reshape(B, 3 * n)).reshape(B, n, 3, points.shape[-1])
     w = weight[..., None]
     return (g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1]) + g[:, :, 2] * w[:, :, 2]

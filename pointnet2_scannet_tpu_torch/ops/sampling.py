@@ -2,14 +2,21 @@
 
 The contract is the JAX package's ops/sampling.py: FPS seeds index 0, keeps
 a running min-distance (init 1e10), never picks |p|^2 <= 1e-3 by default, and
-breaks argmax ties to the lowest index; gather_points is a plain row gather.
+breaks argmax ties to the lowest index; gather_points is a plain row gather
+whose gradient is the deterministic scatter-add (the JAX package's
+vmem_gather custom_vjp, vmem_gather_kernel.py:111-151).
 """
 
 from __future__ import annotations
 
 import torch
 
-from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel, gather_kernel, on_cuda
+from pointnet2_scannet_tpu_torch.ops.cuda import (
+    fps_kernel,
+    gather_kernel,
+    on_cuda,
+    scatter_kernel,
+)
 
 
 def furthest_point_sample(
@@ -25,10 +32,29 @@ def furthest_point_sample(
     )
 
 
+class _GatherPoints(torch.autograd.Function):
+    """Row gather; backward sums each output row's gradient back onto its
+    source row in ascending output order (scatter_add.cu on the card)."""
+
+    @staticmethod
+    def forward(ctx, points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        if on_cuda(points):
+            return gather_kernel.gather_cuda(points.contiguous(), idx)
+        return gather_kernel.gather_plain(points, idx)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        grad = grad.contiguous()
+        if on_cuda(grad):
+            return scatter_kernel.scatter_add_cuda(idx, grad, ctx.n), None
+        return scatter_kernel.scatter_add_plain(idx, grad, ctx.n), None
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) x (B, M) int32 -> (B, M, C)."""
+    """(B, N, C) x (B, M) int32 -> (B, M, C), differentiable in points."""
     if on_cuda(points):
-        return gather_kernel.gather_cuda(
-            points.contiguous(), idx.to(torch.int32).contiguous()
-        )
-    return gather_kernel.gather_plain(points, idx)
+        idx = idx.to(torch.int32).contiguous()
+    return _GatherPoints.apply(points, idx)

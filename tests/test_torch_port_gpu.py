@@ -6,8 +6,14 @@ installed:
 
     python -m pytest --noconftest tests/test_torch_port_gpu.py -m gpu
 
-Indices, gathers and squared distances must be equal bit for bit.
+Indices, gathers, squared distances and scatter-adds must be equal bit for
+bit (the scatter-add against the plain version on CPU copies: the plain
+version's CUDA atomics add in no fixed order). A train step on the card
+matches one on the CPU to float32 matmul order and repeats bit for bit.
 """
+
+import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,6 +25,7 @@ from pointnet2_scannet_tpu_torch.ops.cuda import (
     ball_query_kernel as bq,
     fps_kernel as fps,
     gather_kernel as ga,
+    scatter_kernel as sc,
     three_nn_kernel as nn3,
 )
 
@@ -94,9 +101,11 @@ def test_gather_kernel_equals_plain(dev, c, dtype):
 
 
 def test_gather_kernel_is_forward_only(dev):
+    # the wrapper launches the forward alone; ops.gather_points carries the
+    # gradient (scatter_add.cu)
     src = torch.zeros((1, 8, 3), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        ga.gather_cuda(src, torch.zeros((1, 2), dtype=torch.int32, device=dev))
+    out = ga.gather_cuda(src.detach(), torch.zeros((1, 2), dtype=torch.int32, device=dev))
+    assert not out.requires_grad and out.grad_fn is None
     with pytest.raises(TypeError):
         ga.gather_cuda(torch.zeros((1, 8, 3), dtype=torch.float64, device=dev),
                        torch.zeros((1, 2), dtype=torch.int32, device=dev))
@@ -126,7 +135,9 @@ def test_small_model_on_the_card_matches_the_cpu(dev):
         want = model(pc)
         kernels.reset_launch_counts()
         got = model.to(dev)(pc.to(dev)).cpu()
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop(sc.NAME) == 0  # no backward under inference_mode
+    assert all(n > 0 for n in counts.values())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)  # f32 matmul order
 
 
@@ -139,4 +150,122 @@ def test_public_ops_launch_the_kernels(dev):
     ops.three_nn(xyz, new_xyz)
     assert kernels.launch_counts() == {
         "furthest_point_sample": 1, "ball_query": 1, "gather": 2, "three_nn": 1,
+        "scatter_add": 0,
     }
+
+
+# (J, N, C) of every gather gradient of the SSG train step (grouping at SA2-4,
+# interpolation at FP0-3), at batch 2
+SCATTER_SHAPES = [(8192, 1024, 67), (2048, 256, 131), (512, 64, 259), (24576, 1024, 128),
+                  (3072, 256, 256), (768, 64, 256), (192, 16, 512), (40, 7, 3)]
+
+
+@pytest.mark.parametrize("j,n,c", SCATTER_SHAPES)
+def test_scatter_kernel_equals_plain_on_cpu_copies(dev, j, n, c):
+    g = torch.Generator(device=dev).manual_seed(j + c)
+    idx = torch.randint(0, max(n * 3 // 4, 1), (2, j), generator=g, device=dev, dtype=torch.int32)
+    idx[:, ::5] = idx[:, :1]  # one row referenced many times; a quarter never
+    grad = torch.randn((2, j, c), generator=g, device=dev)
+    grad *= 10.0 ** (torch.rand((2, j, 1), generator=g, device=dev) * 6 - 3)
+    before = sc.launches
+    got = sc.scatter_add_cuda(idx, grad, n)
+    again = sc.scatter_add_cuda(idx, grad, n)
+    assert sc.launches == before + 2
+    _equal(got.cpu(), sc.scatter_add_plain(idx.cpu(), grad.cpu(), n))
+    _equal(again, got)
+
+
+def test_scatter_kernel_refuses_what_it_cannot_take(dev):
+    idx = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="n <="):
+        sc.scatter_add_cuda(idx, torch.zeros((1, 4, 3), device=dev), sc.MAX_N + 1)
+    with pytest.raises(TypeError):
+        sc.scatter_add_cuda(idx, torch.zeros((1, 4, 3), dtype=torch.float64, device=dev), 4)
+    with pytest.raises(ValueError, match="must lie on a CUDA device"):
+        sc.scatter_add_cuda(idx.cpu(), torch.zeros((1, 4, 3), device=dev), 4)
+
+
+@pytest.mark.parametrize("op", ["gather_points", "group_points", "three_interpolate"])
+def test_gather_gradients_on_the_card_equal_the_cpu(dev, op):
+    rng = np.random.default_rng(7)
+    src = torch.from_numpy(rng.normal(size=(2, 200, 35)).astype(np.float32))
+    if op == "three_interpolate":
+        idx = torch.from_numpy(rng.integers(0, 150, (2, 300, 3)).astype(np.int32))
+        w = torch.from_numpy(rng.uniform(0.1, 1, (2, 300, 3)).astype(np.float32))
+        fn = lambda s, i: ops.three_interpolate(s, i, w.to(s.device))  # noqa: E731
+    elif op == "group_points":
+        idx = torch.from_numpy(rng.integers(0, 150, (2, 40, 8)).astype(np.int32))
+        fn = ops.group_points
+    else:
+        idx = torch.from_numpy(rng.integers(0, 150, (2, 500)).astype(np.int32))
+        fn = ops.gather_points
+    out_shape = fn(src, idx).shape
+    g = torch.from_numpy(rng.normal(size=out_shape).astype(np.float32))
+    grads = []
+    kernels.reset_launch_counts()
+    for device in ("cpu", dev):
+        x = src.to(device, copy=True).requires_grad_(True)
+        fn(x, idx.to(device)).backward(g.to(device))
+        grads.append(x.grad.cpu())
+    assert kernels.launch_counts()[sc.NAME] == 1 and kernels.launch_counts()["gather"] == 1
+    _equal(grads[1], grads[0])
+
+
+def _train_setup(dropout):
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, ssg_spec
+
+    spec = dataclasses.replace(ssg_spec(20, 6), dropout=dropout)
+    model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    pc = np.concatenate([rng.uniform(0, 1.5, (2, 2048, 3)), rng.uniform(-1, 1, (2, 2048, 6))], -1)
+    labels = rng.integers(0, 20, (2, 2048))
+    batch = {"points": torch.from_numpy(pc.astype(np.float32)),
+             "labels": torch.from_numpy(labels.astype(np.int32)),
+             "weights": torch.from_numpy(rng.uniform(0.5, 2, (2, 2048)).astype(np.float32))}
+    schedule = ts.make_lr_schedule(1e-3, 100, 0.7, 1)
+    return ts, model, batch, schedule
+
+
+def _rel_l2(got, want):
+    return sorted(float((got[k].double() - w).norm() / w.norm()) for k, w in want.items())
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    # loss and BatchNorm statistics to float32 order; the gradients, whose
+    # train-mode BatchNorm backward cancels most of dy, against a float64
+    # step: the card's may be at most twice as far from it as the CPU's
+    ts, model, batch, schedule = _train_setup(0.0)
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), (dev, torch.float32)):
+        m = copy.deepcopy(model).to(device=device, dtype=dtype)
+        state = ts.create_train_state(m, schedule, seed=0)
+        b = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
+             for k, v in batch.items()}
+        res = ts.train_step(state, b, num_classes=20)
+        out[(str(device), dtype)] = (
+            float(res["loss"]), {n: p.grad.cpu() for n, p in m.named_parameters()},
+            {n: b.cpu() for n, b in m.named_buffers() if b.is_floating_point()})
+    ref = out[("cpu", torch.float64)][1]
+    (cpu_loss, cpu_g, cpu_b) = out[("cpu", torch.float32)]
+    (gpu_loss, gpu_g, gpu_b) = out[(str(dev), torch.float32)]
+    assert gpu_loss == pytest.approx(cpu_loss, rel=1e-4)
+    card, cpu = _rel_l2(gpu_g, ref), _rel_l2(cpu_g, ref)
+    assert card[-1] <= 2 * cpu[-1] and card[len(card) // 2] <= 2 * cpu[len(cpu) // 2]
+    for n, b in cpu_b.items():
+        torch.testing.assert_close(gpu_b[n], b, rtol=1e-4, atol=1e-4)
+
+
+def test_train_steps_on_the_card_repeat_bit_for_bit(dev):
+    ts, model, batch, schedule = _train_setup(0.5)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    kernels.reset_launch_counts()
+    states = []
+    for _ in range(2):
+        state = ts.create_train_state(copy.deepcopy(model).to(dev), schedule, seed=4)
+        for _ in range(2):
+            ts.train_step(state, batch, num_classes=20)
+        states.append(state.model.state_dict())
+    assert all(n > 0 for n in kernels.launch_counts().values())
+    for k, v in states[0].items():
+        assert torch.equal(states[1][k], v), k

@@ -188,7 +188,7 @@ def test_generator_init_is_seeded_he_normal():
 def test_unported_modes_raise_and_name_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
         pointnet2.get_model(20, is_msg=True)
-    model = pointnet2.get_model(5, input_channels=0)
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        model(torch.zeros((1, 128, 3)))
+    from pointnet2_scannet_tpu_torch.models.modules import SetAbstraction
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        SetAbstraction(64, (0.1, 0.2), (8, 16), ((8,), (8,)), 3)

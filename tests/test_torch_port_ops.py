@@ -283,11 +283,15 @@ def test_three_interpolate_matches_jax_and_oracle():
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
     kernels.reset_launch_counts()
-    xyz = _t(_cloud(60, (1, 128, 3)))
-    ops.ball_query(0.2, 8, xyz, ops.gather_points(xyz, ops.furthest_point_sample(xyz, 16)))
-    ops.three_nn(xyz, xyz[:, :16])
+    xyz = _t(_cloud(60, (1, 128, 3))).requires_grad_(True)
+    centroids = ops.gather_points(xyz, ops.furthest_point_sample(xyz.detach(), 16))
+    ops.ball_query(0.2, 8, xyz.detach(), centroids.detach())
+    ops.three_nn(xyz.detach(), xyz[:, :16].detach())
+    centroids.sum().backward()  # the gather's backward: the plain scatter-add
+    assert xyz.grad is not None
     assert kernels.launch_counts() == {
         "furthest_point_sample": 0, "ball_query": 0, "gather": 0, "three_nn": 0,
+        "scatter_add": 0,
     }
 
 
