@@ -5,8 +5,9 @@ paths and public names, keeps its channels-last layout ((B, N, C) and
 (B, M, K, C)) at every public function, and is held against it by tests that
 feed both the same numpy inputs. It imports torch and never jax.
 
-The four Pallas kernels of the serving path are hand-written CUDA kernels
-for Hopper here (ops/cuda/, csrc/); every other op is plain PyTorch.
+The six Pallas kernels of the SSG and MSG serving and training paths are
+hand-written CUDA kernels for Hopper here (ops/cuda/, csrc/); every other op
+is plain PyTorch.
 
 Float32 matrix products run in full float32: TF32 is switched off for both
 matmuls and cuDNN, since it keeps about three decimal digits and the port's

@@ -76,8 +76,8 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training fields, carried so a config.json round-trips; the port does
-    not train yet."""
+    """Training fields of a run, as the JAX package's config.json holds
+    them."""
 
     batch_size: int = 32
     epochs: int = 500

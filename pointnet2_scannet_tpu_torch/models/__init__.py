@@ -1,4 +1,4 @@
-"""The SSG segmentation model of the port and its building blocks."""
+"""The SSG and MSG segmentation models of the port and their building blocks."""
 
 from pointnet2_scannet_tpu_torch.models.convert import state_dict_from_jax
 from pointnet2_scannet_tpu_torch.models.layers import PointwiseMLP
@@ -7,6 +7,7 @@ from pointnet2_scannet_tpu_torch.models.pointnet2 import (
     PointNet2SemSeg,
     PointNet2Spec,
     get_model,
+    msg_spec,
     ssg_spec,
 )
 
@@ -17,6 +18,7 @@ __all__ = [
     "PointNet2Spec",
     "PointNet2SemSeg",
     "ssg_spec",
+    "msg_spec",
     "get_model",
     "state_dict_from_jax",
 ]

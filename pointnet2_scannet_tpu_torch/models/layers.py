@@ -1,4 +1,5 @@
-"""Pointwise MLP: Linear (no bias under BatchNorm), BatchNorm, ReLU.
+"""Pointwise MLP: Linear (no bias under BatchNorm), BatchNorm, ReLU; its
+layer 0 can also run before the neighbourhood gather (pregather).
 
 Channels-last: a 1x1 convolution over (B, N, C) or (B, M, K, C) is a Linear
 on the last axis. BatchNorm follows flax's nn.BatchNorm, which the JAX
@@ -24,6 +25,8 @@ from collections.abc import Sequence
 
 import torch
 from torch import nn
+
+from pointnet2_scannet_tpu_torch import ops
 
 # flax's he_normal draws a normal truncated at two standard deviations and
 # divides by this constant, the std of the standard normal truncated there
@@ -78,13 +81,51 @@ class PointwiseMLP(nn.Module):
                 getattr(self, f"bn_{i}").reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = len(self.widths)
-        for i in range(n):
-            x = getattr(self, f"dense_{i}")(x)
-            if self.bn:
-                x = _batch_norm(x, getattr(self, f"bn_{i}"), self.training)
-            if self.last_act or i < n - 1:
-                x = torch.relu(x)
+        for i in range(len(self.widths)):
+            x = self._bn_act(getattr(self, f"dense_{i}")(x), i)
+        return x
+
+    def pregather(
+        self,
+        xyz: torch.Tensor | None,
+        features: torch.Tensor,
+        idx: torch.Tensor,
+        new_xyz: torch.Tensor | None,
+    ) -> torch.Tensor:
+        """forward() over grouped neighbourhoods with layer 0 run on the
+        features at source resolution, before the neighbourhood gather (the
+        JAX package's PointwiseMLPPregather, layers.py:201-272).
+
+        A pointwise Linear commutes with a row gather, so layer 0 splits its
+        weight into xyz columns W_x and feature columns W_f:
+
+            dense_0([gxyz - c | gather(f)]) == gather(f @ W_f^T) + (gxyz - c) @ W_x^T (+ bias)
+
+        and the gather moves widths[0] channels instead of C; it differs
+        from forward(grouped) in float summation order only.
+
+        xyz (B, N, 3) and new_xyz (B, M, 3) for the use_xyz form (both None
+        otherwise), features (B, N, C) source rows, idx (B, M, K) ->
+        (B, M, K, widths[-1])."""
+        dense = self.dense_0
+        w_f = dense.weight if xyz is None else dense.weight[:, 3:]
+        x = ops.group_points(features @ w_f.t(), idx)  # (B, M, K, widths[0])
+        if xyz is not None:
+            # the centred 3-channel gather, then the xyz columns of the weight
+            x = x + ops.group_with_idx(idx, xyz, new_xyz, None) @ dense.weight[:, :3].t()
+        if dense.bias is not None:
+            x = x + dense.bias
+        x = self._bn_act(x, 0)
+        for i in range(1, len(self.widths)):
+            x = self._bn_act(getattr(self, f"dense_{i}")(x), i)
+        return x
+
+    def _bn_act(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Layer i's BatchNorm (+ReLU) after its Linear."""
+        if self.bn:
+            x = _batch_norm(x, getattr(self, f"bn_{i}"), self.training)
+        if self.last_act or i < len(self.widths) - 1:
+            x = torch.relu(x)
         return x
 
 

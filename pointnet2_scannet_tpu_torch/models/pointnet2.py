@@ -1,9 +1,9 @@
-"""PointNet++ semantic segmentation (SSG).
+"""PointNet++ semantic segmentation (SSG and MSG).
 
 The architecture of the JAX package's models/pointnet2.py: four set
-abstractions, four feature propagations run deepest first, then the head
-cls_fc (Linear, BN, ReLU), Dropout and cls_out (Linear and BN on the logits,
-no ReLU). Modules are named after the JAX parameter tree (sa_{k}.mlp_0,
+abstractions (one grouping scale each for SSG, two for MSG), four feature
+propagations run deepest first, then the head cls_fc (Linear, BN, ReLU),
+Dropout and cls_out (Linear and BN on the logits, no ReLU). Modules are named after the JAX parameter tree (sa_{k}.mlp_{s},
 fp_{k}.mlp, cls_fc, cls_out), so models/convert.py maps one to one. Input
 (B, N, 3 + C) channels-last; output (B, N, num_classes) float32.
 
@@ -66,6 +66,26 @@ def ssg_spec(num_classes: int = 20, input_channels: int = 0) -> PointNet2Spec:
             ((256, 256, 512),),
         ),
         fp_mlps=((128, 128), (256, 128), (256, 256), (256, 256)),
+    )
+
+
+def msg_spec(num_classes: int = 20, input_channels: int = 0) -> PointNet2Spec:
+    """Multi-scale grouping: npoints 1024/256/64/16, two radii per level
+    (0.05/0.1, 0.1/0.2, 0.2/0.4, 0.4/0.8) with 16 and 32 neighbours, one MLP
+    per scale."""
+    return PointNet2Spec(
+        num_classes=num_classes,
+        input_channels=input_channels,
+        npoints=(1024, 256, 64, 16),
+        radii=((0.05, 0.1), (0.1, 0.2), (0.2, 0.4), (0.4, 0.8)),
+        nsamples=((16, 32), (16, 32), (16, 32), (16, 32)),
+        sa_mlps=(
+            ((16, 16, 32), (32, 32, 64)),
+            ((64, 64, 128), (64, 96, 128)),
+            ((128, 196, 256), (128, 196, 256)),
+            ((256, 256, 512), (256, 384, 512)),
+        ),
+        fp_mlps=((128, 128), (256, 256), (512, 512), (512, 512)),
     )
 
 
@@ -147,7 +167,7 @@ def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) ->
 
 def get_model(
     num_classes: int,
-    is_msg: bool = False,
+    is_msg: bool = True,
     input_channels: int = 6,
     use_xyz: bool = True,
     bn: bool = True,
@@ -155,12 +175,9 @@ def get_model(
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> PointNet2SemSeg:
-    """Factory with the JAX package's get_model arguments (SSG only)."""
-    if is_msg:
-        raise NotImplementedError(
-            "the MSG model is not ported yet (ROADMAP queue 1, item 9)"
-        )
+    """Factory with the JAX package's get_model arguments and defaults (MSG
+    unless is_msg=False)."""
     spec = dataclasses.replace(
-        ssg_spec(num_classes, input_channels), use_xyz=use_xyz, bn=bn
+        (msg_spec if is_msg else ssg_spec)(num_classes, input_channels), use_xyz=use_xyz, bn=bn
     )
     return PointNet2SemSeg(spec, device=device, generator=generator)

@@ -8,6 +8,7 @@ from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
 from pointnet2_scannet_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from pointnet2_scannet_tpu_torch.ops.neighborhood import (
     ball_query,
+    ball_query_multi,
     group_all,
     group_points,
     group_with_idx,
@@ -20,6 +21,7 @@ __all__ = [
     "furthest_point_sample",
     "gather_points",
     "ball_query",
+    "ball_query_multi",
     "group_points",
     "group_with_idx",
     "query_and_group",

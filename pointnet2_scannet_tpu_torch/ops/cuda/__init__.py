@@ -12,13 +12,17 @@ from __future__ import annotations
 
 from pointnet2_scannet_tpu_torch.ops.cuda import (
     ball_query_kernel,
+    ball_query_multi_kernel,
     fps_kernel,
     gather_kernel,
     scatter_kernel,
     three_nn_kernel,
 )
 
-KERNELS = (fps_kernel, ball_query_kernel, gather_kernel, three_nn_kernel, scatter_kernel)
+KERNELS = (
+    fps_kernel, ball_query_kernel, gather_kernel, three_nn_kernel, scatter_kernel,
+    ball_query_multi_kernel,
+)
 
 
 def reset_launch_counts() -> None:

@@ -27,19 +27,23 @@ launches = 0
 def ball_query_plain(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> torch.Tensor:
-    """(B, N, 3) x (B, M, 3) -> (B, M, nsample) int32.
+    """(B, N, 3) x (B, M, 3) -> (B, M, nsample) int32; see first_hits."""
+    return first_hits(pairwise_sqdist(new_xyz, xyz), radius, nsample)
+
+
+def first_hits(d2: torch.Tensor, radius: float, nsample: int) -> torch.Tensor:
+    """(B, M, N) squared distances -> (B, M, nsample) int32.
 
     The first `nsample` indices with d^2 < r^2 in ascending order, the row
     padded with its first hit, all zeros for an empty ball. r^2 is taken in
     the distance dtype: f32(r) * f32(r) for float32, as the TPU kernel does.
     """
-    N = xyz.shape[1]
-    d2 = pairwise_sqdist(new_xyz, xyz)  # (B, M, N)
+    N = d2.shape[-1]
     np_dt = np.float64 if d2.dtype == torch.float64 else np.float32
     r = np_dt(radius)
     valid = d2 < torch.tensor(r * r, dtype=d2.dtype, device=d2.device)
-    iota = torch.arange(N, dtype=torch.int32, device=xyz.device)
-    sentinel = torch.tensor(N, dtype=torch.int32, device=xyz.device)
+    iota = torch.arange(N, dtype=torch.int32, device=d2.device)
+    sentinel = torch.tensor(N, dtype=torch.int32, device=d2.device)
     masked = torch.where(valid, iota, sentinel)
     k = min(nsample, N)
     # the values are the candidate indices themselves, so the k smallest in

@@ -22,7 +22,9 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fps.cu", "ball_query.cu", "gather.cu", "three_nn.cu", "scatter_add.cu")
+SOURCES = (
+    "fps.cu", "ball_query.cu", "ball_query_multi.cu", "gather.cu", "three_nn.cu", "scatter_add.cu",
+)
 HEADERS = ("sqdist.cuh",)
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
 # so every distance rounds like the plain PyTorch versions (see sqdist.cuh).
@@ -37,6 +39,8 @@ _i = ctypes.c_int
 _SIGNATURES = {
     "p2_fps": [_vp, _i, _i, _i, _i, _vp, _vp],
     "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _vp, _vp],
+    "p2_ball_query_multi": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, ctypes.c_float, _i,
+                            _vp, _vp, _vp],
     "p2_gather": [_vp, _vp, _i, _i, _i, _i, _vp, _vp],
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp],

@@ -2,15 +2,22 @@
 
 The contract is the JAX package's ops/neighborhood.py: ball_query keeps the
 first `nsample` in-radius indices in index order, pads a short row with its
-first hit and an empty ball with zeros; grouping concatenates
-[xyz - centroid | features] on the channel axis.
+first hit and an empty ball with zeros; ball_query_multi gives two such
+selections (the MSG levels' two radii) from one distance pass; grouping
+concatenates [xyz - centroid | features] on the channel axis.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
-from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel, on_cuda
+from pointnet2_scannet_tpu_torch.ops.cuda import (
+    ball_query_kernel,
+    ball_query_multi_kernel,
+    on_cuda,
+)
 from pointnet2_scannet_tpu_torch.ops.sampling import gather_points
 
 
@@ -23,6 +30,21 @@ def ball_query(
             radius, nsample, xyz.contiguous(), new_xyz.contiguous()
         )
     return ball_query_kernel.ball_query_plain(radius, nsample, xyz, new_xyz)
+
+
+def ball_query_multi(
+    radii: Sequence[float],
+    nsamples: Sequence[int],
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two radii at once: (B, N, 3) x (B, M, 3) -> ((B, M, k1), (B, M, k2))
+    int32, each equal to ball_query(radii[s], nsamples[s], xyz, new_xyz)."""
+    if on_cuda(xyz):
+        return ball_query_multi_kernel.ball_query_multi_cuda(
+            radii, nsamples, xyz.contiguous(), new_xyz.contiguous()
+        )
+    return ball_query_multi_kernel.ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

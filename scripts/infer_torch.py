@@ -1,10 +1,11 @@
 """Scene inference with the PyTorch + CUDA port (pointnet2_scannet_tpu_torch).
 
 The port's counterpart of scripts/infer.py: tile each scene into columns,
-run the eval-mode SSG forward on --device (the hand-written CUDA kernels on
-a GPU, their plain PyTorch versions on the CPU), argmax to labels, dedup the
-evaluated points, and write <out>/<sid>_pred.npy with (M, 4) [x y z label]
-rows, plus a palette PLY with --write_ply.
+run the eval-mode forward of the run's model (SSG or MSG, as its
+config.json says) on --device (the hand-written CUDA kernels on a GPU, their
+plain PyTorch versions on the CPU), argmax to labels, dedup the evaluated
+points, and write <out>/<sid>_pred.npy with (M, 4) [x y z label] rows, plus
+a palette PLY with --write_ply.
 
   python scripts/infer_torch.py --folder runs/X --synthetic --device cuda
   python scripts/infer_torch.py --folder runs/X --data_dir D --scene_list L

@@ -1,7 +1,8 @@
 """Training CLI of the PyTorch + CUDA port (pointnet2_scannet_tpu_torch).
 
-The port's counterpart of scripts/train.py, with its flags: chunked SSG
-semantic-segmentation training on --device (the hand-written CUDA kernels on
+The port's counterpart of scripts/train.py, with its flags: chunked
+semantic-segmentation training of the SSG model, or of the MSG model with
+--use_msg, on --device (the hand-written CUDA kernels on
 a GPU, their plain PyTorch versions on the CPU). Writes
 <output_root>/<timestamp>_<TAG>/ with config.json, info.json, model_best.pt
 and model_last.pt (state_dicts that scripts/infer_torch.py serves), their
@@ -9,6 +10,7 @@ and model_last.pt (state_dicts that scripts/infer_torch.py serves), their
 best.txt.
 
   python scripts/train_torch.py --synthetic --use_color --use_normal --device cuda
+  python scripts/train_torch.py --synthetic --use_color --use_normal --use_msg
   python scripts/train_torch.py --synthetic --synthetic_scenes 4 --npoints 256 \\
       --batch_size 4 --epoch 2 --device cpu
   python scripts/train_torch.py --resume outputs/<run> --epoch 4
@@ -31,7 +33,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 # flag -> (is it set?, what it asks for, ROADMAP queue 1 item)
 _UNPORTED = (
-    ("use_msg", lambda v: v, "the MSG model", 9),
     ("bf16", lambda v: v, "bfloat16 compute", 10),
     ("use_wholescene", lambda v: v, "whole-scene training", 5),
     ("device_store", lambda v: v, "the device-resident scene store", 13),
@@ -221,7 +222,7 @@ def parse_args(argv=None):
     p.add_argument("--no_bn", action="store_true")
     p.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP item 10)")
     p.add_argument("--no_xyz", action="store_true")
-    p.add_argument("--use_msg", action="store_true", help="not ported yet (ROADMAP item 9)")
+    p.add_argument("--use_msg", action="store_true", help="the multi-scale-grouping model")
     p.add_argument("--use_wholescene", action="store_true", help="not ported yet (ROADMAP item 5)")
     p.add_argument("--use_color", action="store_true")
     p.add_argument("--use_normal", action="store_true")

@@ -110,7 +110,7 @@ def test_predictor_pads_trims_and_matches_the_model(tmp_path):
 
     cfg = config.RunConfig(data=config.DataConfig(npoints=256))
     cfg.save(tmp_path / "config.json")
-    model = get_model(20, input_channels=0, generator=torch.Generator().manual_seed(1))
+    model = get_model(20, is_msg=False, input_channels=0, generator=torch.Generator().manual_seed(1))
     checkpoint.save_state_dict(tmp_path, "model_best", model.state_dict())
     pred = export.Predictor.from_run(tmp_path, batch_size=4, device="cpu", emit="logits")
     cols = np.random.default_rng(2).uniform(0, 1.5, (5, 256, 3)).astype(np.float32)

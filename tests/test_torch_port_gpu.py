@@ -8,8 +8,10 @@ installed:
 
 Indices, gathers, squared distances and scatter-adds must be equal bit for
 bit (the scatter-add against the plain version on CPU copies: the plain
-version's CUDA atomics add in no fixed order). A train step on the card
-matches one on the CPU to float32 matmul order and repeats bit for bit.
+version's CUDA atomics add in no fixed order), and the two-radius ball query
+equals two single-radius launches. Small SSG and MSG models on the card
+match the CPU to float32 matmul order; an SSG and an MSG train step on the
+card match one on the CPU and repeat bit for bit.
 """
 
 import copy
@@ -23,6 +25,7 @@ from pointnet2_scannet_tpu_torch import ops
 from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 from pointnet2_scannet_tpu_torch.ops.cuda import (
     ball_query_kernel as bq,
+    ball_query_multi_kernel as bqm,
     fps_kernel as fps,
     gather_kernel as ga,
     scatter_kernel as sc,
@@ -88,6 +91,39 @@ def test_ball_query_kernel_radius_boundary(dev):
     _equal(got, bq.ball_query_plain(0.25, 4, xyz, q))
 
 
+@pytest.mark.parametrize(
+    "radii,nsamples,n,m",
+    [((0.05, 0.1), (16, 32), 8192, 1024), ((0.1, 0.2), (16, 32), 1024, 256),
+     ((0.2, 0.4), (16, 32), 256, 64), ((0.4, 0.8), (16, 32), 64, 16),
+     ((0.5, 0.15), (40, 8), 300, 77), ((2.0, 0.3), (24, 33), 16, 5)],
+)
+def test_ball_query_multi_kernel_equals_plain_and_two_single_queries(dev, radii, nsamples, n, m):
+    xyz = _cloud(n + m + 1, (3, n, 3), dev)
+    q = xyz[:, :m].contiguous()
+    q[0, 0] = 10.0  # an empty ball: all zeros in both rows
+    before = bqm.launches
+    got = bqm.ball_query_multi_cuda(radii, nsamples, xyz, q)
+    assert bqm.launches == before + 1
+    want = bqm.ball_query_multi_plain(radii, nsamples, xyz, q)
+    for g, w, r, k in zip(got, want, radii, nsamples):
+        _equal(g, w)
+        _equal(g, bq.ball_query_cuda(r, k, xyz, q))
+
+
+def test_ball_query_multi_kernel_radius_boundary(dev):
+    r1, r2 = np.float32(0.25), np.float32(0.5)
+    xyz = torch.full((1, 64, 3), 3.0, device=dev)
+    xyz[0, 3] = torch.tensor([float(r1), 0.0, 0.0])
+    xyz[0, 4] = torch.tensor([float(np.nextafter(r1, np.float32(0))), 0.0, 0.0])
+    xyz[0, 7] = torch.tensor([float(r2), 0.0, 0.0])
+    q = torch.zeros((1, 1, 3), device=dev)
+    got = bqm.ball_query_multi_cuda((0.5, 0.25), (6, 4), xyz, q)
+    assert got[0].cpu().tolist() == [[[3, 4, 3, 3, 3, 3]]]
+    assert got[1].cpu().tolist() == [[[4, 4, 4, 4]]]
+    for g, w in zip(got, bqm.ball_query_multi_plain((0.5, 0.25), (6, 4), xyz, q)):
+        _equal(g, w)
+
+
 @pytest.mark.parametrize("c", [3, 9, 67, 131, 259])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 def test_gather_kernel_equals_plain(dev, c, dtype):
@@ -121,14 +157,26 @@ def test_three_nn_kernel_equals_plain(dev, n, m):
     _equal(got[1], want[1])
 
 
-def test_small_model_on_the_card_matches_the_cpu(dev):
+# small SSG and MSG models; the MSG one's second level takes the pregather
+# composition in float32 (c_in = 16 + 16 + 3 >= 2 * 16)
+SMALL_SPECS = {
+    "ssg": dict(num_classes=5, input_channels=3, npoints=(64, 16), radii=((0.3,), (0.6,)),
+                nsamples=((8,), (8,)), sa_mlps=(((8, 8, 16),), ((16, 16, 32),)),
+                fp_mlps=((16, 16), (32, 16)), cls_fc=(16,)),
+    "msg": dict(num_classes=5, input_channels=3, npoints=(64, 16),
+                radii=((0.2, 0.4), (0.4, 0.8)), nsamples=((8, 16), (8, 16)),
+                sa_mlps=(((8, 8, 16), (8, 16, 16)), ((16, 16, 32), (16, 24, 32))),
+                fp_mlps=((16, 16), (32, 16)), cls_fc=(16,)),
+}
+# the ball-query kernel a model of each kind never launches
+UNUSED_QUERY = {"ssg": bqm.NAME, "msg": bq.NAME}
+
+
+@pytest.mark.parametrize("kind", ["ssg", "msg"])
+def test_small_model_on_the_card_matches_the_cpu(dev, kind):
     from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, PointNet2Spec
 
-    spec = PointNet2Spec(
-        num_classes=5, input_channels=3, npoints=(64, 16), radii=((0.3,), (0.6,)),
-        nsamples=((8,), (8,)), sa_mlps=(((8, 8, 16),), ((16, 16, 32),)),
-        fp_mlps=((16, 16), (32, 16)), cls_fc=(16,),
-    )
+    spec = PointNet2Spec(**SMALL_SPECS[kind])
     model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(0))
     pc = torch.cat([_cloud(1, (2, 256, 3), "cpu"), _cloud(2, (2, 256, 3), "cpu", -1, 1)], -1)
     with torch.inference_mode():
@@ -137,6 +185,7 @@ def test_small_model_on_the_card_matches_the_cpu(dev):
         got = model.to(dev)(pc.to(dev)).cpu()
     counts = kernels.launch_counts()
     assert counts.pop(sc.NAME) == 0  # no backward under inference_mode
+    assert counts.pop(UNUSED_QUERY[kind]) == 0
     assert all(n > 0 for n in counts.values())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)  # f32 matmul order
 
@@ -147,10 +196,11 @@ def test_public_ops_launch_the_kernels(dev):
     idx = ops.furthest_point_sample(xyz[:, :, :], 64)
     new_xyz = ops.gather_points(xyz, idx)
     ops.query_and_group(0.2, 16, xyz, new_xyz, xyz)
+    ops.ball_query_multi((0.1, 0.2), (16, 32), xyz, new_xyz)
     ops.three_nn(xyz, new_xyz)
     assert kernels.launch_counts() == {
         "furthest_point_sample": 1, "ball_query": 1, "gather": 2, "three_nn": 1,
-        "scatter_add": 0,
+        "scatter_add": 0, "ball_query_multi": 1,
     }
 
 
@@ -211,11 +261,11 @@ def test_gather_gradients_on_the_card_equal_the_cpu(dev, op):
     _equal(grads[1], grads[0])
 
 
-def _train_setup(dropout):
+def _train_setup(dropout, kind="ssg"):
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
-    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, ssg_spec
+    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
 
-    spec = dataclasses.replace(ssg_spec(20, 6), dropout=dropout)
+    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=dropout)
     model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(3)
     pc = np.concatenate([rng.uniform(0, 1.5, (2, 2048, 3)), rng.uniform(-1, 1, (2, 2048, 6))], -1)
@@ -231,11 +281,12 @@ def _rel_l2(got, want):
     return sorted(float((got[k].double() - w).norm() / w.norm()) for k, w in want.items())
 
 
-def test_train_step_on_the_card_matches_the_cpu(dev):
+@pytest.mark.parametrize("kind", ["ssg", "msg"])
+def test_train_step_on_the_card_matches_the_cpu(dev, kind):
     # loss and BatchNorm statistics to float32 order; the gradients, whose
     # train-mode BatchNorm backward cancels most of dy, against a float64
     # step: the card's may be at most twice as far from it as the CPU's
-    ts, model, batch, schedule = _train_setup(0.0)
+    ts, model, batch, schedule = _train_setup(0.0, kind)
     out = {}
     for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), (dev, torch.float32)):
         m = copy.deepcopy(model).to(device=device, dtype=dtype)
@@ -256,8 +307,9 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
         torch.testing.assert_close(gpu_b[n], b, rtol=1e-4, atol=1e-4)
 
 
-def test_train_steps_on_the_card_repeat_bit_for_bit(dev):
-    ts, model, batch, schedule = _train_setup(0.5)
+@pytest.mark.parametrize("kind", ["ssg", "msg"])
+def test_train_steps_on_the_card_repeat_bit_for_bit(dev, kind):
+    ts, model, batch, schedule = _train_setup(0.5, kind)
     batch = {k: v.to(dev) for k, v in batch.items()}
     kernels.reset_launch_counts()
     states = []
@@ -266,6 +318,8 @@ def test_train_steps_on_the_card_repeat_bit_for_bit(dev):
         for _ in range(2):
             ts.train_step(state, batch, num_classes=20)
         states.append(state.model.state_dict())
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop(UNUSED_QUERY[kind]) == 0
+    assert all(n > 0 for n in counts.values())
     for k, v in states[0].items():
         assert torch.equal(states[1][k], v), k

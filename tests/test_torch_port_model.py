@@ -79,9 +79,10 @@ def _both(spec_kwargs, batch, n, seed):
     return jm, variables, pm, pc
 
 
-@pytest.mark.parametrize("which", ["small", "ssg"])
+@pytest.mark.parametrize("which", ["small", "ssg", "msg"])
 def test_state_dict_from_jax_covers_every_tensor(which):
-    kwargs = SMALL if which == "small" else dataclasses.asdict(jmodel.ssg_spec(20, 6))
+    specs = {"ssg": jmodel.ssg_spec, "msg": jmodel.msg_spec}
+    kwargs = SMALL if which == "small" else dataclasses.asdict(specs[which](20, 6))
     spec = pointnet2.PointNet2Spec(**kwargs)
     jm = jmodel.PointNet2SemSeg(spec=jmodel.PointNet2Spec(**kwargs))
     x = jnp.zeros((1, 128, 3 + spec.input_channels), jnp.float32)
@@ -174,9 +175,9 @@ def test_feature_propagation_matches_jax():
 
 
 def test_generator_init_is_seeded_he_normal():
-    a = pointnet2.get_model(20, input_channels=6, generator=torch.Generator().manual_seed(7))
-    b = pointnet2.get_model(20, input_channels=6, generator=torch.Generator().manual_seed(7))
-    c = pointnet2.get_model(20, input_channels=6, generator=torch.Generator().manual_seed(8))
+    a, b, c = (pointnet2.get_model(20, is_msg=False, input_channels=6,
+                                   generator=torch.Generator().manual_seed(seed))
+               for seed in (7, 7, 8))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     w = sa["fp_0.mlp.dense_0.weight"]  # (128, 134)
@@ -185,10 +186,13 @@ def test_generator_init_is_seeded_he_normal():
     assert float(w.abs().max()) <= 2 * (2.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
 
 
-def test_unported_modes_raise_and_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        pointnet2.get_model(20, is_msg=True)
-    from pointnet2_scannet_tpu_torch.models.modules import SetAbstraction
-
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        SetAbstraction(64, (0.1, 0.2), (8, 16), ((8,), (8,)), 3)
+def test_get_model_builds_msg_by_default_with_the_jax_parameter_count():
+    model = pointnet2.get_model(20)  # is_msg=True, as in the JAX package
+    assert model.spec == pointnet2.PointNet2Spec(**dataclasses.asdict(jmodel.msg_spec(20, 6)))
+    assert pointnet2.get_model(20, is_msg=True).spec == model.spec
+    jm = jmodel.get_model(20)
+    variables = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 128, 9)), train=False))
+    n_params = sum(np.size(v) for v in jax.tree_util.tree_leaves(variables["params"]))
+    n_stats = sum(np.size(v) for v in jax.tree_util.tree_leaves(variables["batch_stats"]))
+    assert sum(p.numel() for p in model.parameters()) == n_params
+    assert sum(b.numel() for k, b in model.named_buffers() if b.is_floating_point()) == n_stats

@@ -286,12 +286,13 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     xyz = _t(_cloud(60, (1, 128, 3))).requires_grad_(True)
     centroids = ops.gather_points(xyz, ops.furthest_point_sample(xyz.detach(), 16))
     ops.ball_query(0.2, 8, xyz.detach(), centroids.detach())
+    ops.ball_query_multi((0.1, 0.2), (4, 8), xyz.detach(), centroids.detach())
     ops.three_nn(xyz.detach(), xyz[:, :16].detach())
     centroids.sum().backward()  # the gather's backward: the plain scatter-add
     assert xyz.grad is not None
     assert kernels.launch_counts() == {
         "furthest_point_sample": 0, "ball_query": 0, "gather": 0, "three_nn": 0,
-        "scatter_add": 0,
+        "scatter_add": 0, "ball_query_multi": 0,
     }
 
 
@@ -308,8 +309,9 @@ def test_tensor_on_another_device_raises():
         lambda x: kernels.ball_query_kernel.ball_query_cuda(0.1, 4, x, x),
         lambda x: kernels.gather_kernel.gather_cuda(x, torch.zeros((1, 2), dtype=torch.int32)),
         lambda x: kernels.three_nn_kernel.three_nn_cuda(x, x),
+        lambda x: kernels.ball_query_multi_kernel.ball_query_multi_cuda((0.1, 0.2), (4, 8), x, x),
     ],
-    ids=["fps", "ball_query", "gather", "three_nn"],
+    ids=["fps", "ball_query", "gather", "three_nn", "ball_query_multi"],
 )
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA device"):

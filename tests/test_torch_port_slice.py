@@ -1,10 +1,10 @@
 """The serving slice end to end on the CPU, and the port's import boundary.
 
-A JAX run dir (config.json + JAX-initialised model_best.msgpack) goes
-through scripts/jax_to_torch.py and is served by scripts/infer_torch.py
---device cpu --synthetic; its labels must agree with the JAX forward's
-argmax on the same columns for at least 99.9% of the points (the logits
-differ only by f32 matmul summation order).
+A JAX run dir (config.json + JAX-initialised model_best.msgpack), of the SSG
+model and of the MSG model, goes through scripts/jax_to_torch.py and is
+served by scripts/infer_torch.py --device cpu --synthetic; its labels must
+agree with the JAX forward's argmax on the same columns for at least 99.9%
+of the points (the logits differ only by f32 matmul summation order).
 """
 
 import importlib.util
@@ -40,16 +40,18 @@ def _script(name):
     return mod
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
-    run = tmp_path_factory.mktemp("jax_run")
+def _jax_run(run, is_msg, npoints):
+    """A JAX run dir with JAX-initialised weights, converted by
+    scripts/jax_to_torch.py."""
+    run.mkdir(parents=True, exist_ok=True)
     cfg = jconfig.RunConfig(
         tag="slice",
-        data=jconfig.DataConfig(npoints=NPOINTS, use_color=True, use_normal=True),
+        data=jconfig.DataConfig(npoints=npoints, use_color=True, use_normal=True),
+        model=jconfig.ModelConfig(is_msg=is_msg),
     )
     cfg.save(run / "config.json")
-    model = jmodel.get_model(20, is_msg=False, input_channels=6)
-    x = jnp.zeros((1, NPOINTS, 9), jnp.float32)
+    model = jmodel.get_model(20, is_msg=is_msg, input_channels=6)
+    x = jnp.zeros((1, npoints, 9), jnp.float32)
     variables = jax.jit(lambda k: model.init(k, x, train=False))(jax.random.PRNGKey(9))
     variables = _randomize_bn(variables, 9)
     (run / "model_best.msgpack").write_bytes(flax.serialization.msgpack_serialize(variables))
@@ -57,9 +59,12 @@ def jax_run(tmp_path_factory):
     return run, cfg, model, variables
 
 
-def test_jax_to_torch_writes_the_converted_state_dict(jax_run):
-    run, _, _, variables = jax_run
-    spec = pointnet2.ssg_spec(20, 6)
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return _jax_run(tmp_path_factory.mktemp("jax_run"), False, NPOINTS)
+
+
+def _assert_converted(run, variables, spec):
     got = checkpoint.load_state_dict(run, "model_best")
     want = convert.state_dict_from_jax(variables, spec)
     assert set(got) == set(want)
@@ -68,14 +73,29 @@ def test_jax_to_torch_writes_the_converted_state_dict(jax_run):
     pointnet2.PointNet2SemSeg(spec).load_state_dict(got, strict=True)
 
 
+def test_jax_to_torch_writes_the_converted_state_dict(jax_run):
+    run, _, _, variables = jax_run
+    _assert_converted(run, variables, pointnet2.ssg_spec(20, 6))
+
+
+def test_jax_msg_run_converts_and_serves(tmp_path):
+    run, cfg, model, variables = _jax_run(tmp_path / "run", True, 512)
+    _assert_converted(run, variables, pointnet2.msg_spec(20, 6))
+    _assert_served_labels_agree(run, cfg, model, variables, tmp_path / "pred")
+
+
 def test_infer_torch_labels_agree_with_the_jax_forward(jax_run, tmp_path):
-    run, cfg, model, variables = jax_run
+    _assert_served_labels_agree(*jax_run, tmp_path)
+
+
+def _assert_served_labels_agree(run, cfg, model, variables, tmp_path):
+    npoints = cfg.data.npoints
     infer_torch = _script("infer_torch")
     stats = infer_torch.infer(infer_torch.parse_args([
         "--folder", str(run), "--device", "cpu", "--synthetic", "--synthetic_scenes", "1",
         "--batch_size", "8", "--out", str(tmp_path), "--write_ply",
     ]))
-    assert stats["scenes"] == 1 and stats["points"] == stats["columns"] * NPOINTS
+    assert stats["scenes"] == 1 and stats["points"] == stats["columns"] * npoints
     got = np.load(tmp_path / "synth0000_00_pred.npy")
     assert (tmp_path / "synth0000_00_pred.ply").is_file()
 

@@ -100,7 +100,7 @@ def test_resume_restores_the_whole_train_state(run):
     from pointnet2_scannet_tpu_torch.models import get_model
 
     run_dir, _, _ = run
-    model = get_model(20, input_channels=6, generator=torch.Generator().manual_seed(1))
+    model = get_model(20, is_msg=False, input_channels=6, generator=torch.Generator().manual_seed(1))
     state = ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=5)
     meta = checkpoint.restore_checkpoint(run_dir, "model_last", state)
     saved = torch.load(run_dir / "model_last.train.pt", weights_only=True)
@@ -128,9 +128,28 @@ def test_infer_torch_serves_the_run_dir(run, tmp_path):
         assert set(np.unique(pred[:, 3])) <= set(range(20))
 
 
+def test_msg_run_trains_and_infer_torch_serves_it(tmp_path):
+    run_dir, _, log = _train([*BASE, "--use_msg", "--epoch", "1", "--tag", "msg",
+                              "--output_root", str(tmp_path / "runs")])
+    losses = re.findall(r"^epoch \[1/1\] iter \[1/1\] loss (\S+) point_acc", log, re.M)
+    assert len(losses) == 1 and np.isfinite(float(losses[0]))
+    assert json.loads((run_dir / "config.json").read_text())["model"]["is_msg"] is True
+    state = checkpoint.load_state_dict(run_dir, "model_best")
+    assert state["sa_0.mlp_1.dense_0.weight"].shape == (32, 9)  # the second scale
+    infer_torch = _script("infer_torch")
+    stats = infer_torch.infer(infer_torch.parse_args([
+        "--folder", str(run_dir), "--device", "cpu", "--synthetic", "--batch_size", "8",
+        "--out", str(tmp_path / "pred"),
+    ]))
+    assert stats["scenes"] == 1 and stats["points"] == stats["columns"] * 256
+    pred = np.load(tmp_path / "pred" / "synth0000_00_pred.npy")
+    assert pred.shape[1] == 4 and np.isfinite(pred).all()
+    assert set(np.unique(pred[:, 3])) <= set(range(20))
+
+
 @pytest.mark.parametrize(
     "flag",
-    [["--use_msg"], ["--bf16"], ["--use_wholescene"], ["--device_store"], ["--num_devices", "2"],
+    [["--bf16"], ["--use_wholescene"], ["--device_store"], ["--num_devices", "2"],
      ["--tp", "2"], ["--dist_coordinator", "localhost:1234"], ["--dist_nprocs", "2"],
      ["--dist_auto"]],
     ids=lambda f: f[0].lstrip("-"),

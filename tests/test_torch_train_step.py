@@ -1,5 +1,7 @@
 """The port's train step against the JAX package's production train_step
-(pointnet2_scannet_tpu.engine.train_state.train_step) over a trajectory.
+(pointnet2_scannet_tpu.engine.train_state.train_step) over a trajectory, for
+a small SSG model and a small MSG model (whose second level takes the
+pregather composition in float32, in both packages).
 
 Both start from the same JAX-initialised weights (BatchNorm statistics
 randomised), moved by models/convert.state_dict_from_jax, with Dropout off
@@ -40,6 +42,7 @@ from pointnet2_scannet_tpu.engine import train_state as jts
 from pointnet2_scannet_tpu.models import pointnet2 as jmodel
 from pointnet2_scannet_tpu_torch.engine import train_state as ts
 from pointnet2_scannet_tpu_torch.models import convert, pointnet2
+from tests.test_torch_msg_port import SMALL_MSG
 from tests.test_torch_port_model import SMALL, _randomize_bn
 
 B, N, STEPS, DECAY_EPOCHS, DECAY, LR = 2, 256, 6, 3, 0.7, 1e-3
@@ -81,9 +84,13 @@ def _flat_jax(variables, pspec):
     return {k: np.asarray(v, np.float64) for k, v in convert.state_dict_from_jax(variables, pspec).items()}
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_train_trajectory_matches_jax_train_step(dtype):
-    spec_kwargs = dict(SMALL, dropout=0.0)
+@pytest.mark.parametrize(
+    "spec,dtype",
+    [("ssg", "float64"), ("ssg", "float32"), ("msg", "float64"), ("msg", "float32")],
+    ids=["float64", "float32", "msg-float64", "msg-float32"],
+)
+def test_train_trajectory_matches_jax_train_step(spec, dtype):
+    spec_kwargs = dict(SMALL if spec == "ssg" else SMALL_MSG, dropout=0.0)
     jspec, pspec = jmodel.PointNet2Spec(**spec_kwargs), pointnet2.PointNet2Spec(**spec_kwargs)
     batches = _batches(dtype)
     jm = jmodel.PointNet2SemSeg(spec=jspec)
