@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. The card: torch's device name and nvidia-smi's name and power limit.
-2. Build the six CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
+2. Build the nine CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
 3. Each forward kernel against its plain PyTorch version on the card at the
    SSG serving path's shapes (32 columns of 8192 points, the four levels):
    indices and gathers must be equal bit for bit; both times from CUDA events
@@ -22,36 +22,62 @@
    of phases 3 and 4.
 7. The MSG model with its pregather gate as it stands (on at SA3, SA4) and
    forced off: eval logits must agree; the serving forward and the train
-   step at batch 32 x 8192 timed side by side.
-8. Serve synthetic scenes through scripts/infer_torch.py, the SSG model then
+   step at batch 32 x 8192 timed side by side. One forward under the
+   MXU-gather configuration (P1, below) must launch e and give the default
+   configuration's logits bit for bit.
+8. The kernels that a switch or a shape selects, each bit for bit against
+   its plain version and timed beside it, beside its older counterpart and
+   the library call: the shared-memory gather (e) at every gather the SSG
+   model takes through the MXU route (the MXU-gather configuration, P1) and
+   at scripts/bench_gather.py's shapes (B 32, N 8192, J 32768, C 9/32/64);
+   the shared-memory scatter-add (f) at P1's train-step backwards and at
+   those shapes, also against itself across two launches; the split gather
+   (g, e's kernel through its own wrapper) at those shapes; the query-major
+   3-NN (j) at FP0 of 7936-point columns and at n = m = 8192.
+9. Serve synthetic scenes through scripts/infer_torch.py, the SSG model then
    the MSG model, at full width (xyz + color + normal, 8192-point columns,
    batch 32, float32) with weights drawn from a seeded generator: the
    prediction files must hold labels in [0, 20), every forward kernel of the
    model's path must have moved its launch counter in that run (and no
    other), one batch's logits must agree with the plain path on the CPU, and
    the steady batch is timed.
-9. Train through scripts/train_torch.py at the same width, SSG then MSG
-   (--use_msg): 32 synthetic scenes, batch 32, 3 epochs of one step and one
-   validation each. Losses must be finite, the run dir's artifacts must
-   exist, and every kernel of the path must have moved its counter in that
-   run.
-10. For SSG then MSG: one train step on the card against one on the CPU (2
+10. Train through scripts/train_torch.py at the same width, SSG then MSG
+    (--use_msg): 32 synthetic scenes, batch 32, 3 epochs of one step and one
+    validation each. Losses must be finite, the run dir's artifacts must
+    exist, and every kernel of the path must have moved its counter in that
+    run.
+11. For SSG then MSG: one train step on the card against one on the CPU (2
     full-width columns, Dropout off): loss, gradients and BatchNorm
     statistics within the stated bounds; two train steps on the card from
     one state and batch must give the same bits; the steady-state train
     step at batch 32 x 8192 (forward, loss, backward, Adam, confusion
     matrix), timed with CUDA events, and its peak device memory.
-11. Print one JSON line of kernel results (time, plain time, the card's bound
+12. P1, the SSG model under the MXU-gather configuration
+    (ops_config.vmem_gather = False, mxu_gather = True, set in process and
+    restored after): phases 9 to 11 again, with e and f on the path; then
+    the steady serving forward and train step timed beside the default
+    configuration's, in the order default, P1, P1, default.
+13. P2, the SSG model at chunk sizes that are not 8192 under the default
+    configuration: train 3 steps and serve at 8000 points (not a multiple of
+    128: FP0 routes to XLA's top-k in the JAX package, so to three_nn.cu
+    here) and at 7936 (a multiple of 256 that the known-major kernel's
+    512-query tile does not divide: FP0 routes to j, once per forward).
+14. scripts/bench_gather_torch.py, g's entry point, at its shapes: every
+    forward equal to torch.gather's, the ordered backwards equal.
+15. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
-    computes the same function), the card line, and last
-    {"ok": true, "device": {...}}.
+    computes the same function, the older counterpart's time where there is
+    one), the card line, and last {"ok": true, "device": {...}}.
 
-Any failure raises and exits non-zero; so does a run without a CUDA device or
-outside a checkout of the repository.
+Each run of phases 9, 10, 12, 13 and 14 starts with every launch counter at
+0 and must launch every kernel of its path and no other. Any failure raises
+and exits non-zero; so does a run without a CUDA device or outside a
+checkout of the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import pathlib
@@ -88,12 +114,18 @@ TRAIN_BN_TOL = 1e-4
 # tensor cores over their peak rate. Operations counted per kernel: FPS 10
 # per point and step (d^2 8, running min 1, argmax compare 1); ball query 9
 # per point a query's scan reads up to its k-th hit (d^2 8, 1 compare), the
-# two-radius one 10 (2 compares) over the longer of its two scans; 3-NN 9
-# per pair; the scatter-add 1 per added word; the gather none. Bytes: each
-# input read once, each output written once; of a gather's source, the
-# distinct rows its indices name in this run.
+# two-radius one 10 (2 compares) over the longer of its two scans; either
+# 3-NN 9 per pair; either scatter-add 1 per added word; every gather none.
+# Bytes: each input read once, each output written once; of a gather's
+# source, the distinct rows its indices name in this run.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the MXU-gather configuration (P1); P2's chunk sizes; bench_gather's shapes
+MXU_CONFIG = {"vmem_gather": False, "mxu_gather": True}
+P2_NPOINTS = (8000, 7936)
+BENCH_N, BENCH_J, BENCH_C = 8192, 32768, (9, 32, 64)
+# kernels that only a switch, a shape or a bench script selects
+OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split"}
 
 
 def card_line() -> str:
@@ -171,8 +203,9 @@ class Tally:
             "bound_by": max(spent, key=spent.get),
             "library_ms": self.total("library_ms"),
         }
-        if self.total("two_single_ms") is not None:
-            row["two_single_ms"] = self.total("two_single_ms")
+        for key in ("two_single_ms", "counterpart_ms"):
+            if self.total(key) is not None:
+                row[key] = self.total(key)
         return row
 
 
@@ -232,12 +265,12 @@ def scan_points(torch, x, q, radius: float, k: int):
     return out
 
 
-def serving_columns(n_scenes: int):
+def serving_columns(n_scenes: int, npoints: int = NPOINTS):
     """Whole-scene columns of the synthetic scenes the serving run uses."""
     from pointnet2_scannet_tpu_torch.config import DataConfig
     from pointnet2_scannet_tpu_torch.data import WholeSceneDataset, make_synthetic_store
 
-    cfg = DataConfig(npoints=NPOINTS, use_color=True, use_normal=True)
+    cfg = DataConfig(npoints=npoints, use_color=True, use_normal=True)
     ds = WholeSceneDataset(make_synthetic_store(n_scenes, seed=1000), cfg, seed=0)
     import numpy as np
 
@@ -307,40 +340,46 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
 
 
 def check_scatter(torch, tally, path, backward) -> None:
-    """Phases 4 and 6: the scatter-add kernel against its plain version on
-    CPU copies (which adds in ascending j, as the kernel does) and against a
-    second launch, bit for bit; times against the plain version on the card
-    (unordered atomics) and against scatter_add_ on an int64 index made
-    beforehand."""
+    """Phases 4, 6 and 8: a scatter-add kernel (the tally's: scatter_add.cu,
+    or scatter_smem.cu with scatter_add.cu as its counterpart) against the
+    plain version on CPU copies (which adds in ascending j, as the kernels
+    do) and against a second launch, bit for bit; times against the plain
+    version on the card (unordered atomics) and against scatter_add_ on an
+    int64 index made beforehand."""
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
 
+    mod = tally.module
+    kernel = getattr(mod, f"{mod.NAME}_cuda")
+    extra = {} if mod is sc else {"counterpart_ms": sc.scatter_add_cuda}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for label, idx, n, c in sorted(backward, key=lambda b: b[0]):
         j = idx.shape[1]
         g = torch.randn((BATCH, j, c), generator=gen, device="cuda")
         g *= 10.0 ** (torch.rand((BATCH, j, 1), generator=gen, device="cuda") * 6 - 3)
-        got = sc.scatter_add_cuda(idx, g, n)
-        again = sc.scatter_add_cuda(idx, g, n)
+        got = kernel(idx, g, n)
+        again = kernel(idx, g, n)
         want = sc.scatter_add_plain(idx.cpu(), g.cpu(), n)
         got = got.cpu()
         err = float((got.double() - want.double()).abs().max())
         equal = torch.equal(got, want)
         repeat = torch.equal(again.cpu(), got)
         index = idx.long().unsqueeze(-1).expand(BATCH, j, c)
-        ms = cuda_ms(lambda: sc.scatter_add_cuda(idx, g, n), torch)
+        ms = cuda_ms(lambda: kernel(idx, g, n), torch)
         plain_ms = cuda_ms(lambda: sc.scatter_add_plain(idx, g, n), torch)
         library_ms = cuda_ms(lambda: torch.zeros((BATCH, n, c), device="cuda").scatter_add_(
             1, index, g), torch)
+        more = {k: cuda_ms(lambda: fn(idx, g, n), torch) for k, fn in extra.items()}
         nbytes, nops = 4 * BATCH * (j + j * c + n * c), BATCH * j * c
-        tally.add(path, ms, plain_ms, err, nbytes, nops, library_ms)
+        tally.add(path, ms, plain_ms, err, nbytes, nops, library_ms, **more)
         b, by = bound_ms(nbytes, nops)
-        print(f"kernel scatter_add {path.upper()} {label} (B={BATCH}, J={j}, N={n}, C={c}): "
-              f"{ms:.4f} ms, plain on the card {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-              f"bound {b:.4f} ms ({by}), max_abs_err vs CPU plain {err}, "
+        print(f"kernel {mod.NAME} {path.upper()} {label} (B={BATCH}, J={j}, N={n}, C={c}): "
+              f"{ms:.4f} ms, plain on the card {plain_ms:.4f} ms, library {library_ms:.4f} ms"
+              + "".join(f", {k} {v:.4f} ms" for k, v in more.items())
+              + f", bound {b:.4f} ms ({by}), max_abs_err vs CPU plain {err}, "
               f"{'equal' if equal else 'DIFFERENT'}, second launch "
               f"{'equal' if repeat else 'DIFFERENT'}", flush=True)
         if not (equal and repeat):
-            raise RuntimeError(f"scatter_add {label}: kernel differs from the CPU plain version "
+            raise RuntimeError(f"{mod.NAME} {label}: kernel differs from the CPU plain version "
                                f"or from its own second launch (max_abs_err {err})")
 
 
@@ -423,9 +462,12 @@ def time_pregather(torch) -> None:
     stands (on at SA3 and SA4 in float32) and forced off (the unfused
     composition at every level). The eval logits of the two must agree;
     the serving forward and the train step are timed with CUDA events, in
-    the order on, off, off, on."""
+    the order on, off, off, on. The switches of P1 are process-wide, so the
+    gate-on forward runs under MXU_CONFIG too: its logits must equal the
+    default configuration's bit for bit, with gather_smem.cu launched."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.models import SetAbstraction
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
     batch = train_batch(torch, BATCH, "cuda")
     state = fresh_state(torch, 0.5, "cuda", "msg")
@@ -450,6 +492,16 @@ def time_pregather(torch) -> None:
         logits[on] = forward()
     torch.testing.assert_close(logits[True], logits[False], rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
     err = float((logits[True] - logits[False]).abs().max())
+    gate(True)
+    before = kernels.launch_counts()
+    with switches(**MXU_CONFIG):
+        mxu = forward()
+    ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+    print(f"MSG under P1's switches (B={BATCH} x {NPOINTS}): launches {ran}; eval logits vs the "
+          f"default configuration max_abs_err {float((mxu - logits[True]).abs().max())}", flush=True)
+    if not ran.get("gather_smem") or not torch.equal(mxu, logits[True]):
+        raise RuntimeError("the MSG forward under P1's switches launched no gather_smem kernel "
+                           "or differs from the default configuration's")
     times = {(on, what): [] for on in (True, False) for what in ("serve forward", "train step")}
     for on in (True, False, False, True):
         gate(on)
@@ -463,23 +515,124 @@ def time_pregather(torch) -> None:
                       for (on, what), ms in times.items()), flush=True)
 
 
-def on_path(kind: str, training: bool) -> tuple[set, set]:
-    """(kernels a run of the model must launch, kernels it must not)."""
+@contextlib.contextmanager
+def switches(**fields):
+    """Set ops_config fields for the duration, then restore them."""
+    from pointnet2_scannet_tpu_torch.ops import tuning
+
+    saved = {k: getattr(tuning.ops_config, k) for k in fields}
+    for k, v in fields.items():
+        setattr(tuning.ops_config, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(tuning.ops_config, k, v)
+
+
+def check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats) -> None:
+    """Phase 8: e, f, g and j bit for bit against their plain versions, timed
+    beside them, their older counterparts (d, h, d, i) and the library call.
+    The P1 shapes are the gathers that gather_route sends to the MXU route in
+    the SSG model under MXU_CONFIG, listed from LEVELS."""
+    from pointnet2_scannet_tpu_torch.ops import tuning
+    from pointnet2_scannet_tpu_torch.ops.cuda import (
+        ball_query_kernel as bq,
+        gather_kernel as ga,
+        gather_smem_kernel as gs,
+        gather_split_kernel as gsp,
+        three_nn_kernel as nn3,
+        three_nn_q_kernel as nnq,
+    )
+
+    def gathers(tally, path, label, src, idx, kernel, plain):
+        (b, _, c), j = src.shape, idx.shape[1]
+        index = idx.long().unsqueeze(-1).expand(-1, -1, c)
+        check(torch, tally, path, label, lambda: kernel(src, idx), lambda: plain(src, idx),
+              4 * (distinct_rows(idx) * c + b * j + b * j * c), 0,
+              library_fn=lambda: torch.gather(src, 1, index),
+              counterpart_ms=lambda: ga.gather_cuda(src, idx))
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    backward = []
+    with switches(**MXU_CONFIG):
+        for k, (n_in, n_out, radius, c) in enumerate(LEVELS):
+            x, q = xyz[k], xyz[k + 1]
+            feats = input_feats if k == 0 else torch.randn((BATCH, n_in, c), generator=gen, device="cuda")
+            nidx = bq.ball_query_cuda(radius, NSAMPLE, x, q).reshape(BATCH, -1)
+            for what, src, idx, grad in (
+                ("centroids", x, fps_idx[k], False),
+                ("grouping", torch.cat([x, feats], dim=-1).contiguous(), nidx, k > 0),
+            ):
+                (_, n, width), j = src.shape, idx.shape[1]
+                if tuning.gather_route(n, j, width, src.dtype) != "mxu":
+                    continue
+                gathers(tallies[gs.NAME], "p1", f"gather_smem P1 SA{k + 1} {what} ({BATCH},{n},{width})x{j}",
+                        src, idx, gs.gather_smem_cuda, gs.gather_smem_plain)
+                if grad:
+                    backward.append((f"SA{k + 1} grouping", idx, n, width))
+    check_scatter(torch, tallies["scatter_smem"], "p1", backward)
+
+    backward = []
+    for c in BENCH_C:
+        src = torch.randn((BATCH, BENCH_N, c), generator=gen, device="cuda")
+        idx = torch.randint(0, BENCH_N, (BATCH, BENCH_J), generator=gen, device="cuda", dtype=torch.int32)
+        shape = f"({BATCH},{BENCH_N},{c})x{BENCH_J}"
+        gathers(tallies[gs.NAME], "bench", f"gather_smem bench {shape}", src, idx,
+                gs.gather_smem_cuda, gs.gather_smem_plain)
+        gathers(tallies[gsp.NAME], "bench", f"gather_split bench {shape}", src, idx,
+                gsp.gather_split_cuda, gsp.gather_split_plain)
+        backward.append((f"bench C={c:02d}", idx, BENCH_N, c))
+    check_scatter(torch, tallies["scatter_smem"], "bench", backward)
+
+    # FP0 of 7936-point columns (their first 7936 points, the level-1
+    # centroids as the known set) and n = m = 8192 (another column's points)
+    for path, unknown, known in (("p2", xyz[0][:, :P2_NPOINTS[1]].contiguous(), xyz[1]),
+                                 ("m>4096", xyz[0], xyz[0].roll(1, dims=0).contiguous())):
+        n, m = unknown.shape[1], known.shape[1]
+        if tuning.three_nn_route(n, m) != "q":
+            raise RuntimeError(f"three_nn n={n} m={m} does not route to the query-major kernel")
+        check(torch, tallies[nnq.NAME], path, f"three_nn_q n={n} m={m}",
+              lambda: nnq.three_nn_q_cuda(unknown, known), lambda: nnq.three_nn_q_plain(unknown, known),
+              4 * BATCH * (3 * n + 3 * m + 6 * n), 9 * BATCH * n * m,
+              counterpart_ms=lambda: nn3.three_nn_cuda(unknown, known))
+        got, want = nnq.three_nn_q_cuda(unknown, known), nn3.three_nn_cuda(unknown, known)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"three_nn_q n={n} m={m} differs from three_nn.cu")
+
+
+def on_path(kind: str, training: bool, config: str = "default", npoints: int = NPOINTS) -> tuple[set, set]:
+    """(kernels a run of the model must launch, kernels it must not), under
+    the default configuration or P1's ("mxu"), at a column size."""
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops.tuning import three_nn_route
 
     other_query = "ball_query_multi" if kind == "ssg" else "ball_query"
     names = {k.NAME for k in kernels.KERNELS}
+    on = set()
+    if config == "mxu":
+        on |= {"gather_smem", "scatter_smem"} if training else {"gather_smem"}
+    if three_nn_route(npoints, 1024) == "q":  # FP0
+        on.add("three_nn_q")
     # serving runs under inference_mode: no backward, so no scatter-add
-    off = {other_query} | (set() if training else {"scatter_add"})
+    off = {other_query} | (set() if training else {"scatter_add"}) | (OFF_BY_DEFAULT - on)
     return names - off, off
 
 
-def check_launches(launches: dict, kind: str, training: bool, what: str) -> None:
-    want, off = on_path(kind, training)
+def check_launches(launches: dict, kind: str, training: bool, what: str,
+                   config: str = "default", npoints: int = NPOINTS) -> None:
+    want, off = on_path(kind, training, config, npoints)
     missing = sorted(k for k in want if launches[k] == 0)
     stray = sorted(k for k in off if launches[k] != 0)
     if missing or stray:
         raise RuntimeError(f"the {what} run launched no {missing} kernel, or launched {stray}")
+    # every forward runs FPS at the 4 levels and 3-NN at the 4 FP levels,
+    # FP0 through the query-major kernel where it routes there
+    forwards, rest = divmod(launches["furthest_point_sample"], 4)
+    q = forwards if "three_nn_q" in want else 0
+    if rest or launches["three_nn_q"] != q or launches["three_nn"] != 4 * forwards - q:
+        raise RuntimeError(f"the {what} run made {forwards} forwards but launched 3-NN "
+                           f"{launches['three_nn']} + {launches['three_nn_q']} (query-major) times")
 
 
 def load_script(name: str):
@@ -489,8 +642,9 @@ def load_script(name: str):
     return mod
 
 
-def serve(torch, tmp: pathlib.Path, kind: str) -> dict:
-    """Phase 8: the serving path end to end, through the kernels."""
+def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS) -> dict:
+    """Phases 9, 12 and 13: the serving path end to end, through the
+    kernels."""
     import numpy as np
 
     from pointnet2_scannet_tpu_torch.config import DataConfig, ModelConfig, RunConfig
@@ -499,12 +653,12 @@ def serve(torch, tmp: pathlib.Path, kind: str) -> dict:
     from pointnet2_scannet_tpu_torch.models import get_model
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = kind.upper()
-    run = tmp / f"run_{kind}"
+    name = f"{kind.upper()} ({config} config, {npoints}-point columns)"
+    run = tmp / f"run_{kind}_{config}_{npoints}"
     run.mkdir()
     RunConfig(
         tag="chip_smoke",
-        data=DataConfig(npoints=NPOINTS, use_color=True, use_normal=True),
+        data=DataConfig(npoints=npoints, use_color=True, use_normal=True),
         model=ModelConfig(is_msg=kind == "msg"),
     ).save(run / "config.json")
     model = get_model(20, is_msg=kind == "msg", input_channels=6,
@@ -525,7 +679,7 @@ def serve(torch, tmp: pathlib.Path, kind: str) -> dict:
     launches = kernels.launch_counts()
     print(f"serve {name}: launches {launches}", flush=True)
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    check_launches(launches, kind, False, f"{name} serving")
+    check_launches(launches, kind, False, f"{name} serving", config, npoints)
 
     files = sorted(out_dir.glob("*_pred.npy"))
     if len(files) != 4:
@@ -542,14 +696,14 @@ def serve(torch, tmp: pathlib.Path, kind: str) -> dict:
           f"end to end {stats['total_s']:.3f} s; peak device memory "
           f"{stats['peak_gib']:.2f} GiB", flush=True)
 
-    batch = serving_columns(2)[:BATCH]
+    batch = serving_columns(2, npoints)[:BATCH]
     gpu = Predictor.from_run(run, batch_size=BATCH, emit="logits", device="cuda")
     cpu = Predictor.from_run(run, batch_size=BATCH, emit="logits", device="cpu")
     got, want = gpu.predict(batch), cpu.predict(batch)
     err = float(np.abs(got - want).max())
     print(f"logits {name}: card vs CPU plain path over {batch.shape}: max_abs_err {err} "
           f"(max |logit| {float(np.abs(want).max())})", flush=True)
-    if got.shape != (len(batch), NPOINTS, 20) or not np.isfinite(got).all():
+    if got.shape != (len(batch), npoints, 20) or not np.isfinite(got).all():
         raise RuntimeError(f"logits of shape {got.shape} or not finite")
     np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
 
@@ -563,7 +717,7 @@ def serve(torch, tmp: pathlib.Path, kind: str) -> dict:
     times.sort()
     dt = times[len(times) // 2]
     stats["steady_columns_per_s"] = len(batch) / dt
-    stats["steady_points_per_s"] = len(batch) * NPOINTS / dt
+    stats["steady_points_per_s"] = len(batch) * npoints / dt
     print(f"serve {name} steady state: batch of {len(batch)} columns in {dt * 1e3:.2f} ms median "
           f"of {len(times)} (min {times[0] * 1e3:.2f}, max {times[-1] * 1e3:.2f}): "
           f"{stats['steady_columns_per_s']:.1f} columns/s, "
@@ -575,19 +729,21 @@ def serve(torch, tmp: pathlib.Path, kind: str) -> dict:
     return stats
 
 
-def train_cli(torch, tmp: pathlib.Path, kind: str) -> dict:
-    """Phase 9: training through scripts/train_torch.py, through the kernels."""
+def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS) -> dict:
+    """Phases 10, 12 and 13: training through scripts/train_torch.py,
+    through the kernels."""
     import math
 
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = kind.upper()
+    name = f"{kind.upper()} ({config} config, {npoints}-point columns)"
     train_torch = load_script("train_torch")
     args = train_torch.parse_args([
         "--synthetic", "--synthetic_scenes", str(BATCH), "--batch_size", str(BATCH),
-        "--epoch", "3", "--npoints", str(NPOINTS), "--use_color", "--use_normal",
+        "--epoch", "3", "--npoints", str(npoints), "--use_color", "--use_normal",
         "--verbose", "1", "--device", "cuda", "--tag", "chip_smoke",
-        "--output_root", str(tmp / f"train_{kind}"), *(["--use_msg"] if kind == "msg" else []),
+        "--output_root", str(tmp / f"train_{kind}_{config}_{npoints}"),
+        *(["--use_msg"] if kind == "msg" else []),
     ])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -599,7 +755,7 @@ def train_cli(torch, tmp: pathlib.Path, kind: str) -> dict:
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train {name}: launches {launches}", flush=True)
-    check_launches(launches, kind, True, f"{name} training")
+    check_launches(launches, kind, True, f"{name} training", config, npoints)
     for f in ("model_best.pt", "model_last.pt", "config.json", "best.txt",
               "model_last.train.pt", "tensorboard/all_scalars.json"):
         if not (run_dir / f).is_file():
@@ -610,7 +766,7 @@ def train_cli(torch, tmp: pathlib.Path, kind: str) -> dict:
     losses = [v for _, v in scalars["train/loss"]] + [v for _, v in scalars["val/loss"]]
     if len(scalars["train/loss"]) != 3 or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"train/val losses {losses}: not 3 epochs of finite values")
-    print(f"train {name}: 3 steps of {BATCH} x {NPOINTS} and 3 validations in {took:.2f} s; "
+    print(f"train {name}: 3 steps of {BATCH} x {npoints} and 3 validations in {took:.2f} s; "
           f"losses {losses}; best val voxel mIoU {best['voxel_miou']:.4f}; peak device memory "
           f"{peak:.2f} GiB", flush=True)
     return {"launches": launches, "peak_gib": peak}
@@ -647,10 +803,10 @@ def grad_errors(got: dict, want: dict) -> list:
                   reverse=True)
 
 
-def train_step_card_vs_cpu(torch, kind: str) -> None:
-    """Phase 10a: one train step from the same weights on the card and on the
-    CPU (float32 both, and float64 on the CPU as the reference), Dropout
-    off."""
+def train_step_card_vs_cpu(torch, kind: str, config: str = "default") -> None:
+    """Phases 11 and 12: one train step from the same weights on the card
+    and on the CPU (float32 both, and float64 on the CPU as the reference),
+    Dropout off."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
     out = {}
@@ -672,7 +828,7 @@ def train_step_card_vs_cpu(torch, kind: str) -> None:
     med = len(card) // 2
     bn_err = max(float((gpu_b[k] - b).abs().max()) for k, b in cpu_b.items())
     loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    print(f"train step {kind.upper()} card vs CPU (2 x {NPOINTS}): loss {gpu_loss} vs {cpu_loss} "
+    print(f"train step {kind.upper()} ({config} config) card vs CPU (2 x {NPOINTS}): loss {gpu_loss} vs {cpu_loss} "
           f"(rel {loss_err:.2e}); BatchNorm stats max abs err {bn_err:.2e}; gradients, per-tensor "
           f"relative L2 over {len(card)} tensors, worst / median: card vs CPU float32 "
           f"{direct[0][0]:.2e} ({direct[0][1]}) / {direct[med][0]:.2e}; vs CPU float64: card "
@@ -688,18 +844,22 @@ def train_step_card_vs_cpu(torch, kind: str) -> None:
         torch.testing.assert_close(gpu_b[k], b, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
 
 
-def train_step_repeat_and_time(torch, kind: str) -> dict:
-    """Phase 10b and 10c: two identical steps on the card give the same bits;
-    then the warm step at batch 32, timed with CUDA events."""
+def train_step_repeat_and_time(torch, kind: str, config: str = "default") -> dict:
+    """Phases 11 and 12: two identical steps on the card give the same bits
+    and launch the kernels of the configuration's path; then the warm step
+    at batch 32, timed with CUDA events."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = kind.upper()
+    name = f"{kind.upper()} ({config} config)"
     batch = train_batch(torch, BATCH, "cuda")
     states = []
+    kernels.reset_launch_counts()
     for _ in range(2):
         state = fresh_state(torch, 0.5, "cuda", kind)
         ts.train_step(state, batch, num_classes=20)
         states.append(state.model.state_dict())
+    check_launches(kernels.launch_counts(), kind, True, f"{name} determinism", config)
     differ = [k for k, v in states[0].items() if not torch.equal(states[1][k], v)]
     print(f"train step {name} determinism (B={BATCH}, Dropout 0.5): {len(states[0])} tensors, "
           f"{len(differ)} differ", flush=True)
@@ -728,6 +888,60 @@ def train_step_repeat_and_time(torch, kind: str) -> dict:
           f"{len(times)} (min {times[0]:.2f}, max {times[-1]:.2f}): {pps:.0f} points/s; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return {"ms": ms, "points_per_s": pps}
+
+
+def time_configs(torch) -> None:
+    """Phase 12: the SSG model's steady serving forward and train step at
+    32 x 8192 under the default configuration and P1's, timed with CUDA
+    events in the order default, P1, P1, default; the eval logits of the
+    two must agree."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    batch = train_batch(torch, BATCH, "cuda")
+    state = fresh_state(torch, 0.5, "cuda", "ssg")
+    model = state.model
+
+    def forward():
+        model.eval()
+        with torch.inference_mode():
+            return model(batch["points"])
+
+    logits = {}
+    with switches(**MXU_CONFIG):
+        logits["p1"] = forward()
+    logits["default"] = forward()
+    err = float((logits["p1"] - logits["default"]).abs().max())
+    if not torch.equal(logits["p1"], logits["default"]):
+        raise RuntimeError(f"SSG eval logits differ between the configurations ({err})")
+    times = {(c, what): [] for c in ("default", "p1") for what in ("serve forward", "train step")}
+    for config in ("default", "p1", "p1", "default"):
+        with switches(**(MXU_CONFIG if config == "p1" else {})):
+            times[(config, "serve forward")].append(cuda_ms(forward, torch))
+            times[(config, "train step")].append(
+                cuda_ms(lambda: ts.train_step(state, batch, num_classes=20), torch))
+    print(f"configurations SSG (B={BATCH} x {NPOINTS}): eval logits default vs P1 equal; "
+          + "; ".join(f"{what} {c} " + " / ".join(f"{t:.3f}" for t in ms) + " ms"
+                      for (c, what), ms in times.items()), flush=True)
+
+
+def bench_gather(torch) -> dict:
+    """Phase 14: scripts/bench_gather_torch.py at its shapes, a few calls of
+    each lowering; returns its launch counts."""
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    bench = load_script("bench_gather_torch")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    bench.run("cuda", reps=5)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"bench_gather_torch: launches {launches}", flush=True)
+    want = {"gather", "gather_smem", "gather_split", "scatter_add", "scatter_smem"}
+    missing = sorted(k for k in want if launches[k] == 0)
+    stray = sorted(k for k, n in launches.items() if k not in want and n)
+    if missing or stray:
+        raise RuntimeError(f"bench_gather_torch launched no {missing} kernel, or launched {stray}")
+    return launches
 
 
 def main() -> int:
@@ -762,6 +976,7 @@ def main() -> int:
     backward = check_msg_gathers(torch, tallies, xyz, input_feats, multi_idx)
     check_scatter(torch, tallies["scatter_add"], "msg", backward)
     time_pregather(torch)
+    check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats)
     del backward, multi_idx, xyz, fps_idx, input_feats
     for name, t in tallies.items():
         for path, p in t.paths.items():
@@ -769,15 +984,30 @@ def main() -> int:
                 f"{k} {v:.4f}" for k, v in p.items() if v is not None), flush=True)
 
     launches = {name: 0 for name in tallies}
+
+    def tally(run: dict) -> None:
+        for name, n in run["launches"].items():
+            launches[name] += n
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = pathlib.Path(tmp)
         for model_kind in KINDS:
-            for run in (serve(torch, pathlib.Path(tmp), model_kind),
-                        train_cli(torch, pathlib.Path(tmp), model_kind)):
-                for name, n in run["launches"].items():
-                    launches[name] += n
+            tally(serve(torch, tmp, model_kind))
+            tally(train_cli(torch, tmp, model_kind))
+        with switches(**MXU_CONFIG):  # phase 12: P1
+            tally(serve(torch, tmp, "ssg", "mxu"))
+            tally(train_cli(torch, tmp, "ssg", "mxu"))
+        for npoints in P2_NPOINTS:  # phase 13: P2
+            tally(train_cli(torch, tmp, "ssg", npoints=npoints))
+            tally(serve(torch, tmp, "ssg", npoints=npoints))
     for model_kind in KINDS:
         train_step_card_vs_cpu(torch, model_kind)
         train_step_repeat_and_time(torch, model_kind)
+    with switches(**MXU_CONFIG):
+        train_step_card_vs_cpu(torch, "ssg", "mxu")
+        train_step_repeat_and_time(torch, "ssg", "mxu")
+    time_configs(torch)
+    tally({"launches": bench_gather(torch)})
 
     print(json.dumps({"kernels": [t.row(launches[name]) for name, t in tallies.items()]}))
     print(card_line())

@@ -15,13 +15,18 @@ from pointnet2_scannet_tpu_torch.ops.cuda import (
     ball_query_multi_kernel,
     fps_kernel,
     gather_kernel,
+    gather_smem_kernel,
+    gather_split_kernel,
     scatter_kernel,
+    scatter_smem_kernel,
     three_nn_kernel,
+    three_nn_q_kernel,
 )
 
 KERNELS = (
     fps_kernel, ball_query_kernel, gather_kernel, three_nn_kernel, scatter_kernel,
-    ball_query_multi_kernel,
+    ball_query_multi_kernel, gather_smem_kernel, scatter_smem_kernel, three_nn_q_kernel,
+    gather_split_kernel,
 )
 
 

@@ -24,6 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "fps.cu", "ball_query.cu", "ball_query_multi.cu", "gather.cu", "three_nn.cu", "scatter_add.cu",
+    "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu",
 )
 HEADERS = ("sqdist.cuh",)
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "p2_gather": [_vp, _vp, _i, _i, _i, _i, _vp, _vp],
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp],
+    "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_three_nn_q": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -145,6 +149,13 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def sm_count(t) -> int:
+    """Streaming multiprocessors of the card that holds the tensor."""
+    import torch
+
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def ptr(t) -> ctypes.c_void_p:

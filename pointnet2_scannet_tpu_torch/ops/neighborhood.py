@@ -47,10 +47,13 @@ def ball_query_multi(
     return ball_query_multi_kernel.ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
 
 
-def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) x (B, M, K) -> (B, M, K, C)."""
+def group_points(
+    points: torch.Tensor, idx: torch.Tensor, *, use_mxu: bool | None = None
+) -> torch.Tensor:
+    """(B, N, C) x (B, M, K) -> (B, M, K, C): gather_points over the M * K
+    flattened indices, routed as it is."""
     B, M, K = idx.shape
-    out = gather_points(points, idx.reshape(B, M * K))
+    out = gather_points(points, idx.reshape(B, M * K), use_mxu=use_mxu)
     return out.reshape(B, M, K, points.shape[-1])
 
 

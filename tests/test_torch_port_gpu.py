@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from pointnet2_scannet_tpu_torch import ops
+from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, PointNet2Spec
 from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 from pointnet2_scannet_tpu_torch.ops.cuda import (
     ball_query_kernel as bq,
@@ -170,6 +171,8 @@ SMALL_SPECS = {
 }
 # the ball-query kernel a model of each kind never launches
 UNUSED_QUERY = {"ssg": bqm.NAME, "msg": bq.NAME}
+# kernels that only a switch (ops_config), a shape or a bench script selects
+OFF_BY_DEFAULT = ("gather_smem", "scatter_smem", "three_nn_q", "gather_split")
 
 
 @pytest.mark.parametrize("kind", ["ssg", "msg"])
@@ -186,6 +189,7 @@ def test_small_model_on_the_card_matches_the_cpu(dev, kind):
     counts = kernels.launch_counts()
     assert counts.pop(sc.NAME) == 0  # no backward under inference_mode
     assert counts.pop(UNUSED_QUERY[kind]) == 0
+    assert all(counts.pop(k) == 0 for k in OFF_BY_DEFAULT)
     assert all(n > 0 for n in counts.values())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)  # f32 matmul order
 
@@ -200,7 +204,7 @@ def test_public_ops_launch_the_kernels(dev):
     ops.three_nn(xyz, new_xyz)
     assert kernels.launch_counts() == {
         "furthest_point_sample": 1, "ball_query": 1, "gather": 2, "three_nn": 1,
-        "scatter_add": 0, "ball_query_multi": 1,
+        "scatter_add": 0, "ball_query_multi": 1, **dict.fromkeys(OFF_BY_DEFAULT, 0),
     }
 
 
@@ -320,6 +324,195 @@ def test_train_steps_on_the_card_repeat_bit_for_bit(dev, kind):
         states.append(state.model.state_dict())
     counts = kernels.launch_counts()
     assert counts.pop(UNUSED_QUERY[kind]) == 0
+    assert all(counts.pop(k) == 0 for k in OFF_BY_DEFAULT)
     assert all(n > 0 for n in counts.values())
     for k, v in states[0].items():
         assert torch.equal(states[1][k], v), k
+
+
+# --- the kernels of the MXU-gather configuration and of the query-major 3-NN
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def _special_source(b, n, c, dev, seed):
+    """Float32 rows with -0.0, +-inf and NaN among random values."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randn((b, n, c), generator=g, device=dev)
+    flat = src.view(-1)
+    flat[::7] = -0.0
+    flat[3::11] = float("inf")
+    flat[5::13] = float("-inf")
+    flat[2::17] = float("nan")
+    return src
+
+
+# (B, N, J, C): plan()'s row groups on an H100 (test_torch_port_ops.py holds
+# them) include one row a block (N = 40) and ragged groups (N = 300 and
+# 100); then P1's SA1 grouping and bench_gather's shapes at full width
+SMEM_GATHER_SHAPES = [
+    (2, 256, 384, 8), (2, 1024, 8192, 67), (2, 256, 2048, 131), (3, 300, 1000, 9), (2, 40, 640, 5),
+    (2, 4096, 512, 384), (1, 12288, 256, 128), (2, 100, 333, 40), (32, 8192, 32768, 9),
+    (32, 8192, 32768, 64),
+]
+
+
+@pytest.mark.parametrize("b,n,j,c", SMEM_GATHER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_gather_smem_kernel_equals_plain(dev, b, n, j, c, dtype):
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_smem_kernel as gs
+
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    if dtype == torch.float32:
+        src = _special_source(b, n, c, dev, n + c)
+    else:
+        src = torch.randint(-2**31, 2**31 - 1, (b, n, c), generator=g, device=dev, dtype=dtype)
+    idx = torch.randint(0, n, (b, j), generator=g, device=dev, dtype=torch.int32)
+    before = gs.launches
+    _same_bits(gs.gather_smem_cuda(src, idx), gs.gather_smem_plain(src, idx))
+    assert gs.launches == before + 1
+
+
+def test_gather_split_kernel_equals_plain(dev):
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_smem_kernel as gs
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_split_kernel as gsp
+
+    src = _special_source(2, 1024, 64, dev, 5)
+    idx = torch.randint(0, 1024, (2, 4096), device=dev, dtype=torch.int32)
+    before = (gs.launches, gsp.launches)
+    _same_bits(gsp.gather_split_cuda(src, idx), gsp.gather_split_plain(src, idx))
+    assert (gs.launches, gsp.launches) == (before[0], before[1] + 1)
+    with pytest.raises(TypeError):
+        gsp.gather_split_cuda(src.to(torch.int32), idx)
+
+
+# (B, N, J, C): plan()'s split on an H100 includes ragged channel slices
+# (C = 67, 131, 40), ragged row groups (N = 300, 128) and one row a block
+# (N = 60 on 120 SMs or more); then P1's train-step backward at full width
+# (SA2 and SA3 groupings) and bench_gather's widest shape
+SMEM_SCATTER_SHAPES = [
+    (2, 256, 384, 8), (2, 1024, 8192, 67), (2, 256, 2048, 131), (3, 300, 1000, 9), (2, 128, 640, 40),
+    (1, 12288, 4096, 16), (2, 60, 700, 5), (32, 1024, 8192, 67), (32, 256, 2048, 131),
+    (32, 8192, 32768, 64),
+]
+
+
+@pytest.mark.parametrize("b,n,j,c", SMEM_SCATTER_SHAPES)
+def test_scatter_smem_kernel_equals_plain_on_cpu_copies(dev, b, n, j, c):
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    g = torch.Generator(device=dev).manual_seed(j + c)
+    idx = torch.randint(0, max(n * 3 // 4, 1), (b, j), generator=g, device=dev, dtype=torch.int32)
+    idx[:, ::5] = idx[:, :1]  # one row referenced many times; a quarter never
+    idx[:, 1:40] = idx[:, 1:2]  # a run of one row inside a group of 32
+    grad = torch.randn((b, j, c), generator=g, device=dev)
+    grad *= 10.0 ** (torch.rand((b, j, 1), generator=g, device=dev) * 6 - 3)
+    grad.view(-1)[::9] = -0.0
+    before = ss.launches
+    got = ss.scatter_smem_cuda(idx, grad, n)
+    again = ss.scatter_smem_cuda(idx, grad, n)
+    assert ss.launches == before + 2
+    _same_bits(got.cpu(), ss.scatter_smem_plain(idx.cpu(), grad.cpu(), n))
+    _same_bits(again, got)
+    _same_bits(got, sc.scatter_add_cuda(idx, grad, n))
+
+
+def test_scatter_smem_kernel_refuses_what_it_cannot_take(dev):
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    idx = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="n <="):
+        ss.scatter_smem_cuda(idx, torch.zeros((1, 4, 3), device=dev), ss.MAX_N + 1)
+    with pytest.raises(TypeError):
+        ss.scatter_smem_cuda(idx, torch.zeros((1, 4, 3), dtype=torch.float64, device=dev), 4)
+
+
+# (B, n, m): the routed shapes (FP0 at 7936 points, n = m = 8192, a query
+# count under 256), small and ragged ones, duplicates for ties
+@pytest.mark.parametrize("b,n,m", [(32, 7936, 1024), (2, 8192, 8192), (2, 200, 128), (2, 768, 1024),
+                                   (2, 8000, 1024), (3, 7, 3), (2, 50, 33), (1, 300, 2500)])
+def test_three_nn_q_kernel_equals_plain_and_three_nn(dev, b, n, m):
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_q_kernel as nnq
+
+    unknown = _cloud(n, (b, n, 3), dev)
+    known = _cloud(m + 1, (b, m, 3), dev)
+    known[-1, m // 2:] = known[-1, : m - m // 2].clone()  # duplicates: exact ties
+    unknown[0, :2] = known[0, :2]  # d^2 = 0
+    before = nnq.launches
+    got = nnq.three_nn_q_cuda(unknown, known)
+    assert nnq.launches == before + 1
+    for want in (nnq.three_nn_q_plain(unknown, known), nn3.three_nn_cuda(unknown, known)):
+        _same_bits(got[0], want[0])
+        _equal(got[1], want[1])
+
+
+@pytest.fixture
+def mxu_config(monkeypatch):
+    """The MXU-gather configuration: ops_config.vmem_gather off, mxu_gather
+    on, restored afterwards."""
+    from pointnet2_scannet_tpu_torch.ops import tuning
+
+    monkeypatch.setattr(tuning.ops_config, "vmem_gather", False)
+    monkeypatch.setattr(tuning.ops_config, "mxu_gather", True)
+
+
+@pytest.mark.parametrize("op", ["mxu_gather", "mxu_gather_split", "group_points"])
+def test_mxu_gather_gradients_on_the_card_equal_the_cpu(dev, mxu_config, op):
+    from pointnet2_scannet_tpu_torch.ops import mxu_gather as mg
+
+    rng = np.random.default_rng(8)
+    src = torch.from_numpy(rng.normal(size=(2, 256, 35)).astype(np.float32))
+    if op == "group_points":
+        idx = torch.from_numpy(rng.integers(0, 200, (2, 64, 8)).astype(np.int32))
+        fn = ops.group_points
+    else:
+        idx = torch.from_numpy(rng.integers(0, 200, (2, 640)).astype(np.int32))
+        fn = getattr(mg, op)
+    g = torch.from_numpy(rng.normal(size=tuple(idx.shape) + (35,)).astype(np.float32))
+    grads = []
+    kernels.reset_launch_counts()
+    for device in ("cpu", dev):
+        x = src.to(device, copy=True).requires_grad_(True)
+        fn(x, idx.to(device)).backward(g.to(device))
+        grads.append(x.grad.cpu())
+    counts = kernels.launch_counts()
+    forward, backward = ("gather_split", sc.NAME) if op == "mxu_gather_split" else ("gather_smem", "scatter_smem")
+    assert counts[forward] == 1 and counts[backward] == 1 and counts["gather"] == 0
+    _equal(grads[1], grads[0])
+
+
+def test_train_step_under_the_mxu_config_matches_the_cpu(dev, mxu_config):
+    # N = 512 and 128 centroids: SA1's gathers and SA2's grouping take the MXU
+    # route (N % 128 == 0, J % 128 == 0), SA2's grouping with a gradient.
+    # Bounds as in test_train_step_on_the_card_matches_the_cpu
+    ts, _, _, schedule = _train_setup(0.0)
+    spec = PointNet2Spec(**dict(SMALL_SPECS["ssg"], npoints=(128, 32), dropout=0.0))
+    model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    pc = np.concatenate([rng.uniform(0, 1.5, (2, 512, 3)), rng.uniform(-1, 1, (2, 512, 3))], -1)
+    batch = {"points": torch.from_numpy(pc), "weights": torch.ones((2, 512), dtype=torch.float64),
+             "labels": torch.from_numpy(rng.integers(0, 5, (2, 512)).astype(np.int32))}
+    kernels.reset_launch_counts()
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), (dev, torch.float32)):
+        m = copy.deepcopy(model).to(device=device, dtype=dtype)
+        state = ts.create_train_state(m, schedule, seed=0)
+        b = {k: v.to(device=device, dtype=dtype if v.is_floating_point() else v.dtype)
+             for k, v in batch.items()}
+        res = ts.train_step(state, b, num_classes=5)
+        out[(str(device), dtype)] = (float(res["loss"]), {n: p.grad.cpu() for n, p in m.named_parameters()})
+    counts = kernels.launch_counts()
+    assert counts["gather_smem"] == 3 and counts["scatter_smem"] == 1, counts
+    assert counts["three_nn_q"] == 0 and counts["gather_split"] == 0
+    ref = out[("cpu", torch.float64)][1]
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = out[("cpu", torch.float32)], out[(str(dev), torch.float32)]
+    assert gpu_loss == pytest.approx(cpu_loss, rel=1e-4)
+    card, cpu = _rel_l2(gpu_g, ref), _rel_l2(cpu_g, ref)
+    assert card[-1] <= 2 * cpu[-1] and card[len(card) // 2] <= 2 * cpu[len(cpu) // 2]

@@ -288,11 +288,14 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     ops.ball_query(0.2, 8, xyz.detach(), centroids.detach())
     ops.ball_query_multi((0.1, 0.2), (4, 8), xyz.detach(), centroids.detach())
     ops.three_nn(xyz.detach(), xyz[:, :16].detach())
-    centroids.sum().backward()  # the gather's backward: the plain scatter-add
+    ops.three_nn(xyz[:, :100].detach(), xyz.detach())  # n % 128 != 0
+    grouped = ops.group_points(xyz, torch.zeros((1, 16, 8), dtype=torch.int32), use_mxu=True)
+    (centroids.sum() + grouped.sum()).backward()  # the gathers' backwards: plain scatter-adds
     assert xyz.grad is not None
     assert kernels.launch_counts() == {
         "furthest_point_sample": 0, "ball_query": 0, "gather": 0, "three_nn": 0,
-        "scatter_add": 0, "ball_query_multi": 0,
+        "scatter_add": 0, "ball_query_multi": 0, "gather_smem": 0, "scatter_smem": 0,
+        "three_nn_q": 0, "gather_split": 0,
     }
 
 
@@ -310,8 +313,13 @@ def test_tensor_on_another_device_raises():
         lambda x: kernels.gather_kernel.gather_cuda(x, torch.zeros((1, 2), dtype=torch.int32)),
         lambda x: kernels.three_nn_kernel.three_nn_cuda(x, x),
         lambda x: kernels.ball_query_multi_kernel.ball_query_multi_cuda((0.1, 0.2), (4, 8), x, x),
+        lambda x: kernels.gather_smem_kernel.gather_smem_cuda(x, torch.zeros((1, 2), dtype=torch.int32)),
+        lambda x: kernels.gather_split_kernel.gather_split_cuda(x, torch.zeros((1, 2), dtype=torch.int32)),
+        lambda x: kernels.scatter_smem_kernel.scatter_smem_cuda(torch.zeros((1, 8), dtype=torch.int32), x, 8),
+        lambda x: kernels.three_nn_q_kernel.three_nn_q_cuda(x, x),
     ],
-    ids=["fps", "ball_query", "gather", "three_nn", "ball_query_multi"],
+    ids=["fps", "ball_query", "gather", "three_nn", "ball_query_multi", "gather_smem", "gather_split",
+         "scatter_smem", "three_nn_q"],
 )
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA device"):
@@ -330,3 +338,38 @@ def test_kernel_modules_name_their_sources_and_tpu_kernels():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
     assert build.library_path() == build.library_path()  # content-hashed name
+
+
+# (B, N, C, SMs, groups): gather_smem.cu's row groups on an H100 SXM (132
+# SMs) and PCIe (114): one row a block, ragged groups, groups set by the SM
+# count and groups set by shared memory
+@pytest.mark.parametrize("b,n,c,sms,groups", [
+    (2, 40, 5, 132, 40), (2, 40, 5, 114, 40), (3, 300, 9, 132, 44), (3, 300, 9, 114, 38),
+    (1, 12288, 128, 132, 132), (32, 8192, 9, 132, 4), (32, 8192, 64, 132, 11), (32, 8192, 64, 114, 11),
+])
+def test_gather_smem_plan(b, n, c, sms, groups):
+    assert kernels.gather_smem_kernel.plan(b, n, c, sms) == groups
+
+
+# (B, N, C, SMs, (cs, groups)): scatter_smem.cu's channel slices (at most
+# 32 wide, ragged at C = 67 and 131) and row groups, as above
+@pytest.mark.parametrize("b,n,c,sms,split", [
+    (2, 60, 5, 132, (5, 60)), (2, 60, 5, 114, (5, 57)), (3, 300, 9, 132, (9, 44)),
+    (2, 1024, 67, 132, (23, 22)), (2, 256, 131, 132, (27, 13)), (1, 12288, 16, 132, (16, 132)),
+    (32, 1024, 67, 132, (23, 1)), (32, 8192, 64, 132, (32, 6)),
+])
+def test_scatter_smem_plan(b, n, c, sms, split):
+    assert kernels.scatter_smem_kernel.plan(b, n, c, sms) == split
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_smem_plans_fit_shared_memory(sms):
+    gs, ss = kernels.gather_smem_kernel, kernels.scatter_smem_kernel
+    for b in (1, 2, 3, 32):
+        for n in (1, 7, 60, 300, 1024, 8192, 12288, ss.MAX_N):
+            for c in (1, 3, 9, 32, 33, 67, 131, 384):
+                groups = gs.plan(b, n, c, sms)
+                assert 1 <= groups <= n and -(-n // groups) * c * 4 <= gs.SMEM_BYTES
+                cs, groups = ss.plan(b, n, c, sms)
+                assert cs <= 32 and -(-c // cs) == -(-c // 32)
+                assert 1 <= groups <= n and -(-n // groups) * cs * 4 <= ss.SMEM_BYTES
