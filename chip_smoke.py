@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. The card: torch's device name and nvidia-smi's name and power limit.
-2. Build the nine CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
+2. Build the eleven CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
 3. Each forward kernel against its plain PyTorch version on the card at the
    SSG serving path's shapes (32 columns of 8192 points, the four levels):
    indices and gathers must be equal bit for bit; both times from CUDA events
@@ -33,7 +33,10 @@
    the shared-memory scatter-add (f) at P1's train-step backwards and at
    those shapes, also against itself across two launches; the split gather
    (g, e's kernel through its own wrapper) at those shapes; the query-major
-   3-NN (j) at FP0 of 7936-point columns and at n = m = 8192.
+   3-NN (j) at FP0 of 7936-point columns and at n = m = 8192; the fused
+   gather-matmul (k) at scripts/bench_fused_sa.py's shape (B 32, N 8192,
+   J 32768, C 9, F 32), beside the unfused composition it replaces (d, then
+   torch.matmul).
 9. Serve synthetic scenes through scripts/infer_torch.py, the SSG model then
    the MSG model, at full width (xyz + color + normal, 8192-point columns,
    batch 32, float32) with weights drawn from a seeded generator: the
@@ -64,15 +67,31 @@
     512-query tile does not divide: FP0 routes to j, once per forward).
 14. scripts/bench_gather_torch.py, g's entry point, at its shapes: every
     forward equal to torch.gather's, the ordered backwards equal.
-15. Print one JSON line of kernel results (time, plain time, the card's bound
+15. scripts/bench_fused_sa_torch.py, k's entry point, at its shape: the
+    fused and unfused results within 1e-5 of a float64 reference.
+16. Whole-scene training through scripts/train_torch.py --use_wholescene,
+    SSG then MSG, at full width: 4 synthetic scenes of ~25 columns,
+    micro-batches of 16 (so each scene's last one is padded), 2 epochs of
+    one update per scene and one whole-scene validation. Losses must be
+    finite and the run dir's artifacts must exist.
+17. For SSG then MSG: one scene's accumulated update (3 full-width
+    columns at micro-batch 2: two micro-batches, one padded row, Dropout
+    off) on the card against the CPU: loss sum, point count and BatchNorm
+    statistics within phase 11's bounds, the accumulated gradients held
+    against a float64 CPU update as in phase 11; FPS, the ball query (the
+    two-radius one for MSG) and 3-NN on the padded micro-batch's level
+    clouds bit for bit against their plain versions. Then the steady
+    whole-scene update of one synthetic scene at micro-batch 32, timed with
+    CUDA events.
+18. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one), the card line, and last {"ok": true, "device": {...}}.
 
-Each run of phases 9, 10, 12, 13 and 14 starts with every launch counter at
-0 and must launch every kernel of its path and no other. Any failure raises
-and exits non-zero; so does a run without a CUDA device or outside a
-checkout of the repository.
+Each run of phases 9, 10, 12, 13, 14, 15 and 16 starts with every launch
+counter at 0 and must launch every kernel of its path and no other. Any
+failure raises and exits non-zero; so does a run without a CUDA device or
+outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -115,7 +134,8 @@ TRAIN_BN_TOL = 1e-4
 # per point and step (d^2 8, running min 1, argmax compare 1); ball query 9
 # per point a query's scan reads up to its k-th hit (d^2 8, 1 compare), the
 # two-radius one 10 (2 compares) over the longer of its two scans; either
-# 3-NN 9 per pair; either scatter-add 1 per added word; every gather none.
+# 3-NN 9 per pair; either scatter-add 1 per added word; every gather none;
+# the fused gather-matmul 2 per weight and output row (C x F multiply-adds).
 # Bytes: each input read once, each output written once; of a gather's
 # source, the distinct rows its indices name in this run.
 HBM_BYTES_PER_S = 3.35e12
@@ -124,8 +144,13 @@ F32_OPS_PER_S = 67e12
 MXU_CONFIG = {"vmem_gather": False, "mxu_gather": True}
 P2_NPOINTS = (8000, 7936)
 BENCH_N, BENCH_J, BENCH_C = 8192, 32768, (9, 32, 64)
+FUSED_C, FUSED_F = 9, 32  # bench_fused_sa's layer 0
+# whole-scene training: scenes, micro-batch and epochs of the CLI run; the
+# card-vs-CPU scene (columns, micro-batch)
+WS_SCENES, WS_BATCH, WS_EPOCHS = 4, 16, 2
+WS_CHECK_COLUMNS, WS_CHECK_BATCH = 3, 2
 # kernels that only a switch, a shape or a bench script selects
-OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split"}
+OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
 
 def card_line() -> str:
@@ -153,6 +178,23 @@ def cuda_ms(fn, torch) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def event_times(torch, fn, warm: int = 3, n: int = 10) -> list:
+    """Sorted milliseconds of n calls of fn, each between its own pair of
+    CUDA events, after warm calls (allocator, cuBLAS heuristics)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) for s, e in events)
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -601,6 +643,25 @@ def check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats) -> None:
             raise RuntimeError(f"three_nn_q n={n} m={m} differs from three_nn.cu")
 
 
+def check_fused(torch, tallies) -> None:
+    """Phase 8, k: the fused gather-matmul against its plain version at
+    bench_fused_sa.py's shape, bit for bit, timed beside the plain version
+    and the unfused composition it replaces (d, then torch.matmul). No
+    single PyTorch call gathers and multiplies: no library call."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    c, f, j = FUSED_C, FUSED_F, BENCH_J
+    src = torch.randn((BATCH, BENCH_N, c), generator=gen, device="cuda")
+    idx = torch.randint(0, BENCH_N, (BATCH, j), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.randn((c, f), generator=gen, device="cuda") * 0.1
+    check(torch, tallies[fk.NAME], "bench", f"fused_gather_mm bench ({BATCH},{BENCH_N},{c})x{j}x({c},{f})",
+          lambda: fk.fused_gather_mm_cuda(src, idx, w), lambda: fk.fused_gather_mm_plain(src, idx, w),
+          4 * (distinct_rows(idx) * c + BATCH * j + c * f + BATCH * j * f), 2 * BATCH * j * c * f,
+          counterpart_ms=lambda: ga.gather_cuda(src, idx) @ w)
+
+
 def on_path(kind: str, training: bool, config: str = "default", npoints: int = NPOINTS) -> tuple[set, set]:
     """(kernels a run of the model must launch, kernels it must not), under
     the default configuration or P1's ("mxu"), at a column size."""
@@ -729,21 +790,24 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
     return stats
 
 
-def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS) -> dict:
-    """Phases 10, 12 and 13: training through scripts/train_torch.py,
-    through the kernels."""
+def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
+              wholescene: bool = False) -> dict:
+    """Phases 10, 12, 13 and 16: training through scripts/train_torch.py,
+    through the kernels; chunked (3 steps of 32 chunks) or whole-scene
+    (WS_EPOCHS epochs of one update per scene)."""
     import math
 
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config, {npoints}-point columns)"
+    name = f"{kind.upper()} ({config} config, {npoints}-point columns{', whole scenes' * wholescene})"
+    scenes, batch, epochs = (WS_SCENES, WS_BATCH, WS_EPOCHS) if wholescene else (BATCH, BATCH, 3)
     train_torch = load_script("train_torch")
     args = train_torch.parse_args([
-        "--synthetic", "--synthetic_scenes", str(BATCH), "--batch_size", str(BATCH),
-        "--epoch", "3", "--npoints", str(npoints), "--use_color", "--use_normal",
+        "--synthetic", "--synthetic_scenes", str(scenes), "--batch_size", str(batch),
+        "--epoch", str(epochs), "--npoints", str(npoints), "--use_color", "--use_normal",
         "--verbose", "1", "--device", "cuda", "--tag", "chip_smoke",
-        "--output_root", str(tmp / f"train_{kind}_{config}_{npoints}"),
-        *(["--use_msg"] if kind == "msg" else []),
+        "--output_root", str(tmp / f"train_{kind}_{config}_{npoints}_{'ws' if wholescene else 'chunks'}"),
+        *(["--use_msg"] if kind == "msg" else []), *(["--use_wholescene"] if wholescene else []),
     ])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -760,16 +824,40 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
               "model_last.train.pt", "tensorboard/all_scalars.json"):
         if not (run_dir / f).is_file():
             raise RuntimeError(f"the training run wrote no {f}")
-    if json.loads((run_dir / "config.json").read_text())["model"]["is_msg"] != (kind == "msg"):
-        raise RuntimeError("the run dir's config.json records another model")
+    saved = json.loads((run_dir / "config.json").read_text())
+    if saved["model"]["is_msg"] != (kind == "msg") or saved["train"]["wholescene"] != wholescene:
+        raise RuntimeError("the run dir's config.json records another model or mode")
     scalars = json.loads((run_dir / "tensorboard" / "all_scalars.json").read_text())
     losses = [v for _, v in scalars["train/loss"]] + [v for _, v in scalars["val/loss"]]
-    if len(scalars["train/loss"]) != 3 or not all(math.isfinite(v) for v in losses):
-        raise RuntimeError(f"train/val losses {losses}: not 3 epochs of finite values")
-    print(f"train {name}: 3 steps of {BATCH} x {npoints} and 3 validations in {took:.2f} s; "
-          f"losses {losses}; best val voxel mIoU {best['voxel_miou']:.4f}; peak device memory "
-          f"{peak:.2f} GiB", flush=True)
+    if len(scalars["train/loss"]) != epochs or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"train/val losses {losses}: not {epochs} epochs of finite values")
+    work = (f"{epochs} epochs of {scenes} scene updates (micro-batches of {batch} x {npoints}) and "
+            f"{epochs} whole-scene validations" if wholescene
+            else f"{epochs} steps of {batch} x {npoints} and {epochs} validations")
+    print(f"train {name}: {work} in {took:.2f} s; losses {losses}; best val voxel mIoU "
+          f"{best['voxel_miou']:.4f}; peak device memory {peak:.2f} GiB", flush=True)
     return {"launches": launches, "peak_gib": peak}
+
+
+def wholescene_dataset(n_scenes: int):
+    """The training scenes of a --synthetic --use_wholescene run of n scenes,
+    tiled at full width."""
+    from pointnet2_scannet_tpu_torch.config import DataConfig
+    from pointnet2_scannet_tpu_torch.data import WholeSceneDataset, make_synthetic_store
+
+    cfg = DataConfig(npoints=NPOINTS, use_color=True, use_normal=True)
+    return WholeSceneDataset(make_synthetic_store(n_scenes, seed=0), cfg, seed=0)
+
+
+def print_columns() -> None:
+    """Phase 16's column counts: per training scene, its columns, its
+    micro-batches of WS_BATCH and the padded rows of its last one."""
+    ds = wholescene_dataset(WS_SCENES)
+    cols = [ds.get_scene(i)[0].shape[0] for i in range(len(ds))]
+    print(f"whole scenes: columns per training scene {cols}; micro-batches of {WS_BATCH}: "
+          f"{[-(-c // WS_BATCH) for c in cols]}, padded rows {[-c % WS_BATCH for c in cols]}", flush=True)
+    if not any(c % WS_BATCH for c in cols) or not all(c > WS_BATCH for c in cols):
+        raise RuntimeError("the whole-scene run would have no padded or no multi-micro-batch scene")
 
 
 def train_batch(torch, n: int, device):
@@ -844,6 +932,130 @@ def train_step_card_vs_cpu(torch, kind: str, config: str = "default") -> None:
         torch.testing.assert_close(gpu_b[k], b, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
 
 
+def padded_kernels(torch, xyz, kind: str) -> None:
+    """Phase 17: FPS, the ball query of the model's kind and 3-NN on the
+    level clouds of a padded micro-batch (xyz (B, N, 3), zero rows
+    included), bit for bit against their plain versions."""
+    from pointnet2_scannet_tpu_torch.models import msg_spec, ssg_spec
+    from pointnet2_scannet_tpu_torch.ops.cuda import (
+        ball_query_kernel as bq,
+        ball_query_multi_kernel as bqm,
+        fps_kernel as fps,
+        gather_kernel as ga,
+        three_nn_kernel as nn3,
+    )
+
+    spec = (msg_spec if kind == "msg" else ssg_spec)(20, 6)
+    pairs = []
+    for k, npoint in enumerate(spec.npoints):
+        pairs.append((f"fps {xyz.shape[1]}->{npoint}", fps.furthest_point_sample_cuda(xyz, npoint),
+                      fps.furthest_point_sample_plain(xyz, npoint)))
+        q = ga.gather_plain(xyz, pairs[-1][2]).contiguous()
+        radii, ks = spec.radii[k], spec.nsamples[k]
+        if len(radii) == 2:
+            got, want = bqm.ball_query_multi_cuda(radii, ks, xyz, q), bqm.ball_query_multi_plain(radii, ks, xyz, q)
+        else:
+            got, want = bq.ball_query_cuda(radii[0], ks[0], xyz, q), bq.ball_query_plain(radii[0], ks[0], xyz, q)
+        pairs += [(f"ball query r={radii} level {k}", g, w) for g, w in zip(got, want)]
+        got, want = nn3.three_nn_cuda(xyz, q), nn3.three_nn_plain(xyz, q)
+        pairs += [(f"three_nn level {k}", g, w) for g, w in zip(got, want)]
+        xyz = q
+    differ = [label for label, g, w in pairs if not torch.equal(g, w)]
+    if differ:
+        raise RuntimeError(f"on the padded micro-batch, kernels differ from their plain versions: {differ}")
+
+
+def wholescene_card_vs_cpu(torch, kind: str) -> None:
+    """Phase 17: one scene's accumulated update (WS_CHECK_COLUMNS columns at
+    micro-batch WS_CHECK_BATCH, the last one padded, Dropout off) on the card
+    and on the CPU (float32 both, float64 on the CPU as the reference); the
+    kernels of the path on the padded micro-batch against their plain
+    versions."""
+    from pointnet2_scannet_tpu_torch.data.pipeline import to_device
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.engine.solver import _SceneBatchIterator
+
+    feats, labels, weights = (a[:WS_CHECK_COLUMNS] for a in wholescene_dataset(1).get_scene(0))
+    micro = list(_SceneBatchIterator(None, WS_CHECK_BATCH).micro_batches(feats, labels, weights))
+    masks = [mb["row_mask"].tolist() for mb in micro]
+    padded = to_device(micro[-1], "cuda")
+    padded_kernels(torch, padded["points"][..., :3].contiguous(), kind)
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
+        state = fresh_state(torch, 0.0, device, kind)
+        state.model.to(dtype)
+        loss_sum = count = 0.0
+        for mb in micro:
+            batch = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in to_device(mb, device).items()}
+            res = ts.grad_accum_step(state, batch, num_classes=20)
+            loss_sum, count = loss_sum + float(res["loss_sum"]), count + float(res["count"])
+        m = state.model
+        out[(device, dtype)] = (
+            loss_sum, count, {k: p.grad.cpu() / count for k, p in m.named_parameters()},
+            {k: b.cpu() for k, b in m.named_buffers() if b.is_floating_point()},
+        )
+        ts.apply_accumulated(state, count)
+        if state.step != 1 or not all(bool(torch.isfinite(p).all()) for p in m.parameters()):
+            raise RuntimeError("the accumulated update did not take one finite step")
+    ref = out[("cpu", torch.float64)][2]
+    (cpu_loss, cpu_n, cpu_g, cpu_b), (gpu_loss, gpu_n, gpu_g, gpu_b) = (
+        out[("cpu", torch.float32)], out[("cuda", torch.float32)])
+    card, cpu = grad_errors(gpu_g, ref), grad_errors(cpu_g, ref)
+    med = len(card) // 2
+    bn_err = max(float((gpu_b[k] - b).abs().max()) for k, b in cpu_b.items())
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    print(f"whole-scene update {kind.upper()} card vs CPU ({WS_CHECK_COLUMNS} x {NPOINTS} columns, "
+          f"micro-batch row masks {masks}): loss sum {gpu_loss} vs {cpu_loss} (rel {loss_err:.2e}); "
+          f"points {gpu_n:.0f} vs {cpu_n:.0f}; BatchNorm stats max abs err {bn_err:.2e}; gradients, "
+          f"per-tensor relative L2 vs CPU float64, worst / median: card {card[0][0]:.2e} ({card[0][1]}) / "
+          f"{card[med][0]:.2e}, CPU float32 {cpu[0][0]:.2e} ({cpu[0][1]}) / {cpu[med][0]:.2e}; "
+          f"kernels on the padded micro-batch equal to plain", flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and gpu_n == cpu_n == WS_CHECK_COLUMNS * NPOINTS):
+        raise RuntimeError("whole-scene update: the card's loss sum or point count disagrees with the CPU's")
+    if not (card[0][0] <= TRAIN_GRAD_VS_CPU * cpu[0][0]
+            and card[med][0] <= TRAIN_GRAD_VS_CPU * cpu[med][0]):
+        raise RuntimeError("whole-scene update: the card's gradients are further from the float64 "
+                           "reference than the CPU's float32 gradients allow")
+    for k, b in cpu_b.items():
+        torch.testing.assert_close(gpu_b[k], b, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
+
+
+def wholescene_time(torch, kind: str) -> dict:
+    """Phase 17: the steady whole-scene update of one synthetic scene at
+    micro-batch BATCH (grad_accum_step per micro-batch, apply_accumulated),
+    its micro-batches on the card beforehand, timed with CUDA events."""
+    from pointnet2_scannet_tpu_torch.data.pipeline import to_device
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.engine.solver import _SceneBatchIterator
+
+    ds = wholescene_dataset(1)
+    t0 = time.perf_counter()
+    scene = ds.get_scene(0)
+    tile_s = time.perf_counter() - t0
+    micro = [to_device(mb, "cuda") for mb in _SceneBatchIterator(ds, BATCH).micro_batches(*scene)]
+    real = scene[0].shape[0]
+    padded = len(micro) * BATCH - real
+    state = fresh_state(torch, 0.5, "cuda", kind)
+
+    def update():
+        count = 0.0
+        for mb in micro:
+            count = count + ts.grad_accum_step(state, mb, num_classes=20)["count"]
+        ts.apply_accumulated(state, count)
+
+    times = event_times(torch, update)
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise RuntimeError("the steady whole-scene updates left non-finite parameters")
+    ms = times[len(times) // 2]
+    pps = real * NPOINTS / (ms / 1e3)
+    print(f"whole-scene update {kind.upper()} steady state: one scene of {real} real and {padded} "
+          f"padded rows ({len(micro)} micro-batch(es) of {BATCH} x {NPOINTS}) in {ms:.2f} ms median of "
+          f"{len(times)} (min {times[0]:.2f}, max {times[-1]:.2f}): {pps:.0f} real points/s; host "
+          f"tiling of the scene {tile_s * 1e3:.1f} ms", flush=True)
+    return {"ms": ms, "points_per_s": pps}
+
+
 def train_step_repeat_and_time(torch, kind: str, config: str = "default") -> dict:
     """Phases 11 and 12: two identical steps on the card give the same bits
     and launch the kernels of the configuration's path; then the warm step
@@ -868,20 +1080,10 @@ def train_step_repeat_and_time(torch, kind: str, config: str = "default") -> dic
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):  # warm: allocator, cuBLAS heuristics
-        ts.train_step(state, batch, num_classes=20)
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(10):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = ts.train_step(state, batch, num_classes=20)
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(out["loss"])):
+    losses = []
+    times = event_times(torch, lambda: losses.append(ts.train_step(state, batch, num_classes=20)["loss"]))
+    if not bool(torch.isfinite(losses[-1])):
         raise RuntimeError("the steady-state train step's loss is not finite")
-    times = sorted(s.elapsed_time(e) for s, e in events)
     ms = times[len(times) // 2]
     pps = BATCH * NPOINTS / (ms / 1e3)
     print(f"train {name} steady state: step of {BATCH} x {NPOINTS} in {ms:.2f} ms median of "
@@ -944,6 +1146,26 @@ def bench_gather(torch) -> dict:
     return launches
 
 
+def bench_fused(torch) -> dict:
+    """Phase 15: scripts/bench_fused_sa_torch.py at its shape, a few calls of
+    each; returns its launch counts."""
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    bench = load_script("bench_fused_sa_torch")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    bench.run("cuda", reps=5)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"bench_fused_sa_torch: launches {launches}", flush=True)
+    want = {"gather", "fused_gather_mm"}
+    missing = sorted(k for k in want if launches[k] == 0)
+    stray = sorted(k for k, n in launches.items() if k not in want and n)
+    if missing or stray:
+        raise RuntimeError(f"bench_fused_sa_torch launched no {missing} kernel, or launched {stray}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -977,6 +1199,7 @@ def main() -> int:
     check_scatter(torch, tallies["scatter_add"], "msg", backward)
     time_pregather(torch)
     check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats)
+    check_fused(torch, tallies)
     del backward, multi_idx, xyz, fps_idx, input_feats
     for name, t in tallies.items():
         for path, p in t.paths.items():
@@ -1000,6 +1223,9 @@ def main() -> int:
         for npoints in P2_NPOINTS:  # phase 13: P2
             tally(train_cli(torch, tmp, "ssg", npoints=npoints))
             tally(serve(torch, tmp, "ssg", npoints=npoints))
+        print_columns()
+        for model_kind in KINDS:  # phase 16: whole scenes
+            tally(train_cli(torch, tmp, model_kind, wholescene=True))
     for model_kind in KINDS:
         train_step_card_vs_cpu(torch, model_kind)
         train_step_repeat_and_time(torch, model_kind)
@@ -1008,6 +1234,10 @@ def main() -> int:
         train_step_repeat_and_time(torch, "ssg", "mxu")
     time_configs(torch)
     tally({"launches": bench_gather(torch)})
+    tally({"launches": bench_fused(torch)})
+    for model_kind in KINDS:  # phase 17
+        wholescene_card_vs_cpu(torch, model_kind)
+        wholescene_time(torch, model_kind)
 
     print(json.dumps({"kernels": [t.row(launches[name]) for name, t in tallies.items()]}))
     print(card_line())

@@ -1,10 +1,11 @@
-"""Whole-scene tiling into full-height columns for inference (numpy only).
+"""Whole-scene tiling into full-height columns, for inference and for
+whole-scene training (numpy only).
 
 The JAX package's data/wholescene.py: tile the scene's xy bounding box into
 chunk_size_xy squares (with a +-0.01 m border overlap), skip empty columns,
 and draw `npoints` indices per column with replacement from a per-scene
-stream seeded by (seed, epoch, crc32(scene id)). The same store and seed give
-bit-identical column stacks in both packages.
+stream seeded by (seed, epoch, crc32(scene id)). The same store, seed and
+epoch give bit-identical column stacks in both packages.
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ class WholeSceneDataset:
         self.store = store
         self.cfg = cfg
         self.seed = seed
-        self.epoch = 0  # inference keeps epoch 0: tilings stay deterministic
+        # inference and validation keep epoch 0, so their tilings stay fixed;
+        # whole-scene training moves it every epoch (set_epoch) to redraw
+        # every column's resampling
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = int(epoch)
 
     def __len__(self) -> int:
         return len(self.store)

@@ -9,11 +9,15 @@ the best val voxel mIoU and model_last every epoch, and report with the same
 ITER / EPOCH / BEST lines. A run dir holds config.json, best.txt,
 tensorboard/all_scalars.json and the checkpoints of engine/checkpoint.py.
 
+WholeSceneSolver trains on whole scenes instead: one optimizer update per
+scene, with the gradients accumulated over fixed-size micro-batches of the
+scene's columns, the last one padded and masked.
+
 The JAX package's meshes (dp, dp x tp), multi-process runs, resident scene
-store and profiler capture are not ported (ROADMAP queue 1, items 12 and 13);
-the whole-scene WholeSceneSolver is item 5. The train step runs once per
-batch: --fused_steps K is recorded in the config and gives the same math per
-step as K steps fused (CUDA graphs are item 12).
+store and profiler capture are not ported (ROADMAP queue 1, items 12 and 13).
+The train step runs once per batch: --fused_steps K is recorded in the
+config and gives the same math per step as K steps fused (CUDA graphs are
+item 12).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from pointnet2_scannet_tpu_torch.config import RunConfig
 from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
 from pointnet2_scannet_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
+from pointnet2_scannet_tpu_torch.data.wholescene import WholeSceneDataset
 from pointnet2_scannet_tpu_torch.engine import metrics as M
 from pointnet2_scannet_tpu_torch.engine import train_state as ts
 from pointnet2_scannet_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
@@ -74,6 +79,19 @@ class Solver:
         self.num_classes = config.model.num_classes
 
         tc = config.train
+        self._make_loaders(train_dataset, val_dataset, tc)
+        schedule = ts.make_lr_schedule(tc.lr, tc.decay_step, tc.decay_factor, len(self.train_loader))
+        self.state = ts.create_train_state(
+            self.model, schedule, weight_decay=tc.weight_decay, seed=tc.seed
+        )
+        self.logger = ScalarLogger(self.output_dir)
+        self.best = {"epoch": -1, "voxel_miou": -1.0}
+        self._global_iter = 0
+        config.save(self.output_dir / "config.json")
+
+    def _make_loaders(self, train_dataset, val_dataset, tc) -> None:
+        """train_loader and val_loader; len(train_loader) is the optimizer
+        steps of an epoch."""
         # train: drop the ragged last batch (zero rows would enter the
         # BatchNorm statistics); val: pad it and mask the pad rows out
         self.train_loader = BatchLoader(
@@ -89,14 +107,17 @@ class Solver:
             if val_dataset is not None
             else None
         )
-        schedule = ts.make_lr_schedule(tc.lr, tc.decay_step, tc.decay_factor, len(self.train_loader))
-        self.state = ts.create_train_state(
-            self.model, schedule, weight_decay=tc.weight_decay, seed=tc.seed
-        )
-        self.logger = ScalarLogger(self.output_dir)
-        self.best = {"epoch": -1, "voxel_miou": -1.0}
-        self._global_iter = 0
-        config.save(self.output_dir / "config.json")
+
+    def _start_epoch(self, epoch: int, epochs: int) -> None:
+        """Draw this epoch's chunks (and start the next epoch's on a
+        background thread, overlapping this one)."""
+        for ds in (self.train_dataset, self.val_dataset):
+            if ds is not None:
+                ds.generate_chunks()
+        if epoch + 1 < epochs:
+            for ds in (self.train_dataset, self.val_dataset):
+                if ds is not None:
+                    ds.start_regen_async()
 
     # ----------------------------------------------------------------- resume
 
@@ -121,13 +142,7 @@ class Solver:
         epochs, verbose = self.config.train.epochs, self.config.train.verbose
         t_start = time.time()
         for epoch in range(start_epoch, epochs):
-            for ds in (self.train_dataset, self.val_dataset):
-                if ds is not None:
-                    ds.generate_chunks()
-            if epoch + 1 < epochs:  # overlap the next epoch's chunking with this one
-                for ds in (self.train_dataset, self.val_dataset):
-                    if ds is not None:
-                        ds.start_regen_async()
+            self._start_epoch(epoch, epochs)
             train_stats = self._run_train_epoch(epoch, epochs, verbose, t_start)
             self.logger.add_scalars("train", train_stats, epoch)
 
@@ -175,57 +190,165 @@ class Solver:
             if timed:
                 _sync(self.device)
                 step_times.append(time.time() - t_step)
-                cm = torch.stack(cms[-verbose:]).sum(0).cpu().numpy()
-                pm = M.confusion_to_point_metrics(cm)
-                iters_left = (epochs - epoch) * iters - (it + 1)
-                mean_iter = (time.time() - t_start) / max(self._global_iter + it + 1, 1)
-                eta = decode_eta(mean_iter * iters_left)
-                print(
-                    ITER_REPORT.format(
-                        epoch=epoch + 1, epochs=epochs, iter=it + 1, iters=iters,
-                        loss=float(torch.stack(losses[-verbose:]).mean()),
-                        point_acc=pm["point_acc"], point_miou=pm["point_miou"],
-                        fetch=float(np.mean(fetch_times[-verbose:])), step=step_times[-1],
-                        eta_h=eta["h"], eta_m=eta["m"], eta_s=eta["s"],
-                    ),
-                    flush=True,
-                )
+                self._report(epoch, epochs, it, iters, t_start, cms[-verbose:],
+                             loss=float(torch.stack(losses[-verbose:]).mean()),
+                             fetch=float(np.mean(fetch_times[-verbose:])), step=step_times[-1])
             last = time.time()
         self._global_iter += iters
-        out = {"loss": float(torch.stack(losses).mean()) if losses else float("nan")}
+        return self._epoch_stats(float(torch.stack(losses).mean()) if losses else float("nan"), cms)
+
+    def _report(self, epoch, epochs, it, iters, t_start, cms, *, loss, fetch, step) -> None:
+        """An ITER line over the report window: its mean loss, the point
+        metrics of its confusion matrices (cms), the fetch and step times."""
+        pm = M.confusion_to_point_metrics(torch.stack(cms).sum(0).cpu().numpy())
+        iters_left = (epochs - epoch) * iters - (it + 1)
+        mean_iter = (time.time() - t_start) / max(self._global_iter + it + 1, 1)
+        eta = decode_eta(mean_iter * iters_left)
+        print(
+            ITER_REPORT.format(
+                epoch=epoch + 1, epochs=epochs, iter=it + 1, iters=iters, loss=loss,
+                point_acc=pm["point_acc"], point_miou=pm["point_miou"], fetch=fetch, step=step,
+                eta_h=eta["h"], eta_m=eta["m"], eta_s=eta["s"],
+            ),
+            flush=True,
+        )
+
+    def _epoch_stats(self, loss: float, cms: list) -> dict:
+        """An epoch's train stats: its loss and the point metrics of its
+        confusion matrices."""
         cm_total = (
             torch.stack(cms).sum(0).cpu().numpy() if cms
             else np.zeros((self.num_classes, self.num_classes))
         )
-        out.update(M.confusion_to_point_metrics(cm_total))
-        return out
+        return {"loss": loss, **M.confusion_to_point_metrics(cm_total)}
 
     # -------------------------------------------------------------------- val
 
     def _run_val_epoch(self):
-        losses, cms = [], []
-        vox_accs, vox_mious, vox_cali = [], [], []
+        losses, cms, voxel = [], [], []
         batches = prefetch_to_device(iter(self.val_loader), device=self.device, keep_host=True)
         for host, batch in batches:
             out = ts.eval_step(self.model, batch, num_classes=self.num_classes)
             losses.append(out["loss"])
             cms.append(out["confusion"])
-            real = host["row_mask"] > 0
-            coords = host["points"][real][..., :3].reshape(-1, 3)
-            preds = out["preds"].cpu().numpy()[real].reshape(-1)
-            targets = host["labels"][real].reshape(-1)
-            weights = host["weights"][real].reshape(-1)
-            (_, _, voxacc, _, cali, _), (_, voxmiou, miou_mask) = M.compute_scene_metrics(
-                coords, preds, targets, weights, self.num_classes
-            )
-            vox_accs.append(voxacc)
-            vox_cali.append(cali)
-            vox_mious.append(np.sum(voxmiou * miou_mask) / max(np.sum(miou_mask), 1))
+            voxel.append(self._voxel_metrics(*_real_rows(host, out["preds"])))
         if not cms:
             raise RuntimeError("validation produced no batches; check batch_size vs dataset size")
+        return self._val_stats(losses, cms, voxel)
+
+    def _voxel_metrics(self, coords, preds, targets, weights) -> tuple[float, float, float]:
+        """(voxel acc, calibrated voxel acc, voxel mIoU) of one set of points."""
+        (_, _, voxacc, _, cali, _), (_, voxmiou, miou_mask) = M.compute_scene_metrics(
+            coords, preds, targets, weights, self.num_classes
+        )
+        return voxacc, cali, np.sum(voxmiou * miou_mask) / max(np.sum(miou_mask), 1)
+
+    @staticmethod
+    def _val_stats(losses: list, cms: list, voxel: list) -> dict:
+        """Validation stats: the mean loss, the point metrics of the summed
+        confusion matrices, and the voxel metrics averaged over their sets."""
         stats = {"loss": float(torch.stack(losses).mean())}
         stats.update(M.confusion_to_point_metrics(torch.stack(cms).sum(0).cpu().numpy()))
-        stats["voxel_acc"] = float(np.mean(vox_accs))
-        stats["voxel_acc_calibrated"] = float(np.mean(vox_cali))
-        stats["voxel_miou"] = float(np.mean(vox_mious))
+        accs, cali, mious = zip(*voxel)
+        stats["voxel_acc"] = float(np.mean(accs))
+        stats["voxel_acc_calibrated"] = float(np.mean(cali))
+        stats["voxel_miou"] = float(np.mean(mious))
         return stats
+
+
+def _real_rows(host: dict, preds: torch.Tensor):
+    """(coords (n, 3), preds, targets, weights) of a batch's real rows' points."""
+    real = host["row_mask"] > 0
+    return (host["points"][real][..., :3].reshape(-1, 3), preds.cpu().numpy()[real].reshape(-1),
+            host["labels"][real].reshape(-1), host["weights"][real].reshape(-1))
+
+
+class _SceneBatchIterator:
+    """A whole-scene dataset's scenes, each as fixed-shape micro-batches of
+    its column stack: the stack is padded with zero rows to a multiple of
+    batch_size and "row_mask" marks the real rows (the JAX package's
+    _SceneBatchIterator)."""
+
+    def __init__(self, dataset: WholeSceneDataset, batch_size: int):
+        self.dataset = dataset
+        self.batch_size = batch_size
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def scenes(self):
+        """(scene id, micro-batch generator) per scene; a scene is tiled when
+        its pair is drawn."""
+        for i in range(len(self.dataset)):
+            feats, labels, weights = self.dataset.get_scene(i)
+            yield self.dataset.store.scene_ids[i], self.micro_batches(feats, labels, weights)
+
+    def micro_batches(self, feats, labels, weights):
+        B = self.batch_size
+        for start in range(0, feats.shape[0], B):
+            arrays = [a[start : start + B] for a in (feats, labels, weights)]
+            real = arrays[0].shape[0]
+            if real < B:
+                arrays = [np.concatenate([a, np.zeros((B - real,) + a.shape[1:], a.dtype)])
+                          for a in arrays]
+            row_mask = np.zeros(B, np.float32)
+            row_mask[:real] = 1.0
+            yield dict(zip(("points", "labels", "weights"), arrays), row_mask=row_mask)
+
+
+class WholeSceneSolver(Solver):
+    """Whole-scene training (the reference's --use_wholescene, the JAX
+    package's WholeSceneSolver): ONE optimizer update per scene. Each
+    scene's column stack goes through fixed-size micro-batches whose
+    sum-gradients accumulate (engine/train_state.grad_accum_step), then one
+    Adam step applies them over the scene's point count
+    (apply_accumulated); the learning-rate schedule counts scenes. Every
+    epoch redraws the training columns' resampling (set_epoch(epoch + 1));
+    validation keeps epoch 0's tiling and computes each scene's voxel
+    metrics over the whole scene. train_dataset and val_dataset are
+    WholeSceneDatasets; in the ITER report one iter is one scene."""
+
+    def _make_loaders(self, train_dataset, val_dataset, tc) -> None:
+        self.train_loader = _SceneBatchIterator(train_dataset, tc.batch_size)
+        self.val_loader = (
+            _SceneBatchIterator(val_dataset, tc.batch_size) if val_dataset is not None else None
+        )
+
+    def _start_epoch(self, epoch: int, epochs: int) -> None:
+        self.train_dataset.set_epoch(epoch + 1)
+
+    def _run_train_epoch(self, epoch, epochs, verbose, t_start):
+        losses, cms, fetch_times = [], [], []
+        iters = len(self.train_loader)
+        last = time.time()
+        for it, (_, micro_batches) in enumerate(self.train_loader.scenes()):
+            t_iter = time.time()
+            fetch_times.append(t_iter - last)
+            loss_sum = count = cm = 0
+            for mb in prefetch_to_device(micro_batches, device=self.device):
+                out = ts.grad_accum_step(self.state, mb, num_classes=self.num_classes)
+                loss_sum, count, cm = loss_sum + out["loss_sum"], count + out["count"], cm + out["confusion"]
+            ts.apply_accumulated(self.state, count)
+            losses.append(float(loss_sum) / max(float(count), 1.0))  # settles the scene's step
+            cms.append(cm)
+            if verbose and (it + 1) % verbose == 0:
+                self._report(epoch, epochs, it, iters, t_start, cms[-verbose:],
+                             loss=float(np.mean(losses[-verbose:])),
+                             fetch=float(np.mean(fetch_times[-verbose:])), step=time.time() - t_iter)
+            last = time.time()
+        self._global_iter += iters
+        return self._epoch_stats(float(np.mean(losses)) if losses else float("nan"), cms)
+
+    def _run_val_epoch(self):
+        losses, cms, voxel = [], [], []
+        for _, micro_batches in self.val_loader.scenes():
+            rows = []
+            for host, mb in prefetch_to_device(micro_batches, device=self.device, keep_host=True):
+                out = ts.eval_step(self.model, mb, num_classes=self.num_classes)
+                losses.append(out["loss"])
+                cms.append(out["confusion"])
+                rows.append(_real_rows(host, out["preds"]))
+            voxel.append(self._voxel_metrics(*map(np.concatenate, zip(*rows))))
+        if not cms:
+            raise RuntimeError("validation produced no micro-batches")
+        return self._val_stats(losses, cms, voxel)

@@ -8,6 +8,9 @@ cross-entropy of engine/loss.py, flax-convention BatchNorm (models/layers.py)
 and the confusion matrix counted on the batch's device. PyTorch runs the step
 eagerly; there is no compiled step to build, so TrainState holds the model
 and optimizer themselves.
+
+Whole-scene training takes one optimizer step per scene: grad_accum_step per
+micro-batch of the scene's columns, then apply_accumulated.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from collections.abc import Callable
 
 import torch
 
-from pointnet2_scannet_tpu_torch.engine.loss import weighted_cross_entropy
+from pointnet2_scannet_tpu_torch.engine.loss import softmax_ce_integer, weighted_cross_entropy
 from pointnet2_scannet_tpu_torch.engine.metrics import confusion_matrix
 
 
@@ -73,9 +76,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes
     batch's device; nothing waits for the host."""
     model = state.model
     model.train()
-    lr = state.schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
+    _set_lr(state)
     row_mask = batch.get("row_mask")
     logits = model(batch["points"], state.generator)
     loss = weighted_cross_entropy(logits, batch["labels"], batch["weights"], row_mask)
@@ -86,6 +87,51 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes
     with torch.no_grad():
         cm = confusion_matrix(logits.argmax(dim=-1), batch["labels"], num_classes, row_mask)
     return {"loss": loss.detach(), "confusion": cm}
+
+
+def grad_accum_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes: int) -> dict:
+    """One micro-batch of a gradient-accumulated step (the JAX package's
+    grad_accum_step, train_state.py:134-190): the gradient of the
+    micro-batch's loss SUM, sum(ce * weights * row_mask), is added into each
+    parameter's .grad in order, as the JAX caller adds its gradient trees;
+    the train-mode forward passes the row_mask to every BatchNorm
+    (MaskedBatchNorm), whose running statistics move once per micro-batch.
+    Returns {"loss_sum", "count"
+    (sum(row_mask) * points per row), "confusion" (masked)} as tensors on
+    the batch's device; nothing waits for the host. The Dropout mask comes
+    from state.generator's stream (the JAX package folds the step and the
+    micro-batch index into its key: the draws cannot match)."""
+    model = state.model
+    model.train()
+    labels, row_mask = batch["labels"], batch["row_mask"]
+    logits = model(batch["points"], state.generator, row_mask)
+    ce = softmax_ce_integer(logits, labels)
+    loss_sum = (ce * batch["weights"] * row_mask[:, None]).sum()
+    loss_sum.backward()
+    with torch.no_grad():
+        cm = confusion_matrix(logits.argmax(dim=-1), labels, num_classes, row_mask)
+    return {"loss_sum": loss_sum.detach(), "count": row_mask.sum() * labels.shape[-1],
+            "confusion": cm}
+
+
+def apply_accumulated(state: TrainState, total_count: torch.Tensor | float) -> None:
+    """One optimizer step from the accumulated sum-gradients, each divided by
+    total_count (the gradient of the scene's mean loss), at the learning
+    rate of this step on the schedule; then the gradients are cleared for
+    the next scene (the JAX package's apply_accumulated)."""
+    _set_lr(state)
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.grad.div_(total_count)
+    state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+
+
+def _set_lr(state: TrainState) -> None:
+    lr = state.schedule(state.step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
 
 
 @torch.no_grad()

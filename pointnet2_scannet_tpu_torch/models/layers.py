@@ -14,8 +14,10 @@ package's chunked train step runs (layers.py:118-126), not torch's:
 - both compute (x - mean) * (rsqrt(var + eps) * scale) + bias, eps 1e-5, in
   flax's order, so the port rounds like the JAX package.
 
-The row-masked two-pass MaskedBatchNorm of the whole-scene step
-(layers.py:27-91) is not ported yet (ROADMAP queue 1, item 5).
+Train mode with a row_mask (the whole-scene step's padded micro-batches)
+runs the JAX package's MaskedBatchNorm instead (layers.py:27-91): batch
+statistics over the real rows only, with the two-pass variance, normalised
+in that module's own order.
 """
 
 from __future__ import annotations
@@ -80,9 +82,11 @@ class PointwiseMLP(nn.Module):
             if self.bn:
                 getattr(self, f"bn_{i}").reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, row_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """row_mask: optional (B,) 0/1 marks of the real rows; in train mode
+        the BatchNorm statistics then leave the padding rows out."""
         for i in range(len(self.widths)):
-            x = self._bn_act(getattr(self, f"dense_{i}")(x), i)
+            x = self._bn_act(getattr(self, f"dense_{i}")(x), i, row_mask)
         return x
 
     def pregather(
@@ -91,6 +95,7 @@ class PointwiseMLP(nn.Module):
         features: torch.Tensor,
         idx: torch.Tensor,
         new_xyz: torch.Tensor | None,
+        row_mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """forward() over grouped neighbourhoods with layer 0 run on the
         features at source resolution, before the neighbourhood gather (the
@@ -115,15 +120,20 @@ class PointwiseMLP(nn.Module):
             x = x + ops.group_with_idx(idx, xyz, new_xyz, None) @ dense.weight[:, :3].t()
         if dense.bias is not None:
             x = x + dense.bias
-        x = self._bn_act(x, 0)
+        x = self._bn_act(x, 0, row_mask)
         for i in range(1, len(self.widths)):
-            x = self._bn_act(getattr(self, f"dense_{i}")(x), i)
+            x = self._bn_act(getattr(self, f"dense_{i}")(x), i, row_mask)
         return x
 
-    def _bn_act(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        """Layer i's BatchNorm (+ReLU) after its Linear."""
+    def _bn_act(self, x: torch.Tensor, i: int, row_mask: torch.Tensor | None) -> torch.Tensor:
+        """Layer i's BatchNorm (+ReLU) after its Linear: MaskedBatchNorm in
+        train mode with a row_mask, as the JAX package's _mlp_bn_act routes."""
         if self.bn:
-            x = _batch_norm(x, getattr(self, f"bn_{i}"), self.training)
+            bn = getattr(self, f"bn_{i}")
+            if self.training and row_mask is not None:
+                x = masked_batch_norm(x, bn, row_mask)
+            else:
+                x = _batch_norm(x, bn, self.training)
         if self.last_act or i < len(self.widths) - 1:
             x = torch.relu(x)
         return x
@@ -145,3 +155,32 @@ def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tenso
             bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean) * mul + bn.bias
+
+
+def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tensor) -> torch.Tensor:
+    """The JAX package's train-mode MaskedBatchNorm over the last axis: each
+    leading row weighs by its 0/1 row_mask (B,), so zero-padded rows leave
+    the batch statistics exactly. The weighted mean over max(sum(mask) *
+    spatial, 1e-6) points, the two-pass variance max(sum((x - mean)^2 * w)
+    / wsum, 0) (a near-constant channel of a small tail micro-batch would
+    cancel in the one-pass form), running statistics 0.9 * old + 0.1 *
+    batch, and that module's order ((x - mean) * rsqrt(var + eps)) * scale
+    + bias, which is not _batch_norm's. In at least float32, as _batch_norm:
+    the JAX module casts to float32 whatever x's dtype, which leaves a
+    float64 step float32-accurate; the port keeps float64 in float64 and
+    rounds like the JAX module in float32. Returns x's dtype."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xs = x.to(dt)
+    mask = row_mask.to(dt)
+    w = mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    spatial = float(math.prod(x.shape[1:-1])) if x.dim() > 2 else 1.0
+    dims = tuple(range(x.dim() - 1))
+    wsum = torch.clamp(mask.sum() * spatial, min=1e-6)
+    mean = (xs * w).sum(dims) / wsum
+    var = torch.clamp(((xs - mean).square() * w).sum(dims) / wsum, min=0.0)
+    with torch.no_grad():
+        m = BN_MOMENTUM
+        bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
+    y = (xs - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+    return y.to(x.dtype)

@@ -57,13 +57,17 @@ class SetAbstraction(nn.Module):
         return sum(mlp.widths[-1] for mlp in self._mlps())
 
     def forward(
-        self, xyz: torch.Tensor, features: torch.Tensor | None
+        self,
+        xyz: torch.Tensor,
+        features: torch.Tensor | None,
+        row_mask: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor | None, torch.Tensor]:
-        """(B, N, 3), (B, N, C) -> new_xyz (B, npoint, 3), (B, npoint, C')."""
+        """(B, N, 3), (B, N, C) -> new_xyz (B, npoint, 3), (B, npoint, C');
+        row_mask (B,) reaches every BatchNorm (PointwiseMLP.forward)."""
         if self.npoint is None:
             new_xyz = None
             grouped = ops.group_all(xyz, features, use_xyz=self.use_xyz)
-            outs = [mlp(grouped).amax(dim=2) for mlp in self._mlps()]
+            outs = [mlp(grouped, row_mask).amax(dim=2) for mlp in self._mlps()]
         else:
             idx = ops.furthest_point_sample(xyz, self.npoint)
             new_xyz = ops.gather_points(xyz, idx)
@@ -72,12 +76,12 @@ class SetAbstraction(nn.Module):
                 if self._pregather(features, mlp.widths):
                     h = mlp.pregather(
                         xyz if self.use_xyz else None, features, nidx,
-                        new_xyz if self.use_xyz else None,
+                        new_xyz if self.use_xyz else None, row_mask,
                     )
                 else:
                     h = mlp(ops.group_with_idx(
                         nidx, xyz, new_xyz, features, use_xyz=self.use_xyz
-                    ))  # grouped (B, M, K, 3 + C)
+                    ), row_mask)  # grouped (B, M, K, 3 + C)
                 outs.append(h.amax(dim=2))
         return new_xyz, outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
@@ -121,8 +125,10 @@ class FeaturePropagation(nn.Module):
         known: torch.Tensor | None,
         unknown_feats: torch.Tensor | None,
         known_feats: torch.Tensor,
+        row_mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """(B, n, 3), (B, m, 3), (B, n, C1), (B, m, C2) -> (B, n, mlp[-1])."""
+        """(B, n, 3), (B, m, 3), (B, n, C1), (B, m, C2) -> (B, n, mlp[-1]);
+        row_mask as in SetAbstraction.forward."""
         if known is not None:
             dist2, idx = ops.three_nn(unknown, known)
             recip = 1.0 / (torch.sqrt(dist2) + 1e-8)
@@ -134,4 +140,4 @@ class FeaturePropagation(nn.Module):
             h = torch.cat([interpolated, unknown_feats], dim=-1)
         else:
             h = interpolated
-        return self.mlp(h)
+        return self.mlp(h, row_mask)

@@ -132,27 +132,33 @@ class PointNet2SemSeg(nn.Module):
         self.eval()
 
     def forward(
-        self, pc: torch.Tensor, generator: torch.Generator | None = None
+        self,
+        pc: torch.Tensor,
+        generator: torch.Generator | None = None,
+        row_mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """generator: the Dropout mask's random stream, on pc's device; needed
-        in train mode when spec.dropout > 0."""
+        in train mode when spec.dropout > 0. row_mask: optional (B,) 0/1
+        marks of the real rows; in train mode every BatchNorm's batch
+        statistics leave the padding rows out (MaskedBatchNorm, the
+        whole-scene step's padded last micro-batch)."""
         spec = self.spec
         xyz = pc[..., :3].contiguous()
         features = pc[..., 3:].contiguous() if pc.shape[-1] > 3 else None
         l_xyz = [xyz]
         l_feats = [features]
         for lvl in range(len(spec.npoints)):
-            new_xyz, new_feats = getattr(self, f"sa_{lvl}")(l_xyz[lvl], l_feats[lvl])
+            new_xyz, new_feats = getattr(self, f"sa_{lvl}")(l_xyz[lvl], l_feats[lvl], row_mask)
             l_xyz.append(new_xyz)
             l_feats.append(new_feats)
         for lvl in reversed(range(len(spec.fp_mlps))):  # deepest level first
             l_feats[lvl] = getattr(self, f"fp_{lvl}")(
-                l_xyz[lvl], l_xyz[lvl + 1], l_feats[lvl], l_feats[lvl + 1]
+                l_xyz[lvl], l_xyz[lvl + 1], l_feats[lvl], l_feats[lvl + 1], row_mask
             )
-        h = self.cls_fc(l_feats[0])
+        h = self.cls_fc(l_feats[0], row_mask)
         if self.training and spec.dropout > 0.0:
             h = _dropout(h, spec.dropout, generator)
-        return self.cls_out(h).to(torch.float32)
+        return self.cls_out(h, row_mask).to(torch.float32)
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:

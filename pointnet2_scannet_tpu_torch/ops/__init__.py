@@ -5,6 +5,7 @@ hand-written kernel in ops/cuda/ (or raises). Indices are int32 throughout.
 """
 
 from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
+from pointnet2_scannet_tpu_torch.ops.fused_sa import fused_gather_mm
 from pointnet2_scannet_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from pointnet2_scannet_tpu_torch.ops.neighborhood import (
     ball_query,
@@ -28,4 +29,5 @@ __all__ = [
     "group_all",
     "three_nn",
     "three_interpolate",
+    "fused_gather_mm",
 ]

@@ -14,6 +14,7 @@ from pointnet2_scannet_tpu_torch.ops.cuda import (
     ball_query_kernel,
     ball_query_multi_kernel,
     fps_kernel,
+    fused_gather_mm_kernel,
     gather_kernel,
     gather_smem_kernel,
     gather_split_kernel,
@@ -26,7 +27,7 @@ from pointnet2_scannet_tpu_torch.ops.cuda import (
 KERNELS = (
     fps_kernel, ball_query_kernel, gather_kernel, three_nn_kernel, scatter_kernel,
     ball_query_multi_kernel, gather_smem_kernel, scatter_smem_kernel, three_nn_q_kernel,
-    gather_split_kernel,
+    gather_split_kernel, fused_gather_mm_kernel,
 )
 
 

@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "fps.cu", "ball_query.cu", "ball_query_multi.cu", "gather.cu", "three_nn.cu", "scatter_add.cu",
-    "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu",
+    "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu", "fused_gather_mm.cu",
 )
 HEADERS = ("sqdist.cuh",)
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_three_nn_q": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
+    "p2_fused_gather_mm": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp, _vp],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -2,8 +2,10 @@
 
 The port's counterpart of scripts/train.py, with its flags: chunked
 semantic-segmentation training of the SSG model, or of the MSG model with
---use_msg, on --device (the hand-written CUDA kernels on
-a GPU, their plain PyTorch versions on the CPU). Writes
+--use_msg, or whole-scene training with --use_wholescene (one optimizer
+update per scene, gradients accumulated over micro-batches of --batch_size
+columns), on --device (the hand-written CUDA kernels on a GPU, their plain
+PyTorch versions on the CPU). Writes
 <output_root>/<timestamp>_<TAG>/ with config.json, info.json, model_best.pt
 and model_last.pt (state_dicts that scripts/infer_torch.py serves), their
 .train.pt / .meta.json resume state, tensorboard/all_scalars.json and
@@ -11,6 +13,7 @@ best.txt.
 
   python scripts/train_torch.py --synthetic --use_color --use_normal --device cuda
   python scripts/train_torch.py --synthetic --use_color --use_normal --use_msg
+  python scripts/train_torch.py --synthetic --use_color --use_normal --use_wholescene
   python scripts/train_torch.py --synthetic --synthetic_scenes 4 --npoints 256 \\
       --batch_size 4 --epoch 2 --device cpu
   python scripts/train_torch.py --resume outputs/<run> --epoch 4
@@ -34,7 +37,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 # flag -> (is it set?, what it asks for, ROADMAP queue 1 item)
 _UNPORTED = (
     ("bf16", lambda v: v, "bfloat16 compute", 10),
-    ("use_wholescene", lambda v: v, "whole-scene training", 5),
     ("device_store", lambda v: v, "the device-resident scene store", 13),
     ("num_devices", lambda v: v is not None and v > 1, "data parallelism over several devices", 12),
     ("tp", lambda v: v is not None and v > 1, "tensor parallelism", 12),
@@ -143,14 +145,19 @@ def train(args) -> tuple[pathlib.Path, dict]:
 
     from pointnet2_scannet_tpu_torch.config import RunConfig
     from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
-    from pointnet2_scannet_tpu_torch.engine.solver import Solver
+    from pointnet2_scannet_tpu_torch.data.wholescene import WholeSceneDataset
+    from pointnet2_scannet_tpu_torch.engine.solver import Solver, WholeSceneSolver
     from pointnet2_scannet_tpu_torch.models import get_model
 
     if args.resume:
         output_dir = pathlib.Path(args.resume)
         cfg = RunConfig.load(output_dir / "config.json")
         # the run's mode comes from its config.json, never from retyped flags
-        for flag, saved in (("synthetic", cfg.train.synthetic), ("debug", cfg.train.debug)):
+        for flag, saved in (
+            ("use_wholescene", cfg.train.wholescene),
+            ("synthetic", cfg.train.synthetic),
+            ("debug", cfg.train.debug),
+        ):
             if getattr(args, flag) and not saved:
                 raise SystemExit(
                     f"--{flag} passed but the resumed run was not a {flag} run "
@@ -174,8 +181,15 @@ def train(args) -> tuple[pathlib.Path, dict]:
 
     train_store, val_store = make_stores(cfg)
     seed = cfg.train.seed
-    train_ds = ChunkedSceneDataset(train_store, cfg.data, phase="train", seed=seed)
-    val_ds = ChunkedSceneDataset(val_store, cfg.data, phase="val", seed=seed + 1)
+    if cfg.train.wholescene:  # one gradient-accumulated update per scene
+        train_ds = WholeSceneDataset(train_store, cfg.data, seed=seed)
+        val_ds = WholeSceneDataset(val_store, cfg.data, seed=seed + 1)
+        solver_cls, step = WholeSceneSolver, "one update per scene"
+    else:
+        train_ds = ChunkedSceneDataset(train_store, cfg.data, phase="train", seed=seed)
+        val_ds = ChunkedSceneDataset(val_store, cfg.data, phase="val", seed=seed + 1)
+        solver_cls = Solver
+        step = f"one step per batch (fused_steps {cfg.train.fused_steps} recorded)"
     model = get_model(
         num_classes=cfg.model.num_classes,
         is_msg=cfg.model.is_msg,
@@ -184,10 +198,10 @@ def train(args) -> tuple[pathlib.Path, dict]:
         bn=cfg.model.bn,
         generator=torch.Generator().manual_seed(seed),
     )
-    solver = Solver(model, train_ds, val_ds, cfg, output_dir, device=device)
+    solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    print(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, "
-          f"one step per batch (fused_steps {cfg.train.fused_steps} recorded)", flush=True)
+    print(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}",
+          flush=True)
     info = {
         **vars(args),
         "num_train_scenes": len(train_store),
@@ -223,7 +237,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP item 10)")
     p.add_argument("--no_xyz", action="store_true")
     p.add_argument("--use_msg", action="store_true", help="the multi-scale-grouping model")
-    p.add_argument("--use_wholescene", action="store_true", help="not ported yet (ROADMAP item 5)")
+    p.add_argument("--use_wholescene", action="store_true",
+                   help="one optimizer update per whole scene, gradients accumulated over "
+                   "micro-batches of --batch_size columns")
     p.add_argument("--use_color", action="store_true")
     p.add_argument("--use_normal", action="store_true")
     p.add_argument("--use_multiview", action="store_true")

@@ -172,7 +172,7 @@ SMALL_SPECS = {
 # the ball-query kernel a model of each kind never launches
 UNUSED_QUERY = {"ssg": bqm.NAME, "msg": bq.NAME}
 # kernels that only a switch (ops_config), a shape or a bench script selects
-OFF_BY_DEFAULT = ("gather_smem", "scatter_smem", "three_nn_q", "gather_split")
+OFF_BY_DEFAULT = ("gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm")
 
 
 @pytest.mark.parametrize("kind", ["ssg", "msg"])
@@ -516,3 +516,85 @@ def test_train_step_under_the_mxu_config_matches_the_cpu(dev, mxu_config):
     assert gpu_loss == pytest.approx(cpu_loss, rel=1e-4)
     card, cpu = _rel_l2(gpu_g, ref), _rel_l2(cpu_g, ref)
     assert card[-1] <= 2 * cpu[-1] and card[len(card) // 2] <= 2 * cpu[len(cpu) // 2]
+
+
+# --- the fused gather-matmul (k) and whole-scene training
+
+# (B, N, J, C, F): bench_fused_sa's C and F at small sizes, and ragged ones
+# (F % 4 != 0 takes the kernel's word-by-word stores; C * F up to 17030 words)
+FUSED_SHAPES = [(2, 256, 256, 9, 32), (3, 100, 77, 5, 7), (2, 300, 129, 32, 64), (1, 64, 5, 131, 130),
+                (2, 128, 128, 1, 1), (4, 1024, 1000, 3, 6)]
+
+
+@pytest.mark.parametrize("b,n,j,c,f", FUSED_SHAPES)
+def test_fused_gather_mm_kernel_equals_plain(dev, b, n, j, c, f):
+    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
+
+    gen = torch.Generator(device=dev).manual_seed(b * n + c)
+    src = torch.randn((b, n, c), generator=gen, device=dev)
+    src[0, 0, 0] = -0.0
+    idx = torch.randint(0, n, (b, j), generator=gen, device=dev, dtype=torch.int32)
+    w = torch.randn((c, f), generator=gen, device=dev)
+    before = fk.launches
+    _equal(fk.fused_gather_mm_cuda(src, idx, w), fk.fused_gather_mm_plain(src, idx, w))
+    assert fk.launches == before + 1
+
+
+def test_fused_gather_mm_op_launches_the_kernel_and_refuses_what_it_cannot_take(dev):
+    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
+
+    src = _cloud(5, (2, 256, 9), dev)
+    idx = torch.randint(0, 256, (2, 384), device=dev, dtype=torch.int32)
+    w = _cloud(6, (9, 32), dev, -1, 1)
+    kernels.reset_launch_counts()
+    _equal(ops.fused_gather_mm(src, idx, w), fk.fused_gather_mm_plain(src, idx, w))
+    assert kernels.launch_counts() == {k: int(k in ("fused_gather_mm",)) for k in kernels.launch_counts()}
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ops.fused_gather_mm(src, idx[:, :100], w)
+    with pytest.raises(ValueError, match="C \\* F <="):
+        fk.fused_gather_mm_cuda(src, idx, torch.zeros((9, 6000), device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        fk.fused_gather_mm_cuda(src.double(), idx, w)
+    with pytest.raises(ValueError, match="do not match"):
+        fk.fused_gather_mm_cuda(src, idx, w[:8])
+
+
+@pytest.mark.parametrize("kind", ["ssg", "msg"])
+def test_wholescene_update_on_the_card_matches_the_cpu(dev, kind):
+    # one scene of 3 columns at micro-batch 2 (the second padded); the
+    # bounds of test_train_step_on_the_card_matches_the_cpu, but the worst of
+    # the ~70 per-tensor gradient errors may be 4x the CPU's, not 2x: with a
+    # micro-batch of one real 2048-point row it is one draw of float32 noise
+    # (measured 2.2x the CPU's worst for SSG, in two calls on an H100)
+    from pointnet2_scannet_tpu_torch.engine.solver import _SceneBatchIterator
+
+    ts, model, batch, schedule = _train_setup(0.0, kind)
+    scene = [torch.cat([v, v[:1]]).numpy() for v in (batch["points"], batch["labels"], batch["weights"])]
+    micro = list(_SceneBatchIterator(None, 2).micro_batches(*scene))
+    assert micro[1]["row_mask"].tolist() == [1.0, 0.0]
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), (dev, torch.float32)):
+        m = copy.deepcopy(model).to(device=device, dtype=dtype)
+        state = ts.create_train_state(m, schedule, seed=0)
+        kernels.reset_launch_counts()
+        res = [ts.grad_accum_step(state, {k: torch.from_numpy(v).to(device=device, dtype=dtype if k in (
+            "points", "weights") else None) for k, v in mb.items()}, num_classes=20) for mb in micro]
+        count = float(sum(r["count"] for r in res))
+        out[(str(device), dtype)] = (
+            float(sum(r["loss_sum"] for r in res)), {n: p.grad.cpu() / count for n, p in m.named_parameters()},
+            {n: b.cpu() for n, b in m.named_buffers() if b.is_floating_point()})
+        ts.apply_accumulated(state, count)
+        assert state.step == 1 and count == 3 * 2048
+    counts = kernels.launch_counts()  # the card's run
+    assert counts.pop(UNUSED_QUERY[kind]) == 0
+    assert all(counts.pop(k) == 0 for k in OFF_BY_DEFAULT)
+    assert all(n > 0 for n in counts.values())
+    ref = out[("cpu", torch.float64)][1]
+    (cpu_loss, cpu_g, cpu_b) = out[("cpu", torch.float32)]
+    (gpu_loss, gpu_g, gpu_b) = out[(str(dev), torch.float32)]
+    assert gpu_loss == pytest.approx(cpu_loss, rel=1e-4)
+    card, cpu = _rel_l2(gpu_g, ref), _rel_l2(cpu_g, ref)
+    assert card[len(card) // 2] <= 2 * cpu[len(cpu) // 2], (card[len(card) // 2], cpu[len(cpu) // 2])
+    assert card[-1] <= 4 * cpu[-1], (card[-1], cpu[-1])
+    for n, b in cpu_b.items():
+        torch.testing.assert_close(gpu_b[n], b, rtol=1e-4, atol=1e-4)

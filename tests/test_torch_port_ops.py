@@ -292,10 +292,11 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     grouped = ops.group_points(xyz, torch.zeros((1, 16, 8), dtype=torch.int32), use_mxu=True)
     (centroids.sum() + grouped.sum()).backward()  # the gathers' backwards: plain scatter-adds
     assert xyz.grad is not None
+    ops.fused_gather_mm(xyz.detach(), torch.zeros((1, 128), dtype=torch.int32), torch.ones((3, 4)))
     assert kernels.launch_counts() == {
         "furthest_point_sample": 0, "ball_query": 0, "gather": 0, "three_nn": 0,
         "scatter_add": 0, "ball_query_multi": 0, "gather_smem": 0, "scatter_smem": 0,
-        "three_nn_q": 0, "gather_split": 0,
+        "three_nn_q": 0, "gather_split": 0, "fused_gather_mm": 0,
     }
 
 
@@ -317,9 +318,11 @@ def test_tensor_on_another_device_raises():
         lambda x: kernels.gather_split_kernel.gather_split_cuda(x, torch.zeros((1, 2), dtype=torch.int32)),
         lambda x: kernels.scatter_smem_kernel.scatter_smem_cuda(torch.zeros((1, 8), dtype=torch.int32), x, 8),
         lambda x: kernels.three_nn_q_kernel.three_nn_q_cuda(x, x),
+        lambda x: kernels.fused_gather_mm_kernel.fused_gather_mm_cuda(
+            x, torch.zeros((1, 2), dtype=torch.int32), torch.ones((3, 4))),
     ],
     ids=["fps", "ball_query", "gather", "three_nn", "ball_query_multi", "gather_smem", "gather_split",
-         "scatter_smem", "three_nn_q"],
+         "scatter_smem", "three_nn_q", "fused_gather_mm"],
 )
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA device"):
