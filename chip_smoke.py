@@ -83,12 +83,21 @@
     clouds bit for bit against their plain versions. Then the steady
     whole-scene update of one synthetic scene at micro-batch 32, timed with
     CUDA events.
-18. Print one JSON line of kernel results (time, plain time, the card's bound
+18. P3, the SSG model at 32768-point columns, batch 8 (the 32768-point
+    chunk recipe), float32, full width: FPS against its plain version bit
+    for bit at (8, 32768) -> 1024 and (8, 20000) -> 1024 in float32 and
+    (2, 32768) -> 1024 in float64, with points near the origin and exact
+    ties (a cluster of blocks a row); train 3 steps through
+    scripts/train_torch.py and serve through scripts/infer_torch.py, each
+    launching the kernels of its path and FPS's cluster variant once a
+    forward (SA1); one train step card vs CPU at 2 x 32768 under phase 11's
+    bounds; the steady 8 x 32768 train step, timed.
+19. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one), the card line, and last {"ok": true, "device": {...}}.
 
-Each run of phases 9, 10, 12, 13, 14, 15 and 16 starts with every launch
+Each run of phases 9, 10, 12, 13, 14, 15, 16 and 18 starts with every launch
 counter at 0 and must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -143,6 +152,9 @@ F32_OPS_PER_S = 67e12
 # the MXU-gather configuration (P1); P2's chunk sizes; bench_gather's shapes
 MXU_CONFIG = {"vmem_gather": False, "mxu_gather": True}
 P2_NPOINTS = (8000, 7936)
+# P3: the 32768-point chunk recipe; FPS's (batch, points, dtype) checks there
+P3_BATCH, P3_NPOINTS, P3_CENTROIDS = 8, 32768, 1024
+P3_FPS = ((8, 32768, "float32"), (8, 20000, "float32"), (2, 32768, "float64"))
 BENCH_N, BENCH_J, BENCH_C = 8192, 32768, (9, 32, 64)
 FUSED_C, FUSED_F = 9, 32  # bench_fused_sa's layer 0
 # whole-scene training: scenes, micro-batch and epochs of the CLI run; the
@@ -662,6 +674,25 @@ def check_fused(torch, tallies) -> None:
           counterpart_ms=lambda: ga.gather_cuda(src, idx) @ w)
 
 
+def check_p3_fps(torch, tally) -> None:
+    """Phase 18: FPS against its plain version at P3_FPS's shapes, bit for
+    bit: synthetic columns of that many points, with one row's points near
+    the origin and another row's second half a copy of its first (exact
+    ties), in float32 and float64."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
+
+    for b, n, dtype in P3_FPS:
+        xyz = torch.from_numpy(serving_columns(2, n)[:b, :, :3]).to("cuda", getattr(torch, dtype))
+        xyz[0, :5] = 0.0
+        xyz[1, n // 2:] = xyz[1, : n - n // 2].clone()
+        p = fps.plan(n, xyz.dtype)
+        check(torch, tally, "p3", f"fps {dtype} ({b},{n})->{P3_CENTROIDS} ({p.variant} of {p.cluster})",
+              lambda: fps.furthest_point_sample_cuda(xyz, P3_CENTROIDS),
+              lambda: fps.furthest_point_sample_plain(xyz, P3_CENTROIDS),
+              xyz.element_size() * b * 3 * n + 4 * b * P3_CENTROIDS,
+              10 * b * (P3_CENTROIDS - 1) * n)
+
+
 def on_path(kind: str, training: bool, config: str = "default", npoints: int = NPOINTS) -> tuple[set, set]:
     """(kernels a run of the model must launch, kernels it must not), under
     the default configuration or P1's ("mxu"), at a column size."""
@@ -688,12 +719,21 @@ def check_launches(launches: dict, kind: str, training: bool, what: str,
     if missing or stray:
         raise RuntimeError(f"the {what} run launched no {missing} kernel, or launched {stray}")
     # every forward runs FPS at the 4 levels and 3-NN at the 4 FP levels,
-    # FP0 through the query-major kernel where it routes there
+    # FP0 through the query-major kernel where it routes there; SA1's FPS
+    # runs a cluster of blocks a row where a row outgrows one block
+    import torch
+
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel
+
     forwards, rest = divmod(launches["furthest_point_sample"], 4)
     q = forwards if "three_nn_q" in want else 0
     if rest or launches["three_nn_q"] != q or launches["three_nn"] != 4 * forwards - q:
         raise RuntimeError(f"the {what} run made {forwards} forwards but launched 3-NN "
                            f"{launches['three_nn']} + {launches['three_nn_q']} (query-major) times")
+    cluster = forwards if fps_kernel.plan(npoints, torch.float32).variant == "cluster" else 0
+    variants = fps_kernel.variant_launches
+    if variants != {"block": 4 * forwards - cluster, "cluster": cluster}:
+        raise RuntimeError(f"the {what} run made {forwards} forwards but launched FPS's variants {variants}")
 
 
 def load_script(name: str):
@@ -703,7 +743,8 @@ def load_script(name: str):
     return mod
 
 
-def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS) -> dict:
+def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
+          batch_size: int = BATCH) -> dict:
     """Phases 9, 12 and 13: the serving path end to end, through the
     kernels."""
     import numpy as np
@@ -714,7 +755,7 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
     from pointnet2_scannet_tpu_torch.models import get_model
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config, {npoints}-point columns)"
+    name = f"{kind.upper()} ({config} config, {npoints}-point columns, batch {batch_size})"
     run = tmp / f"run_{kind}_{config}_{npoints}"
     run.mkdir()
     RunConfig(
@@ -730,7 +771,7 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
     out_dir = tmp / f"out_{kind}"
     args = infer_torch.parse_args([
         "--folder", str(run), "--device", "cuda", "--synthetic",
-        "--synthetic_scenes", "4", "--batch_size", str(BATCH), "--out", str(out_dir),
+        "--synthetic_scenes", "4", "--batch_size", str(batch_size), "--out", str(out_dir),
     ])
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -738,7 +779,8 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
     stats = infer_torch.infer(args)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    print(f"serve {name}: launches {launches}", flush=True)
+    print(f"serve {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}",
+          flush=True)
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     check_launches(launches, kind, False, f"{name} serving", config, npoints)
 
@@ -757,9 +799,9 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
           f"end to end {stats['total_s']:.3f} s; peak device memory "
           f"{stats['peak_gib']:.2f} GiB", flush=True)
 
-    batch = serving_columns(2, npoints)[:BATCH]
-    gpu = Predictor.from_run(run, batch_size=BATCH, emit="logits", device="cuda")
-    cpu = Predictor.from_run(run, batch_size=BATCH, emit="logits", device="cpu")
+    batch = serving_columns(2, npoints)[:batch_size]
+    gpu = Predictor.from_run(run, batch_size=batch_size, emit="logits", device="cuda")
+    cpu = Predictor.from_run(run, batch_size=batch_size, emit="logits", device="cpu")
     got, want = gpu.predict(batch), cpu.predict(batch)
     err = float(np.abs(got - want).max())
     print(f"logits {name}: card vs CPU plain path over {batch.shape}: max_abs_err {err} "
@@ -768,7 +810,7 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
         raise RuntimeError(f"logits of shape {got.shape} or not finite")
     np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
 
-    labels = Predictor.from_run(run, batch_size=BATCH, device="cuda")
+    labels = Predictor.from_run(run, batch_size=batch_size, device="cuda")
     labels.predict(batch)  # warm-up
     times = []
     for _ in range(9):
@@ -791,7 +833,7 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
 
 
 def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
-              wholescene: bool = False) -> dict:
+              wholescene: bool = False, batch_size: int = BATCH) -> dict:
     """Phases 10, 12, 13 and 16: training through scripts/train_torch.py,
     through the kernels; chunked (3 steps of 32 chunks) or whole-scene
     (WS_EPOCHS epochs of one update per scene)."""
@@ -800,7 +842,7 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
     name = f"{kind.upper()} ({config} config, {npoints}-point columns{', whole scenes' * wholescene})"
-    scenes, batch, epochs = (WS_SCENES, WS_BATCH, WS_EPOCHS) if wholescene else (BATCH, BATCH, 3)
+    scenes, batch, epochs = (WS_SCENES, WS_BATCH, WS_EPOCHS) if wholescene else (batch_size, batch_size, 3)
     train_torch = load_script("train_torch")
     args = train_torch.parse_args([
         "--synthetic", "--synthetic_scenes", str(scenes), "--batch_size", str(batch),
@@ -818,7 +860,8 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
     took = time.perf_counter() - t0
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train {name}: launches {launches}", flush=True)
+    print(f"train {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}",
+          flush=True)
     check_launches(launches, kind, True, f"{name} training", config, npoints)
     for f in ("model_best.pt", "model_last.pt", "config.json", "best.txt",
               "model_last.train.pt", "tensorboard/all_scalars.json"):
@@ -860,14 +903,14 @@ def print_columns() -> None:
         raise RuntimeError("the whole-scene run would have no padded or no multi-micro-batch scene")
 
 
-def train_batch(torch, n: int, device):
+def train_batch(torch, n: int, device, npoints: int = NPOINTS):
     """A train batch of n full-width chunks of synthetic scenes, on device."""
     from pointnet2_scannet_tpu_torch.config import DataConfig
     from pointnet2_scannet_tpu_torch.data import make_synthetic_store
     from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
     from pointnet2_scannet_tpu_torch.data.pipeline import BatchLoader, to_device
 
-    cfg = DataConfig(npoints=NPOINTS, use_color=True, use_normal=True)
+    cfg = DataConfig(npoints=npoints, use_color=True, use_normal=True)
     ds = ChunkedSceneDataset(make_synthetic_store(n, seed=0), cfg, phase="train", seed=0)
     ds.generate_chunks()
     return to_device(next(iter(BatchLoader(ds, n, drop_last=True))), device)
@@ -891,7 +934,7 @@ def grad_errors(got: dict, want: dict) -> list:
                   reverse=True)
 
 
-def train_step_card_vs_cpu(torch, kind: str, config: str = "default") -> None:
+def train_step_card_vs_cpu(torch, kind: str, config: str = "default", npoints: int = NPOINTS) -> None:
     """Phases 11 and 12: one train step from the same weights on the card
     and on the CPU (float32 both, and float64 on the CPU as the reference),
     Dropout off."""
@@ -902,7 +945,7 @@ def train_step_card_vs_cpu(torch, kind: str, config: str = "default") -> None:
         state = fresh_state(torch, 0.0, device, kind)
         state.model.to(dtype)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
-                 for k, v in train_batch(torch, 2, device).items()}
+                 for k, v in train_batch(torch, 2, device, npoints).items()}
         res = ts.train_step(state, batch, num_classes=20)
         m = state.model
         out[(device, dtype)] = (
@@ -916,7 +959,7 @@ def train_step_card_vs_cpu(torch, kind: str, config: str = "default") -> None:
     med = len(card) // 2
     bn_err = max(float((gpu_b[k] - b).abs().max()) for k, b in cpu_b.items())
     loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    print(f"train step {kind.upper()} ({config} config) card vs CPU (2 x {NPOINTS}): loss {gpu_loss} vs {cpu_loss} "
+    print(f"train step {kind.upper()} ({config} config) card vs CPU (2 x {npoints}): loss {gpu_loss} vs {cpu_loss} "
           f"(rel {loss_err:.2e}); BatchNorm stats max abs err {bn_err:.2e}; gradients, per-tensor "
           f"relative L2 over {len(card)} tensors, worst / median: card vs CPU float32 "
           f"{direct[0][0]:.2e} ({direct[0][1]}) / {direct[med][0]:.2e}; vs CPU float64: card "
@@ -1056,24 +1099,25 @@ def wholescene_time(torch, kind: str) -> dict:
     return {"ms": ms, "points_per_s": pps}
 
 
-def train_step_repeat_and_time(torch, kind: str, config: str = "default") -> dict:
+def train_step_repeat_and_time(torch, kind: str, config: str = "default", batch_size: int = BATCH,
+                               npoints: int = NPOINTS) -> dict:
     """Phases 11 and 12: two identical steps on the card give the same bits
     and launch the kernels of the configuration's path; then the warm step
     at batch 32, timed with CUDA events."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config)"
-    batch = train_batch(torch, BATCH, "cuda")
+    name = f"{kind.upper()} ({config} config, {batch_size} x {npoints})"
+    batch = train_batch(torch, batch_size, "cuda", npoints)
     states = []
     kernels.reset_launch_counts()
     for _ in range(2):
         state = fresh_state(torch, 0.5, "cuda", kind)
         ts.train_step(state, batch, num_classes=20)
         states.append(state.model.state_dict())
-    check_launches(kernels.launch_counts(), kind, True, f"{name} determinism", config)
+    check_launches(kernels.launch_counts(), kind, True, f"{name} determinism", config, npoints)
     differ = [k for k, v in states[0].items() if not torch.equal(states[1][k], v)]
-    print(f"train step {name} determinism (B={BATCH}, Dropout 0.5): {len(states[0])} tensors, "
+    print(f"train step {name} determinism (Dropout 0.5): {len(states[0])} tensors, "
           f"{len(differ)} differ", flush=True)
     if differ:
         raise RuntimeError(f"two identical train steps on the card differ in {differ[:5]}")
@@ -1085,8 +1129,8 @@ def train_step_repeat_and_time(torch, kind: str, config: str = "default") -> dic
     if not bool(torch.isfinite(losses[-1])):
         raise RuntimeError("the steady-state train step's loss is not finite")
     ms = times[len(times) // 2]
-    pps = BATCH * NPOINTS / (ms / 1e3)
-    print(f"train {name} steady state: step of {BATCH} x {NPOINTS} in {ms:.2f} ms median of "
+    pps = batch_size * npoints / (ms / 1e3)
+    print(f"train {name} steady state: step of {batch_size} x {npoints} in {ms:.2f} ms median of "
           f"{len(times)} (min {times[0]:.2f}, max {times[-1]:.2f}): {pps:.0f} points/s; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return {"ms": ms, "points_per_s": pps}
@@ -1200,6 +1244,7 @@ def main() -> int:
     time_pregather(torch)
     check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats)
     check_fused(torch, tallies)
+    check_p3_fps(torch, tallies["furthest_point_sample"])
     del backward, multi_idx, xyz, fps_idx, input_feats
     for name, t in tallies.items():
         for path, p in t.paths.items():
@@ -1226,6 +1271,9 @@ def main() -> int:
         print_columns()
         for model_kind in KINDS:  # phase 16: whole scenes
             tally(train_cli(torch, tmp, model_kind, wholescene=True))
+        # phase 18: P3
+        tally(train_cli(torch, tmp, "ssg", npoints=P3_NPOINTS, batch_size=P3_BATCH))
+        tally(serve(torch, tmp, "ssg", npoints=P3_NPOINTS, batch_size=P3_BATCH))
     for model_kind in KINDS:
         train_step_card_vs_cpu(torch, model_kind)
         train_step_repeat_and_time(torch, model_kind)
@@ -1238,6 +1286,8 @@ def main() -> int:
     for model_kind in KINDS:  # phase 17
         wholescene_card_vs_cpu(torch, model_kind)
         wholescene_time(torch, model_kind)
+    train_step_card_vs_cpu(torch, "ssg", npoints=P3_NPOINTS)  # phase 18
+    train_step_repeat_and_time(torch, "ssg", batch_size=P3_BATCH, npoints=P3_NPOINTS)
 
     print(json.dumps({"kernels": [t.row(launches[name]) for name, t in tallies.items()]}))
     print(card_line())

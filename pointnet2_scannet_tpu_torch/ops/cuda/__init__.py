@@ -34,6 +34,8 @@ KERNELS = (
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for variant in fps_kernel.variant_launches:
+        fps_kernel.variant_launches[variant] = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -26,7 +26,7 @@ SOURCES = (
     "fps.cu", "ball_query.cu", "ball_query_multi.cu", "gather.cu", "three_nn.cu", "scatter_add.cu",
     "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu", "fused_gather_mm.cu",
 )
-HEADERS = ("sqdist.cuh",)
+HEADERS = ("sqdist.cuh", "smem_limit.cuh")
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
 # so every distance rounds like the plain PyTorch versions (see sqdist.cuh).
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,15 +38,16 @@ NVCC_FLAGS = (
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {
-    "p2_fps": [_vp, _i, _i, _i, _i, _vp, _vp],
+    "p2_fps": [_vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _vp, _vp],
     "p2_ball_query_multi": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, ctypes.c_float, _i,
                             _vp, _vp, _vp],
     "p2_gather": [_vp, _vp, _i, _i, _i, _i, _vp, _vp],
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp],
-    "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp],
-    "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
+    "p2_scatter_smem_accumulate": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_three_nn_q": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     "p2_fused_gather_mm": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp, _vp],
 }
@@ -152,11 +153,17 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+_sm_counts: dict[int, int] = {}
+
+
 def sm_count(t) -> int:
     """Streaming multiprocessors of the card that holds the tensor."""
     import torch
 
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
 
 
 def ptr(t) -> ctypes.c_void_p:

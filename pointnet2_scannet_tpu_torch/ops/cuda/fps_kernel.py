@@ -1,15 +1,21 @@
-"""Furthest-point sampling: the CUDA kernel (csrc/fps.cu) and its plain
+"""Furthest-point sampling: the CUDA kernels (csrc/fps.cu) and their plain
 PyTorch version.
 
 Replaces pointnet2_scannet_tpu/ops/pallas/fps_kernel.py
 (furthest_point_sample_pallas). On the card the npoint-1 dependent steps,
-each ending in a block-wide argmax, bound the kernel by synchronisation, and
-only B blocks run. The kernel keeps xyz in shared memory and every thread's
-min-distances in registers for the whole loop, so device memory is read once
-and written once; see the note at the head of csrc/fps.cu.
+each ending in an argmax over the row, bound the kernel by synchronisation,
+and only B blocks (or clusters) run. The kernels keep xyz in shared memory
+and every thread's min-distances in registers for the whole loop, so device
+memory is read once and written once. A row that fits one block's shared
+memory runs one block; a larger row runs a thread-block cluster of up to 8
+blocks that agree on each step's winner through distributed shared memory
+(plan() picks; see the note at the head of csrc/fps.cu).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -18,9 +24,42 @@ from pointnet2_scannet_tpu_torch.ops.cuda import build
 NAME = "furthest_point_sample"
 SOURCE = "pointnet2_scannet_tpu_torch/csrc/fps.cu"
 REPLACES = "pointnet2_scannet_tpu/ops/pallas/fps_kernel.py:77"
-MAX_POINTS = 16384  # 12 N bytes of shared memory, 16 registers a thread
+# points a block holds: 12 (float32) or 24 (float64) bytes each in 192 KiB
+# of shared memory, 16 (float32) or 8 (float64) registers a thread
+BLOCK_POINTS = {torch.float32: 16384, torch.float64: 8192}
+MAX_CLUSTER = 8  # the portable cluster size
+MAX_THREADS = 1024
 
 launches = 0
+# launches by variant: "block" (one block a row), "cluster" (a cluster a row)
+variant_launches = {"block": 0, "cluster": 0}
+
+
+class Plan(NamedTuple):
+    variant: str  # "block" or "cluster"
+    cluster: int  # blocks a batch row
+    threads: int  # threads a block
+    ppt: int  # points a thread: 1, 2, 4, 8 or 16
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, dtype: torch.dtype) -> Plan:
+    """The kernel variant and launch shape for rows of n points of dtype
+    (float32 or float64): one block where the row fits BLOCK_POINTS, else a
+    cluster of ceil(n / BLOCK_POINTS) blocks, at most MAX_CLUSTER; threads
+    cover a block's share 32 at a time up to 1024, and each holds the
+    smallest power of two of points that covers the rest."""
+    per_block = BLOCK_POINTS[dtype]
+    limit = MAX_CLUSTER * per_block
+    if not 0 < n <= limit:
+        raise ValueError(f"furthest_point_sample_cuda takes 0 < N <= {limit} in {dtype}, got {n}")
+    cluster = -(-n // per_block)
+    share = -(-n // cluster)
+    threads = min(MAX_THREADS, -(-share // 32) * 32)
+    ppt = 1
+    while threads * ppt < share:
+        ppt *= 2
+    return Plan("block" if cluster == 1 else "cluster", cluster, threads, ppt)
 
 
 def furthest_point_sample_plain(
@@ -59,20 +98,24 @@ def furthest_point_sample_plain(
 def furthest_point_sample_cuda(
     xyz: torch.Tensor, npoint: int, *, skip_near_origin: bool = True
 ) -> torch.Tensor:
-    """(B, N, 3) float32 on the card -> (B, npoint) int32; launches fps.cu."""
+    """(B, N, 3) float on the card -> (B, npoint) int32; launches fps.cu.
+    float64 runs in float64; float16 and bfloat16 compute in float32, as the
+    plain version does."""
     global launches
-    build.require(xyz, "xyz", (torch.float32,), 3, 3)
+    build.require(xyz, "xyz", (torch.float32, torch.float64, torch.float16, torch.bfloat16), 3, 3)
+    if xyz.dtype in (torch.float16, torch.bfloat16):
+        xyz = xyz.float()
     B, N, _ = xyz.shape
-    if N > MAX_POINTS:
-        raise ValueError(f"furthest_point_sample_cuda takes N <= {MAX_POINTS}, got {N}")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0 or npoint == 0:
         return out
+    p = plan(N, xyz.dtype)
     with torch.cuda.device(xyz.device):
         err = build.library().p2_fps(
-            build.ptr(xyz), B, N, npoint, int(skip_near_origin),
-            build.ptr(out), build.stream_of(xyz),
+            build.ptr(xyz), B, N, npoint, int(skip_near_origin), int(xyz.dtype == torch.float64),
+            p.cluster, p.threads, p.ppt, build.ptr(out), build.stream_of(xyz),
         )
     build.check(err, NAME)
     launches += 1
+    variant_launches[p.variant] += 1
     return out

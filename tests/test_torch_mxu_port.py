@@ -427,3 +427,10 @@ def test_bench_gather_torch_runs_the_plain_versions_on_the_cpu():
     assert len(times) == 8 and all(t > 0 for t in times)
     # on the CPU scatter_add_ adds in ascending j too
     assert row["bwd max_abs_err vs scatter_add_"] == 0.0
+
+
+def test_profile_scatter_needs_a_card(monkeypatch):
+    from pointnet2_scannet_tpu_torch.ops.cuda import profile_scatter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profile_scatter.main() == 1

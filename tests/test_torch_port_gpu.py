@@ -53,21 +53,46 @@ def _equal(got, want):
     assert torch.equal(got, want), float((got.double() - want.double()).abs().max())
 
 
-@pytest.mark.parametrize("n,npoint", [(64, 16), (200, 50), (1024, 256), (8192, 1024), (16384, 512)])
+# (N, npoint, dtype): one block a row up to 16384 float32 / 8192 float64
+# points, a cluster of blocks a row above (fps_kernel.plan), ragged shares
+# (16385, 20000, 8193) included
+FPS_SHAPES = [
+    (64, 16, torch.float32), (200, 50, torch.float32), (1024, 256, torch.float32),
+    (8192, 1024, torch.float32), (16384, 512, torch.float32), (16385, 256, torch.float32),
+    (20000, 256, torch.float32), (32768, 256, torch.float32), (65536, 128, torch.float32),
+    (200, 50, torch.float64), (8192, 256, torch.float64), (8193, 128, torch.float64),
+    (20000, 128, torch.float64),
+]
+
+
+@pytest.mark.parametrize("n,npoint,dtype", FPS_SHAPES)
 @pytest.mark.parametrize("skip", [True, False])
-def test_fps_kernel_equals_plain(dev, n, npoint, skip):
-    xyz = _cloud(n, (2, n, 3), dev)
+def test_fps_kernel_equals_plain(dev, n, npoint, dtype, skip):
+    xyz = _cloud(n, (2, n, 3), dev).to(dtype)
     xyz[0, 3] = 0.0  # near the origin
     xyz[1, n // 2:] = xyz[1, : n - n // 2].clone()  # duplicates: exact ties
     before = fps.launches
+    variant = fps.plan(n, dtype).variant
+    count = fps.variant_launches[variant]
     _equal(fps.furthest_point_sample_cuda(xyz, npoint, skip_near_origin=skip),
            fps.furthest_point_sample_plain(xyz, npoint, skip_near_origin=skip))
     assert fps.launches == before + 1
+    assert fps.variant_launches[variant] == count + 1
 
 
-def test_fps_kernel_refuses_too_many_points(dev):
-    with pytest.raises(ValueError, match="N <="):
-        fps.furthest_point_sample_cuda(torch.zeros((1, fps.MAX_POINTS + 1, 3), device=dev), 4)
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_fps_kernel_computes_half_precision_in_float32(dev, dtype):
+    xyz = _cloud(7, (2, 20000, 3), dev).to(dtype)
+    got = fps.furthest_point_sample_cuda(xyz, 128)
+    _equal(got, fps.furthest_point_sample_plain(xyz, 128))
+    _equal(got, fps.furthest_point_sample_cuda(xyz.float(), 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fps_kernel_refuses_too_many_points(dev, dtype):
+    limit = fps.MAX_CLUSTER * fps.BLOCK_POINTS[dtype]
+    with pytest.raises(ValueError, match=f"N <= {limit}"):
+        fps.furthest_point_sample_cuda(torch.zeros((1, limit + 1, 3), dtype=dtype, device=dev), 4)
 
 
 @pytest.mark.parametrize(
@@ -354,13 +379,17 @@ def _special_source(b, n, c, dev, seed):
     return src
 
 
-# (B, N, J, C): plan()'s row groups on an H100 (test_torch_port_ops.py holds
-# them) include one row a block (N = 40) and ragged groups (N = 300 and
-# 100); then P1's SA1 grouping and bench_gather's shapes at full width
+# (B, N, J, C): plan()'s tiles (test_torch_port_ops.py holds them) with
+# ragged last tiles (B * J not a multiple of the tile's rows) at C = 3, 9,
+# 67 and 131 (4-byte copies) and 8, 40, 128, 384 (16-byte copies), tiles
+# that cross batch rows, rows too wide for 4 a tile (4103 words: one row a
+# tile; 9001: two chunks of a row, one a tile); then P1's SA1 grouping and bench_gather's shapes at
+# full width
 SMEM_GATHER_SHAPES = [
     (2, 256, 384, 8), (2, 1024, 8192, 67), (2, 256, 2048, 131), (3, 300, 1000, 9), (2, 40, 640, 5),
-    (2, 4096, 512, 384), (1, 12288, 256, 128), (2, 100, 333, 40), (32, 8192, 32768, 9),
-    (32, 8192, 32768, 64),
+    (2, 4096, 512, 384), (1, 12288, 256, 128), (2, 100, 333, 40), (2, 8192, 1001, 3),
+    (3, 1024, 4099, 9), (2, 1024, 777, 67), (2, 256, 333, 131), (2, 64, 37, 4103), (1, 16, 9, 9001),
+    (32, 8192, 32768, 9), (32, 8192, 32768, 64),
 ]
 
 
@@ -393,14 +422,17 @@ def test_gather_split_kernel_equals_plain(dev):
         gsp.gather_split_cuda(src.to(torch.int32), idx)
 
 
-# (B, N, J, C): plan()'s split on an H100 includes ragged channel slices
-# (C = 67, 131, 40), ragged row groups (N = 300, 128) and one row a block
-# (N = 60 on 120 SMs or more); then P1's train-step backward at full width
-# (SA2 and SA3 groupings) and bench_gather's widest shape
+# (B, N, J, C): plan() on an H100 takes the accumulate route where a batch
+# row's index work is small (ragged channel slices at C = 40 and 1027 and at
+# P1's 67 and 131, ragged row groups at N = 300 and 128, one row a block at
+# N = 60) and the
+# sort route elsewhere (ragged last tiles, ragged row groups, the largest
+# N); then P1's train-step backward at full width (SA2 and SA3
+# groupings) and bench_gather's widest shape
 SMEM_SCATTER_SHAPES = [
     (2, 256, 384, 8), (2, 1024, 8192, 67), (2, 256, 2048, 131), (3, 300, 1000, 9), (2, 128, 640, 40),
-    (1, 12288, 4096, 16), (2, 60, 700, 5), (32, 1024, 8192, 67), (32, 256, 2048, 131),
-    (32, 8192, 32768, 64),
+    (1, 12288, 4096, 16), (2, 60, 700, 5), (1, 65535, 5000, 3), (3, 8192, 9001, 9), (1, 40, 200, 1027),
+    (32, 1024, 8192, 67), (32, 256, 2048, 131), (32, 8192, 32768, 64),
 ]
 
 
@@ -421,7 +453,36 @@ def test_scatter_smem_kernel_equals_plain_on_cpu_copies(dev, b, n, j, c):
     assert ss.launches == before + 2
     _same_bits(got.cpu(), ss.scatter_smem_plain(idx.cpu(), grad.cpu(), n))
     _same_bits(again, got)
-    _same_bits(got, sc.scatter_add_cuda(idx, grad, n))
+    if n <= sc.MAX_N:
+        _same_bits(got, sc.scatter_add_cuda(idx, grad, n))
+
+
+@pytest.mark.parametrize("c", [9, 64])
+def test_scatter_smem_kernel_sums_a_skewed_row_in_order(dev, c):
+    # one output row referenced 1000 times, spread over every sort tile and
+    # in a run, among uniformly drawn indices; rows 0..9 never referenced
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    g = torch.Generator(device=dev).manual_seed(c)
+    b, n, j = 4, 8192, 32768
+    idx = torch.randint(10, n, (b, j), generator=g, device=dev, dtype=torch.int32)
+    hot = torch.randperm(j, generator=g, device=dev)[:900]
+    idx[:, hot] = 4321
+    idx[:, 5000:5100] = 4321
+    grad = torch.randn((b, j, c), generator=g, device=dev)
+    grad *= 10.0 ** (torch.rand((b, j, 1), generator=g, device=dev) * 6 - 3)
+    got = ss.scatter_smem_cuda(idx, grad, n)
+    _same_bits(got.cpu(), ss.scatter_smem_plain(idx.cpu(), grad.cpu(), n))
+    _same_bits(ss.scatter_smem_cuda(idx, grad, n), got)
+    assert not bool(got[:, :10].any())
+
+
+def test_scatter_smem_kernel_without_indices_gives_zeros(dev):
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    idx = torch.zeros((2, 0), dtype=torch.int32, device=dev)
+    got = ss.scatter_smem_cuda(idx, torch.zeros((2, 0, 5), device=dev), 7)
+    _same_bits(got, torch.zeros((2, 7, 5), device=dev))
 
 
 def test_scatter_smem_kernel_refuses_what_it_cannot_take(dev):

@@ -11,6 +11,7 @@ version; the CUDA kernels themselves are held against those plain versions
 in tests/test_torch_port_gpu.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,6 +100,50 @@ def test_fps_without_skip_can_pick_the_origin():
     )
     np.testing.assert_array_equal(got, want)
     assert 9 in got[0]
+
+
+def _large_cloud(n):
+    """One row of n points past one block's 16384 on the card: every point
+    twice (exact min-distance ties at every step) and two near the origin."""
+    xyz = _cloud(n, (1, n, 3))
+    xyz[0, n // 2:] = xyz[0, : n - n // 2]
+    xyz[0, 3] = [0.01, 0.0, 0.01]  # |p|^2 = 2e-4: never picked
+    xyz[0, n - 5] = [0.0, 0.0, 0.0]
+    return xyz
+
+
+@pytest.mark.parametrize("n", [20000, 32768])
+def test_fps_at_large_n_matches_jax_and_oracle(n):
+    xyz = _large_cloud(n)
+    got = _np(ops.furthest_point_sample(_t(xyz), 64))
+    want = np.asarray(jsamp.furthest_point_sample(jnp.asarray(xyz), 64, use_pallas=False))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracles.fps_oracle(xyz, 64))
+    assert 3 not in got[0] and n - 5 not in got[0]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
+def test_fps_dtypes_match_jax(dtype):
+    # float64 stays float64 (held to the float64 oracle too); bfloat16
+    # computes in float32 on both sides
+    xyz = _cloud(14, (2, 700, 3))
+    if dtype == "float64":
+        xyz = xyz.astype(np.float64) * (1 + 1e-12)  # values float32 cannot hold
+        src = torch.from_numpy(xyz)
+    else:
+        src = _t(xyz).to(torch.bfloat16)
+    jax.config.update("jax_enable_x64", dtype == "float64")
+    try:
+        jx = jnp.asarray(xyz) if dtype == "float64" else jnp.asarray(xyz).astype(jnp.bfloat16)
+        want = np.asarray(jsamp.furthest_point_sample(jx, 96, use_pallas=False))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    got = _np(ops.furthest_point_sample(src, 96))
+    np.testing.assert_array_equal(got, want)
+    if dtype == "float64":
+        np.testing.assert_array_equal(got, oracles.fps_oracle(xyz, 96))
+    else:
+        np.testing.assert_array_equal(got, _np(ops.furthest_point_sample(src.float(), 96)))
 
 
 # --------------------------------------------------------- ball query
@@ -343,36 +388,117 @@ def test_kernel_modules_name_their_sources_and_tpu_kernels():
     assert build.library_path() == build.library_path()  # content-hashed name
 
 
-# (B, N, C, SMs, groups): gather_smem.cu's row groups on an H100 SXM (132
-# SMs) and PCIe (114): one row a block, ragged groups, groups set by the SM
-# count and groups set by shared memory
-@pytest.mark.parametrize("b,n,c,sms,groups", [
-    (2, 40, 5, 132, 40), (2, 40, 5, 114, 40), (3, 300, 9, 132, 44), (3, 300, 9, 114, 38),
-    (1, 12288, 128, 132, 132), (32, 8192, 9, 132, 4), (32, 8192, 64, 132, 11), (32, 8192, 64, 114, 11),
-])
-def test_gather_smem_plan(b, n, c, sms, groups):
-    assert kernels.gather_smem_kernel.plan(b, n, c, sms) == groups
+# (B, N, J, C, SMs, (rows, width, tiles, blocks)): gather_smem.cu's tiles and
+# persistent grid at P1's five MXU-route gathers (SA1 centroids and
+# grouping, SA2 centroids and grouping, SA3 grouping) and bench_gather's
+# three shapes, on an H100 SXM (132 SMs) and PCIe (114): as many rows as fit
+# 32 KiB, fewer where two tiles a multiprocessor would not be reached; a
+# 9001-word row in two chunks
+E_PLANS = [
+    (32, 8192, 1024, 3, 132, (128, 3, 256, 256)), (32, 8192, 1024, 3, 114, (144, 3, 228, 228)),
+    (32, 8192, 32768, 9, 132, (908, 9, 1155, 396)), (32, 8192, 32768, 9, 114, (908, 9, 1155, 342)),
+    (32, 1024, 256, 3, 132, (32, 3, 256, 256)), (32, 1024, 256, 3, 114, (36, 3, 228, 228)),
+    (32, 1024, 8192, 67, 132, (120, 67, 2185, 396)), (32, 256, 2048, 131, 114, (60, 131, 1093, 342)),
+    (32, 8192, 32768, 32, 132, (256, 32, 4096, 396)), (32, 8192, 32768, 64, 114, (128, 64, 8192, 342)),
+    (2, 64, 37, 9001, 132, (1, 8192, 148, 148)),
+]
 
 
-# (B, N, C, SMs, (cs, groups)): scatter_smem.cu's channel slices (at most
-# 32 wide, ragged at C = 67 and 131) and row groups, as above
+@pytest.mark.parametrize("b,n,j,c,sms,want", E_PLANS)
+def test_gather_smem_plan(b, n, j, c, sms, want):
+    assert tuple(kernels.gather_smem_kernel.plan(b, n, j, c, sms)) == want
+
+
+# (B, N, J, C, SMs, plan): scatter_smem.cu's route at P1's two train-step
+# backwards (SA2, SA3 grouping: little index work a batch row, so the
+# accumulate route's (cs, groups)) and at bench_gather's three shapes (the
+# sort route's (tile, tiles, walkers, rows, sum_blocks)), for 132 and 114
+# SMs; then sort tiles halved until every multiprocessor has one (B = 2, J
+# = 131072: 2048 on 114 SMs, 1024 on 132), one ranking warp where n's
+# cursors fill shared memory, and P1's SA2 shape at B = 2, where the
+# accumulate route would spread over 22 row groups and so sorts
+F_PLANS = [
+    (32, 1024, 8192, 67, 132, (23, 1)),
+    (32, 1024, 8192, 67, 114, (23, 1)),
+    (32, 256, 2048, 131, 132, (27, 1)),
+    (32, 256, 2048, 131, 114, (27, 1)),
+    (32, 8192, 32768, 9, 132, (4096, 8, 4, 16, 2048)),
+    (32, 8192, 32768, 32, 114, (4096, 8, 4, 16, 2048)),
+    (32, 8192, 32768, 64, 132, (4096, 8, 4, 16, 4096)),
+    (2, 16384, 131072, 9, 132, (1024, 128, 2, 8, 512)),
+    (2, 16384, 131072, 9, 114, (2048, 64, 2, 8, 512)),
+    (1, 65535, 5000, 3, 132, (1024, 5, 1, 16, 512)),
+    (2, 1024, 8192, 67, 132, (1024, 8, 8, 1, 768)),
+]
+
+
+@pytest.mark.parametrize("b,n,j,c,sms,want", F_PLANS)
+def test_scatter_smem_plan(b, n, j, c, sms, want):
+    assert tuple(kernels.scatter_smem_kernel.plan(b, n, j, c, sms)) == want
+
+
+# (B, N, C, SMs, (cs, groups)): the accumulate route's channel slices (at
+# most 32 wide, ragged at C = 67 and 131) and row groups: one row a block,
+# ragged groups, groups set by the SM count and by shared memory
 @pytest.mark.parametrize("b,n,c,sms,split", [
     (2, 60, 5, 132, (5, 60)), (2, 60, 5, 114, (5, 57)), (3, 300, 9, 132, (9, 44)),
     (2, 1024, 67, 132, (23, 22)), (2, 256, 131, 132, (27, 13)), (1, 12288, 16, 132, (16, 132)),
     (32, 1024, 67, 132, (23, 1)), (32, 8192, 64, 132, (32, 6)),
 ])
-def test_scatter_smem_plan(b, n, c, sms, split):
-    assert kernels.scatter_smem_kernel.plan(b, n, c, sms) == split
+def test_scatter_smem_accumulate_plan(b, n, c, sms, split):
+    assert tuple(kernels.scatter_smem_kernel.accumulate_plan(b, n, c, sms)) == split
 
 
 @pytest.mark.parametrize("sms", [114, 132])
 def test_smem_plans_fit_shared_memory(sms):
     gs, ss = kernels.gather_smem_kernel, kernels.scatter_smem_kernel
     for b in (1, 2, 3, 32):
-        for n in (1, 7, 60, 300, 1024, 8192, 12288, ss.MAX_N):
-            for c in (1, 3, 9, 32, 33, 67, 131, 384):
-                groups = gs.plan(b, n, c, sms)
-                assert 1 <= groups <= n and -(-n // groups) * c * 4 <= gs.SMEM_BYTES
-                cs, groups = ss.plan(b, n, c, sms)
-                assert cs <= 32 and -(-c // cs) == -(-c // 32)
-                assert 1 <= groups <= n and -(-n // groups) * cs * 4 <= ss.SMEM_BYTES
+        for n in (1, 7, 60, 300, 1024, 8192, 12288, 32768, ss.MAX_N):
+            for j in (1, 37, 1000, 32768):
+                for c in (1, 3, 9, 32, 33, 67, 131, 384):
+                    p = gs.plan(b, n, j, c, sms)
+                    assert p.rows % 4 == 0 and p.width == c
+                    assert p.tiles * p.rows >= b * j > (p.tiles - 1) * p.rows
+                    assert 1 <= p.blocks <= min(p.tiles, gs.BLOCKS_PER_SM * sms)
+                    assert gs.shared_bytes(p) <= gs.SHARED_BYTES
+                    a = ss.accumulate_plan(b, n, c, sms)
+                    assert a.cs <= 32 and -(-c // a.cs) == -(-c // 32) and 1 <= a.groups <= n
+                    assert -(-n // a.groups) * a.cs * 4 <= ss.ACCUMULATE_BYTES
+                    q = ss.plan(b, n, j, c, sms)
+                    if a.groups * -(-c // a.cs) * j <= ss.ACCUMULATE_WORK:
+                        assert q == a
+                        continue
+                    assert ss.MIN_TILE <= q.tile <= ss.MAX_TILE and q.tile % (32 * q.walkers) == 0
+                    assert 1 <= q.walkers <= ss.MAX_WALKERS
+                    assert q.tiles * q.tile >= j > (q.tiles - 1) * q.tile
+                    assert 1 <= q.rows <= ss.MAX_ROWS
+                    assert q.sum_blocks * ss.SUM_THREADS // 32 >= b * -(-n // q.rows) * -(-c // 32)
+                    assert ss.shared_bytes(q, n) <= ss.SHARED_BYTES
+
+
+# (N, dtype, (variant, cluster, threads, ppt)): one block up to 16384 float32
+# or 8192 float64 points, a cluster of ceil(N / that) blocks above
+FPS_PLANS = [
+    (64, torch.float32, ("block", 1, 64, 1)), (8192, torch.float32, ("block", 1, 1024, 8)),
+    (16384, torch.float32, ("block", 1, 1024, 16)), (16385, torch.float32, ("cluster", 2, 1024, 16)),
+    (20000, torch.float32, ("cluster", 2, 1024, 16)), (32768, torch.float32, ("cluster", 2, 1024, 16)),
+    (131072, torch.float32, ("cluster", 8, 1024, 16)), (64, torch.float64, ("block", 1, 64, 1)),
+    (8192, torch.float64, ("block", 1, 1024, 8)), (16384, torch.float64, ("cluster", 2, 1024, 8)),
+    (16385, torch.float64, ("cluster", 3, 1024, 8)), (20000, torch.float64, ("cluster", 3, 1024, 8)),
+    (32768, torch.float64, ("cluster", 4, 1024, 8)), (65536, torch.float64, ("cluster", 8, 1024, 8)),
+]
+
+
+@pytest.mark.parametrize("n,dtype,want", FPS_PLANS)
+def test_fps_plan(n, dtype, want):
+    p = kernels.fps_kernel.plan(n, dtype)
+    assert tuple(p) == want
+    share = -(-n // p.cluster)
+    assert p.threads * p.ppt >= share and 12 * share * (dtype.itemsize // 4) <= 192 * 1024
+
+
+@pytest.mark.parametrize("n,dtype", [(131073, torch.float32), (65537, torch.float64), (0, torch.float32)])
+def test_fps_plan_refuses_rows_past_its_limit(n, dtype):
+    limit = kernels.fps_kernel.MAX_CLUSTER * kernels.fps_kernel.BLOCK_POINTS[dtype]
+    with pytest.raises(ValueError, match=f"N <= {limit}"):
+        kernels.fps_kernel.plan(n, dtype)
