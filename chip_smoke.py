@@ -12,7 +12,9 @@
 4. The scatter-add (every gather's backward) at the seven shapes of the SSG
    train step, its indices the ball-query and 3-NN outputs of phase 3: equal
    bit for bit to the plain version run on CPU copies, and to itself across
-   two launches.
+   two launches; timed with the route its plan takes, beside scatter_add_
+   and the bound. Then the same at 65535 outputs a row, one of them named
+   about 1000 times (B 2, J 131072, C 64: the card-wide sort's route).
 5. The two-radius ball query of the MSG levels against its plain version at
    the four MSG levels (the same level clouds), bit for bit, timed beside
    two single-radius launches per level.
@@ -156,6 +158,7 @@ P2_NPOINTS = (8000, 7936)
 P3_BATCH, P3_NPOINTS, P3_CENTROIDS = 8, 32768, 1024
 P3_FPS = ((8, 32768, "float32"), (8, 20000, "float32"), (2, 32768, "float64"))
 BENCH_N, BENCH_J, BENCH_C = 8192, 32768, (9, 32, 64)
+SKEW_N = 65535  # the scatter-add's outputs a row at its limit, in phase 4
 FUSED_C, FUSED_F = 9, 32  # bench_fused_sa's layer 0
 # whole-scene training: scenes, micro-batch and epochs of the CLI run; the
 # card-vs-CPU scene (columns, micro-batch)
@@ -399,7 +402,8 @@ def check_scatter(torch, tally, path, backward) -> None:
     plain version on CPU copies (which adds in ascending j, as the kernels
     do) and against a second launch, bit for bit; times against the plain
     version on the card (unordered atomics) and against scatter_add_ on an
-    int64 index made beforehand."""
+    int64 index made beforehand, beside the route its plan() takes."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
 
     mod = tally.module
@@ -407,9 +411,9 @@ def check_scatter(torch, tally, path, backward) -> None:
     extra = {} if mod is sc else {"counterpart_ms": sc.scatter_add_cuda}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for label, idx, n, c in sorted(backward, key=lambda b: b[0]):
-        j = idx.shape[1]
-        g = torch.randn((BATCH, j, c), generator=gen, device="cuda")
-        g *= 10.0 ** (torch.rand((BATCH, j, 1), generator=gen, device="cuda") * 6 - 3)
+        b, j = idx.shape
+        g = torch.randn((b, j, c), generator=gen, device="cuda")
+        g *= 10.0 ** (torch.rand((b, j, 1), generator=gen, device="cuda") * 6 - 3)
         got = kernel(idx, g, n)
         again = kernel(idx, g, n)
         want = sc.scatter_add_plain(idx.cpu(), g.cpu(), n)
@@ -417,24 +421,36 @@ def check_scatter(torch, tally, path, backward) -> None:
         err = float((got.double() - want.double()).abs().max())
         equal = torch.equal(got, want)
         repeat = torch.equal(again.cpu(), got)
-        index = idx.long().unsqueeze(-1).expand(BATCH, j, c)
+        index = idx.long().unsqueeze(-1).expand(b, j, c)
         ms = cuda_ms(lambda: kernel(idx, g, n), torch)
         plain_ms = cuda_ms(lambda: sc.scatter_add_plain(idx, g, n), torch)
-        library_ms = cuda_ms(lambda: torch.zeros((BATCH, n, c), device="cuda").scatter_add_(
+        library_ms = cuda_ms(lambda: torch.zeros((b, n, c), device="cuda").scatter_add_(
             1, index, g), torch)
         more = {k: cuda_ms(lambda: fn(idx, g, n), torch) for k, fn in extra.items()}
-        nbytes, nops = 4 * BATCH * (j + j * c + n * c), BATCH * j * c
+        nbytes, nops = 4 * b * (j + j * c + n * c), b * j * c
         tally.add(path, ms, plain_ms, err, nbytes, nops, library_ms, **more)
-        b, by = bound_ms(nbytes, nops)
-        print(f"kernel {mod.NAME} {path.upper()} {label} (B={BATCH}, J={j}, N={n}, C={c}): "
-              f"{ms:.4f} ms, plain on the card {plain_ms:.4f} ms, library {library_ms:.4f} ms"
+        bound, by = bound_ms(nbytes, nops)
+        route = mod.plan(b, n, j, c, build.sm_count(g))
+        print(f"kernel {mod.NAME} {path.upper()} {label} (B={b}, J={j}, N={n}, C={c}): "
+              f"{ms:.4f} ms, route {type(route).__name__}{tuple(route)}, plain on the card "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms"
               + "".join(f", {k} {v:.4f} ms" for k, v in more.items())
-              + f", bound {b:.4f} ms ({by}), max_abs_err vs CPU plain {err}, "
+              + f", bound {bound:.4f} ms ({by}), max_abs_err vs CPU plain {err}, "
               f"{'equal' if equal else 'DIFFERENT'}, second launch "
               f"{'equal' if repeat else 'DIFFERENT'}", flush=True)
         if not (equal and repeat):
             raise RuntimeError(f"{mod.NAME} {label}: kernel differs from the CPU plain version "
                                f"or from its own second launch (max_abs_err {err})")
+
+
+def skewed_row(torch) -> list:
+    """Phase 4's check past the train steps' shapes: N = 65535 outputs, one
+    of them named about 1000 times among uniform indices (B 2, J 131072, C
+    64), as check_scatter takes it."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    idx = torch.randint(0, SKEW_N, (2, 131072), generator=gen, device="cuda", dtype=torch.int32)
+    idx[:, torch.randperm(131072, generator=gen, device="cuda")[:1000]] = 4321
+    return [(f"N={SKEW_N} skewed row", idx, SKEW_N, 64)]
 
 
 def check_multi(torch, tallies, xyz) -> list:
@@ -1238,6 +1254,7 @@ def main() -> int:
     xyz, fps_idx, input_feats = level_clouds(torch)
     backward = check_kernels(torch, tallies, xyz, fps_idx, input_feats)
     check_scatter(torch, tallies["scatter_add"], "ssg", backward)
+    check_scatter(torch, tallies["scatter_add"], "skew", skewed_row(torch))
     multi_idx = check_multi(torch, tallies, xyz)
     backward = check_msg_gathers(torch, tallies, xyz, input_feats, multi_idx)
     check_scatter(torch, tallies["scatter_add"], "msg", backward)

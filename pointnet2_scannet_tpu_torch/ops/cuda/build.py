@@ -26,7 +26,7 @@ SOURCES = (
     "fps.cu", "ball_query.cu", "ball_query_multi.cu", "gather.cu", "three_nn.cu", "scatter_add.cu",
     "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu", "fused_gather_mm.cu",
 )
-HEADERS = ("sqdist.cuh", "smem_limit.cuh")
+HEADERS = ("sqdist.cuh", "smem_limit.cuh", "csr_sort.cuh")
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
 # so every distance rounds like the plain PyTorch versions (see sqdist.cuh).
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,7 +44,8 @@ _SIGNATURES = {
                             _vp, _vp, _vp],
     "p2_gather": [_vp, _vp, _i, _i, _i, _i, _vp, _vp],
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
-    "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp],
+    "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_scatter_add_sort": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
     "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
     "p2_scatter_smem_accumulate": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],

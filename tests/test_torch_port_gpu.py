@@ -234,9 +234,11 @@ def test_public_ops_launch_the_kernels(dev):
 
 
 # (J, N, C) of every gather gradient of the SSG train step (grouping at SA2-4,
-# interpolation at FP0-3), at batch 2
+# interpolation at FP0-3), at batch 2; then N = 65535 on the block route (in
+# row groups) and on the card-wide sort (J above 65535)
 SCATTER_SHAPES = [(8192, 1024, 67), (2048, 256, 131), (512, 64, 259), (24576, 1024, 128),
-                  (3072, 256, 256), (768, 64, 256), (192, 16, 512), (40, 7, 3)]
+                  (3072, 256, 256), (768, 64, 256), (192, 16, 512), (40, 7, 3),
+                  (5000, 65535, 3), (70000, 65535, 9)]
 
 
 @pytest.mark.parametrize("j,n,c", SCATTER_SHAPES)
@@ -252,6 +254,57 @@ def test_scatter_kernel_equals_plain_on_cpu_copies(dev, j, n, c):
     assert sc.launches == before + 2
     _equal(got.cpu(), sc.scatter_add_plain(idx.cpu(), grad.cpu(), n))
     _equal(again, got)
+
+
+@pytest.mark.parametrize("j,n,c", SCATTER_SHAPES[:8])
+def test_scatter_kernel_routes_equal_plain_on_cpu_copies(dev, j, n, c):
+    # every route plan() could take at the shape, launched as it is
+    g = torch.Generator(device=dev).manual_seed(j + c)
+    idx = torch.randint(0, max(n * 3 // 4, 1), (2, j), generator=g, device=dev, dtype=torch.int32)
+    idx[:, ::5] = idx[:, :1]
+    grad = torch.randn((2, j, c), generator=g, device=dev)
+    want = sc.scatter_add_plain(idx.cpu(), grad.cpu(), n)
+    plans = sc.candidate_plans(2, n, j, c, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert len(plans) >= 2  # the block route and the card-wide sort
+    for p in plans:
+        _equal(sc.launch(idx, grad, n, p).cpu(), want)
+
+
+@pytest.mark.parametrize("b", [2, 32])
+def test_scatter_kernel_sums_a_skewed_row_in_order(dev, b):
+    # FP0's shape with one output row referenced 1000 times, across pages and
+    # walkers, and rows 0..9 never referenced
+    g = torch.Generator(device=dev).manual_seed(b)
+    j, n, c = 24576, 1024, 128
+    idx = torch.randint(10, n, (b, j), generator=g, device=dev, dtype=torch.int32)
+    idx[:, torch.randperm(j, generator=g, device=dev)[:900]] = 777
+    idx[:, 3000:3100] = 777
+    grad = torch.randn((b, j, c), generator=g, device=dev)
+    grad *= 10.0 ** (torch.rand((b, j, 1), generator=g, device=dev) * 6 - 3)
+    want = sc.scatter_add_plain(idx.cpu(), grad.cpu(), n)
+    for p in sc.candidate_plans(b, n, j, c, torch.cuda.get_device_properties(dev).multi_processor_count):
+        got = sc.launch(idx, grad, n, p)
+        _equal(got.cpu(), want)
+        assert not bool(got[:, :10].any())
+    _equal(sc.scatter_add_cuda(idx, grad, n).cpu(), want)
+
+
+@pytest.mark.parametrize("c", [128, 67])
+def test_scatter_kernel_takes_rows_off_16_byte_alignment(dev, c):
+    # g a contiguous view 4 bytes past an aligned allocation: the 16-byte
+    # copies (C % 4 == 0) give way to 4-byte ones
+    g = torch.Generator(device=dev).manual_seed(c)
+    j, n = 3000, 256
+    idx = torch.randint(0, n, (2, j), generator=g, device=dev, dtype=torch.int32)
+    grad = torch.randn(2 * j * c + 1, generator=g, device=dev)[1:].view(2, j, c)
+    assert grad.is_contiguous() and grad.data_ptr() % 16
+    _equal(sc.scatter_add_cuda(idx, grad, n).cpu(), sc.scatter_add_plain(idx.cpu(), grad.cpu(), n))
+
+
+def test_scatter_kernel_without_indices_gives_zeros(dev):
+    idx = torch.zeros((2, 0), dtype=torch.int32, device=dev)
+    got = sc.scatter_add_cuda(idx, torch.zeros((2, 0, 5), device=dev), 7)
+    _equal(got, torch.zeros((2, 7, 5), device=dev))
 
 
 def test_scatter_kernel_refuses_what_it_cannot_take(dev):

@@ -437,6 +437,99 @@ def test_scatter_smem_plan(b, n, j, c, sms, want):
     assert tuple(kernels.scatter_smem_kernel.plan(b, n, j, c, sms)) == want
 
 
+# (J, N, C) of the gather gradients of the SSG train step (SA2-4 groupings,
+# FP0-3 interpolations) and of the MSG train step (SA2 scales 0/1, SA3 and
+# SA4 pregather scales 0/1, FP0-3)
+H_SHAPES = [
+    (8192, 1024, 67), (2048, 256, 131), (512, 64, 259), (24576, 1024, 128), (3072, 256, 256),
+    (768, 64, 256), (192, 16, 512),
+    (4096, 1024, 99), (8192, 1024, 99), (1024, 256, 128), (2048, 256, 128), (256, 64, 256),
+    (512, 64, 256), (24576, 1024, 256), (3072, 256, 512), (768, 64, 512), (192, 16, 1024),
+]
+# scatter_add.cu's block route (chunks, vec, rows, groups, walkers, page) at
+# those shapes, per (B, SMs): the fewest 32-channel chunks a slice that keep
+# one block a multiprocessor, 16-byte copies where C % 4 == 0, row groups
+# only where batch rows and slices leave multiprocessors idle (B = 2), the
+# largest page shared memory holds
+H_PLANS = {
+    (32, 132): [(1, 1, 1024, 1, 32, 823), (2, 1, 256, 1, 32, 441), (3, 1, 64, 1, 16, 299),
+                (1, 4, 1024, 1, 32, 695), (2, 4, 256, 1, 32, 437), (2, 4, 64, 1, 24, 448),
+                (4, 4, 16, 1, 6, 192), (1, 1, 1024, 1, 32, 855), (1, 1, 1024, 1, 32, 823),
+                (1, 4, 256, 1, 32, 891), (1, 4, 256, 1, 32, 883), (2, 4, 64, 1, 8, 256),
+                (2, 4, 64, 1, 16, 449), (2, 4, 1024, 1, 32, 347), (4, 4, 256, 1, 32, 218),
+                (4, 4, 64, 1, 24, 224), (4, 4, 16, 1, 6, 192)],
+    (32, 114): [(1, 1, 1024, 1, 32, 823), (2, 1, 256, 1, 32, 441), (3, 1, 64, 1, 16, 299),
+                (2, 4, 1024, 1, 32, 347), (3, 4, 256, 1, 32, 291), (3, 4, 64, 1, 24, 298),
+                (4, 4, 16, 1, 6, 192), (2, 1, 1024, 1, 32, 427), (2, 1, 1024, 1, 32, 411),
+                (2, 4, 256, 1, 32, 445), (2, 4, 256, 1, 32, 441), (3, 4, 64, 1, 8, 256),
+                (3, 4, 64, 1, 16, 299), (3, 4, 1024, 1, 32, 231), (4, 4, 256, 1, 32, 218),
+                (4, 4, 64, 1, 24, 224), (4, 4, 16, 1, 6, 192)],
+    (2, 132): [(1, 1, 47, 22, 32, 839), (1, 1, 20, 13, 32, 887), (1, 1, 10, 7, 16, 512),
+               (1, 4, 64, 16, 32, 710), (1, 4, 32, 8, 32, 879), (1, 4, 8, 8, 24, 768),
+               (1, 4, 4, 4, 6, 192), (1, 1, 64, 16, 32, 870), (1, 1, 64, 16, 32, 838),
+               (1, 4, 16, 16, 32, 895), (1, 4, 16, 16, 32, 887), (1, 4, 8, 8, 8, 256),
+               (1, 4, 8, 8, 16, 512), (1, 4, 128, 8, 32, 709), (1, 4, 64, 4, 32, 878),
+               (1, 4, 16, 4, 24, 768), (1, 4, 8, 2, 6, 192)],
+    (2, 114): [(1, 1, 54, 19, 32, 839), (1, 1, 24, 11, 32, 887), (1, 1, 11, 6, 16, 512),
+               (1, 4, 74, 14, 32, 710), (1, 4, 37, 7, 32, 879), (1, 4, 10, 7, 24, 768),
+               (1, 4, 6, 3, 6, 192), (1, 1, 74, 14, 32, 870), (1, 1, 74, 14, 32, 838),
+               (1, 4, 19, 14, 32, 895), (1, 4, 19, 14, 32, 887), (1, 4, 10, 7, 8, 256),
+               (1, 4, 10, 7, 16, 512), (1, 4, 147, 7, 32, 709), (1, 4, 86, 3, 32, 878),
+               (1, 4, 22, 3, 24, 768), (1, 4, 16, 1, 6, 192)],
+}
+
+
+@pytest.mark.parametrize("b,sms,k", [(b, sms, k) for b, sms in H_PLANS for k in range(len(H_SHAPES))])
+def test_scatter_add_plan(b, sms, k):
+    j, n, c = H_SHAPES[k]
+    p = kernels.scatter_kernel.plan(b, n, j, c, sms)
+    assert isinstance(p, kernels.scatter_kernel.BlockPlan)
+    assert tuple(p) == H_PLANS[b, sms][k]
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_scatter_add_plan_sorts_over_the_card_past_the_block_route(sms):
+    # P3's FP0 (8 columns of 32768 points): J above 65535, so the card-wide
+    # sort of csr_sort.cuh, with scatter_smem's sort plan
+    sc = kernels.scatter_kernel
+    assert sc.plan(8, 1024, 98304, 128, sms) == kernels.scatter_smem_kernel.sort_plan(8, 1024, 98304, 128, sms)
+    assert tuple(sc.plan(8, 1024, 98304, 128, sms)) == (1024, 96, 8, 1, 4096)
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_scatter_add_plans_fit_shared_memory(sms):
+    sc, ss = kernels.scatter_kernel, kernels.scatter_smem_kernel
+    for b in (1, 2, 32):
+        for n in (1, 7, 16, 64, 1024, 8192, 32768, sc.MAX_N):
+            for j in (0, 1, 192, 24576, 98304):
+                for c in (3, 67, 128, 259, 512):
+                    p = sc.plan(b, n, j, c, sms)
+                    if isinstance(p, sc.BlockPlan):
+                        assert j <= sc.MAX_BLOCK_J and 1 <= p.chunks <= sc.MAX_CHUNKS
+                        assert p.vec == (4 if c % 4 == 0 else 1)
+                        slices = -(-c // (32 * p.chunks))
+                        assert (slices - 1) * 32 * p.chunks < c <= slices * 32 * p.chunks
+                        assert p.groups * p.rows >= n > (p.groups - 1) * p.rows and p.groups <= 65535
+                        assert 1 <= p.walkers <= sc.BLOCK_WARPS and 1 <= p.page <= min(sc.MAX_PAGE, max(j, 1))
+                        assert sc.block_bytes(p, j) <= sc.BLOCK_BYTES
+                        continue
+                    assert j > sc.MAX_BLOCK_J or sc.block_plan(b, n, j, c, sms) is None
+                    assert ss.MIN_TILE <= p.tile <= ss.MAX_TILE and p.tile % (32 * p.walkers) == 0
+                    assert p.tiles * p.tile >= j > (p.tiles - 1) * p.tile
+                    assert 1 <= p.rows <= ss.MAX_ROWS and ss.shared_bytes(p, n) <= ss.SHARED_BYTES
+
+
+def test_every_included_header_is_in_the_build_hash():
+    # the library's name hashes build.SOURCES and build.HEADERS only: a header
+    # missing there would leave a stale library after it changes
+    import re
+
+    for path in sorted(build.CSRC.glob("*.cu*")):
+        for name in re.findall(r'#include "([^"]+)"', path.read_text()):
+            assert name in build.HEADERS, (path.name, name)
+    assert set(build.HEADERS) == {p.name for p in build.CSRC.glob("*.cuh")}
+
+
 # (B, N, C, SMs, (cs, groups)): the accumulate route's channel slices (at
 # most 32 wide, ragged at C = 67 and 131) and row groups: one row a block,
 # ragged groups, groups set by the SM count and by shared memory
