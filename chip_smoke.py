@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 1. The card: torch's device name and nvidia-smi's name and power limit.
-2. Build the eleven CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
+2. Build the CUDA kernels from csrc/ (nvcc, sm_90a) and time the build.
 3. Each forward kernel against its plain PyTorch version on the card at the
-   SSG serving path's shapes (32 columns of 8192 points, the four levels):
+   SSG serving path's shapes (32 columns of 8192 points, the four levels;
+   the gather at the centroids, the groupings and FP0-FP3's interpolation):
    indices and gathers must be equal bit for bit; both times from CUDA events
-   after a warm-up.
+   after a warm-up, beside torch.gather's for each gather and FPS's plan
+   for each level; the gather summed over SSG's 8 gathers, its 12, MSG's 16.
 4. The scatter-add (every gather's backward) at the seven shapes of the SSG
    train step, its indices the ball-query and 3-NN outputs of phase 3: equal
    bit for bit to the plain version run on CPU copies, and to itself across
@@ -371,7 +373,7 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
     backward = []
     for k, (n_in, n_out, radius, c) in enumerate(LEVELS):
         x, q = xyz[k], xyz[k + 1]
-        check(torch, tallies[fps.NAME], "ssg", f"fps {n_in}->{n_out}",
+        check(torch, tallies[fps.NAME], "ssg", f"fps {n_in}->{n_out} plan {tuple(fps.plan(n_in, x.dtype))}",
               lambda: fps.furthest_point_sample_cuda(x, n_out),
               lambda: fps.furthest_point_sample_plain(x, n_out),
               4 * BATCH * (3 * n_in + n_out), 10 * BATCH * (n_out - 1) * n_in)
@@ -392,6 +394,10 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
         if k > 0:  # SA1 groups input data: no gradient is taken there
             backward.append((f"SA{k + 1} grouping", nidx, n_in, 3 + c))
         nn_idx = nn3.three_nn_cuda(x, q)[1].reshape(BATCH, -1)
+        known = torch.randn((BATCH, n_out, FP_CHANNELS[k]), generator=gen, device="cuda")
+        gather_check(torch, tallies[ga.NAME], "ssg fp",
+                     f"gather FP{k} interpolation ({BATCH},{n_out},{FP_CHANNELS[k]})x{nn_idx.shape[1]}",
+                     known, nn_idx)
         backward.append((f"FP{k} interpolation", nn_idx, n_out, FP_CHANNELS[k]))
     return backward
 
@@ -735,8 +741,9 @@ def check_launches(launches: dict, kind: str, training: bool, what: str,
     if missing or stray:
         raise RuntimeError(f"the {what} run launched no {missing} kernel, or launched {stray}")
     # every forward runs FPS at the 4 levels and 3-NN at the 4 FP levels,
-    # FP0 through the query-major kernel where it routes there; SA1's FPS
-    # runs a cluster of blocks a row where a row outgrows one block
+    # FP0 through the query-major kernel where it routes there; each level's
+    # FPS takes the variant plan() gives its row size (a cluster of blocks a
+    # row where the row outgrows one block)
     import torch
 
     from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel
@@ -746,9 +753,11 @@ def check_launches(launches: dict, kind: str, training: bool, what: str,
     if rest or launches["three_nn_q"] != q or launches["three_nn"] != 4 * forwards - q:
         raise RuntimeError(f"the {what} run made {forwards} forwards but launched 3-NN "
                            f"{launches['three_nn']} + {launches['three_nn_q']} (query-major) times")
-    cluster = forwards if fps_kernel.plan(npoints, torch.float32).variant == "cluster" else 0
+    want = {variant: 0 for variant in fps_kernel.variant_launches}
+    for n in (npoints, 1024, 256, 64):  # each level's points in
+        want[fps_kernel.plan(n, torch.float32).variant] += forwards
     variants = fps_kernel.variant_launches
-    if variants != {"block": 4 * forwards - cluster, "cluster": cluster}:
+    if variants != want:
         raise RuntimeError(f"the {what} run made {forwards} forwards but launched FPS's variants {variants}")
 
 
@@ -1267,6 +1276,12 @@ def main() -> int:
         for path, p in t.paths.items():
             print(f"kernel {name} over the {path.upper()} shapes: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in p.items() if v is not None), flush=True)
+    gathers = tallies["gather"].paths
+    for what, paths in (("SSG's 8 (centroids, groupings)", ("ssg",)),
+                        ("SSG's 12 (and FP0-FP3)", ("ssg", "ssg fp")), ("MSG's 16", ("msg",))):
+        print(f"kernel gather over {what}: " + ", ".join(
+            f"{k} {sum(gathers[p][k] for p in paths):.4f}" for k in ("ms", "library_ms", "bytes")),
+            flush=True)
 
     launches = {name: 0 for name in tallies}
 

@@ -1,4 +1,4 @@
-// Furthest-point sampling: one block per batch row, or for rows too large
+// Furthest-point sampling: one block per batch row, or, for rows too large
 // for one block's shared memory, one thread-block cluster per batch row.
 //
 // Replaces pointnet2_scannet_tpu/ops/pallas/fps_kernel.py
@@ -10,34 +10,45 @@
 // of the same kernels, every operation rounded on its own (sqdist.cuh).
 //
 // Bound on the card: the npoint-1 steps are sequential and each ends in an
-// argmax over the whole row, so the kernel is bound by the synchronisation
-// of each step, not by bytes or FLOPs, and only B blocks (or clusters) run.
-// The design keeps everything on chip for the whole loop: xyz in dynamic
-// shared memory (12 bytes a point in float32, 24 in float64), each thread's
-// min-distances in registers (PPT per thread, strided so neighbour threads
-// read neighbour shared-memory words), and one (value, index) shuffle
-// reduction per warp before a single cross-warp pass.
+// argmax over the whole row, so the kernel is bound by the latency of each
+// step (its distance update, then a reduction across the row), not by
+// bytes or FLOPs, and only B blocks (or clusters) run.
 //
-// fps_kernel (one block a row) takes a row that fits one block: 16384
-// float32 or 8192 float64 points. fps_cluster_kernel splits a larger row
-// over a cluster of up to 8 blocks (the portable cluster size), each
-// holding a share of at most that many points, so float32 reaches 131072
-// points and float64 65536. Each step: every block reduces its share to a
-// candidate (value, index and the point's coordinates) in its own shared
-// memory; one cluster barrier; then every warp of every block reads the
-// cluster's candidates through distributed shared memory, one a lane, and
-// reduces them (larger value, then lower index), so all blocks pick the
-// same winner as the plain version and take its coordinates from the
-// winning candidate. The candidate slots alternate between two buffers, so
-// one cluster barrier a step suffices: a block overwrites the slot of step
-// j only after every block has passed the barrier of step j + 1, that is,
-// after every block has read step j's candidates.
+// fps_kernel takes a row that fits one block's shared memory (16384 float32
+// or 8192 float64 points). The row's coordinates stay in shared memory for
+// the whole loop (to look up each step's winner); a thread's own points sit
+// in registers (float32, up to 8 a thread) or are read from shared memory,
+// strided so neighbour threads read neighbour words, with its
+// min-distances in registers. Each step has one barrier: every warp reduces
+// its candidates (Best in fps_step.cuh: two redux.sync in float32) and its
+// lane 0 writes the result into its slot of a double-buffered array; after
+// the barrier every warp reduces all the slots itself, so all agree on the
+// winner with no second barrier. A warp writes the slots of step j + 2 only
+// after every warp has passed the barrier of step j + 1, that is, after
+// every warp has read step j's. On the H100 this step took 0.83-0.85 µs at
+// 8192 points against the earlier design's 1.43 (two barriers, shuffle
+// argmaxes, points read from shared memory). The same row split over a
+// cluster of 2, 4 or 8 blocks that each held it took 1.03-1.84 µs a step,
+// whether the blocks exchanged their keys through a cluster barrier or
+// through remote stores and an mbarrier: an exchange between
+// multiprocessors cost ~0.7 µs a step, more than it saved (PERF.md).
+//
+// fps_cluster_kernel splits a larger row over a cluster of up to 8 blocks
+// (the portable cluster size), each holding a share of at most 16384
+// float32 or 8192 float64 points, so float32 reaches 131072 points and
+// float64 65536. Each step: every block reduces its share to a candidate
+// (value, index and the point's coordinates) in its own shared memory; one
+// cluster barrier; then every warp of every block reads the cluster's
+// candidates through distributed shared memory, one a lane, and reduces
+// them (larger value, then lower index), taking the winner's coordinates
+// from its candidate. The candidate slots alternate between two buffers, so
+// one cluster barrier a step suffices, as above.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
+#include "fps_step.cuh"
+#include "on_device.cuh"
 #include "smem_limit.cuh"
-#include "sqdist.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -45,56 +56,89 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxCluster = 8;
-constexpr int kNoIndex = 0x7fffffff;
 constexpr size_t kMaxSmemBytes = 227 * 1024;
 
-template <typename T>
-struct Num;
-template <>
-struct Num<float> {
-  static __device__ __forceinline__ float neg_inf() { return -CUDART_INF_F; }
-  static __device__ __forceinline__ float min(float a, float b) { return fminf(a, b); }
-  static constexpr float kFar = 1e10f;
-  static constexpr float kNear = 1e-3f;
-};
-template <>
-struct Num<double> {
-  static __device__ __forceinline__ double neg_inf() { return -CUDART_INF; }
-  static __device__ __forceinline__ double min(double a, double b) { return fmin(a, b); }
-  static constexpr double kFar = 1e10;
-  static constexpr double kNear = 1e-3;
-};
+template <typename T, int PPT>
+__global__ void __launch_bounds__(kMaxThreads)
+    fps_kernel(const T* __restrict__ xyz, int N, int npoint, int skip_near_origin,
+               int* __restrict__ out) {
+  constexpr bool kRegs = sizeof(T) == 4 && PPT <= 8;  // points in registers
+  extern __shared__ __align__(16) unsigned char p2_fps_smem[];
+  T* sx = reinterpret_cast<T*>(p2_fps_smem);
+  T* sy = sx + N;
+  T* sz = sy + N;
+  __shared__ Best<T> slots[2][32];
 
-// (v, i) <- the better of (v, i) and (ov, oi): larger value, then lower index
-template <typename T>
-__device__ __forceinline__ void p2_better(T& v, int& i, T ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const T* row = xyz + static_cast<long long>(blockIdx.x) * N * 3;
+  int* dst = out + static_cast<long long>(blockIdx.x) * npoint;
+
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    sx[i] = row[3 * i];
+    sy[i] = row[3 * i + 1];
+    sz[i] = row[3 * i + 2];
   }
-}
-
-// the warp's best (v, i) in lane 0
-template <typename T>
-__device__ __forceinline__ void p2_warp_argmax(T& v, int& i) {
+  __syncthreads();
+  T mind[PPT];
+  T rx[kRegs ? PPT : 1], ry[kRegs ? PPT : 1], rz[kRegs ? PPT : 1];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    p2_better(v, i, ov, oi);
+  for (int k = 0; k < PPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    const T x = i < N ? sx[i] : T(0);
+    const T y = i < N ? sy[i] : T(0);
+    const T z = i < N ? sz[i] : T(0);
+    mind[k] = i < N ? p2_start_distance(x, y, z, skip_near_origin) : Num<T>::neg_inf();
+    if constexpr (kRegs) {
+      rx[k] = x;
+      ry[k] = y;
+      rz[k] = z;
+    }
+  }
+  if (threadIdx.x == 0) dst[0] = 0;
+
+  int last = 0;
+  for (int j = 1; j < npoint; ++j) {
+    const T px = sx[last], py = sy[last], pz = sz[last];
+    T bv = Num<T>::neg_inf();
+    int bi = kP2NoIndex;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if constexpr (kRegs) {  // past N: -inf stays -inf and never wins
+        const T m = Num<T>::min(mind[k], p2_sqdist(rx[k], ry[k], rz[k], px, py, pz));
+        mind[k] = m;
+        if (m > bv) {
+          bv = m;
+          bi = i;
+        }
+      } else if (i < N) {
+        const T m = Num<T>::min(mind[k], p2_sqdist(sx[i], sy[i], sz[i], px, py, pz));
+        mind[k] = m;
+        if (m > bv) {
+          bv = m;
+          bi = i;
+        }
+      }
+    }
+    Best<T> c = Best<T>::make(bv, bi);
+    c.warp_reduce();
+    if (lane == 0) slots[j & 1][warp] = c;
+    __syncthreads();
+    Best<T> w = lane < nwarps ? slots[j & 1][lane] : Best<T>::none();
+    w.warp_reduce();
+    last = w.index();
+    if (threadIdx.x == 0) dst[j] = last;
   }
 }
 
-// the warp's best (v, i) in every lane
 template <typename T>
-__device__ __forceinline__ void p2_warp_argmax_all(T& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    p2_better(v, i, ov, oi);
-  }
-}
+struct Candidate {
+  T v;
+  int i;
+  T x, y, z;
+};
 
 // Loads count points of src (x, y, z interleaved) into sx, sy, sz and sets
 // each thread's min-distances: 1e10, -1 near the origin under skip, -inf
@@ -113,91 +157,9 @@ __device__ __forceinline__ void p2_load_share(const T* src, int count, int skip,
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int i = tid + k * nthreads;
-    T v = Num<T>::neg_inf();
-    if (i < count) {
-      const bool valid = !skip || p2_sqnorm(sx[i], sy[i], sz[i]) > Num<T>::kNear;
-      v = valid ? Num<T>::kFar : T(-1);
-    }
-    mind[k] = v;
+    mind[k] = i < count ? p2_start_distance(sx[i], sy[i], sz[i], skip) : Num<T>::neg_inf();
   }
 }
-
-// Lowers the thread's min-distances against (px, py, pz) and returns its
-// best (value, local index); i ascends with k, so strict > keeps the lowest.
-template <typename T, int PPT>
-__device__ __forceinline__ void p2_step(const T* sx, const T* sy, const T* sz, int count,
-                                        T px, T py, T pz, T (&mind)[PPT], T& bv, int& bi) {
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  bv = Num<T>::neg_inf();
-  bi = kNoIndex;
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int i = tid + k * nthreads;
-    if (i < count) {
-      const T m = Num<T>::min(mind[k], p2_sqdist(sx[i], sy[i], sz[i], px, py, pz));
-      mind[k] = m;
-      if (m > bv) {
-        bv = m;
-        bi = i;
-      }
-    }
-  }
-}
-
-template <typename T, int PPT>
-__global__ void __launch_bounds__(kMaxThreads)
-    fps_kernel(const T* __restrict__ xyz, int N, int npoint,
-               int skip_near_origin, int* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char p2_fps_smem[];
-  T* sx = reinterpret_cast<T*>(p2_fps_smem);
-  T* sy = sx + N;
-  T* sz = sy + N;
-  __shared__ T red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_last;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const T* src = xyz + static_cast<size_t>(blockIdx.x) * N * 3;
-  int* dst = out + static_cast<size_t>(blockIdx.x) * npoint;
-
-  T mind[PPT];
-  p2_load_share(src, N, skip_near_origin, sx, sy, sz, mind);
-  if (threadIdx.x == 0) dst[0] = 0;
-
-  int last = 0;
-  for (int j = 1; j < npoint; ++j) {
-    T bv;
-    int bi;
-    p2_step(sx, sy, sz, N, sx[last], sy[last], sz[last], mind, bv, bi);
-    p2_warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : Num<T>::neg_inf();
-      bi = lane < nwarps ? red_i[lane] : kNoIndex;
-      p2_warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_last = bi;
-        dst[j] = bi;
-      }
-    }
-    __syncthreads();
-    last = s_last;
-  }
-}
-
-template <typename T>
-struct Candidate {
-  T v;
-  int i;
-  T x, y, z;
-};
 
 template <typename T, int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -241,16 +203,16 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     if (warp == 0) {
       bv = lane < nwarps ? red_v[lane] : Num<T>::neg_inf();
-      bi = lane < nwarps ? red_i[lane] : kNoIndex;
+      bi = lane < nwarps ? red_i[lane] : kP2NoIndex;
       p2_warp_argmax(bv, bi);
       if (lane == 0) {
-        Candidate<T> c{bv, kNoIndex, T(0), T(0), T(0)};
-        if (bi != kNoIndex) c = Candidate<T>{bv, base + bi, sx[bi], sy[bi], sz[bi]};
+        Candidate<T> c{bv, kP2NoIndex, T(0), T(0), T(0)};
+        if (bi != kP2NoIndex) c = Candidate<T>{bv, base + bi, sx[bi], sy[bi], sz[bi]};
         cand[slot] = c;
       }
     }
     cluster.sync();
-    Candidate<T> c{Num<T>::neg_inf(), kNoIndex, T(0), T(0), T(0)};
+    Candidate<T> c{Num<T>::neg_inf(), kP2NoIndex, T(0), T(0), T(0)};
     if (lane < csize) c = *cluster.map_shared_rank(&cand[slot], lane);
     T wv = c.v;
     int wi = c.i;
@@ -265,8 +227,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 template <typename T, int PPT>
-cudaError_t launch_fps(const T* xyz, int B, int N, int npoint, int skip,
-                       int cluster, int threads, int* out, cudaStream_t stream) {
+cudaError_t launch_fps(const T* xyz, int B, int N, int npoint, int skip, int cluster, int threads,
+                       int* out, cudaStream_t stream) {
   const int share = (N + cluster - 1) / cluster;
   const size_t smem = static_cast<size_t>(share) * 3 * sizeof(T);
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
@@ -298,8 +260,8 @@ cudaError_t launch_fps(const T* xyz, int B, int N, int npoint, int skip,
 }
 
 template <typename T>
-cudaError_t dispatch(const void* xyz, int B, int N, int npoint, int skip,
-                     int cluster, int threads, int ppt, int* out, cudaStream_t s) {
+cudaError_t dispatch(const void* xyz, int B, int N, int npoint, int skip, int cluster, int threads,
+                     int ppt, int* out, cudaStream_t s) {
   const T* p = static_cast<const T*>(xyz);
   switch (ppt) {
     case 1: return launch_fps<T, 1>(p, B, N, npoint, skip, cluster, threads, out, s);
@@ -323,9 +285,9 @@ cudaError_t dispatch(const void* xyz, int B, int N, int npoint, int skip,
 // float32) come from fps_kernel.plan(): cluster 1 runs fps_kernel, more
 // runs fps_cluster_kernel with ceil(N / cluster) points a block; threads *
 // ppt must cover that share and its coordinates fit in shared memory.
-extern "C" int p2_fps(const void* xyz, int B, int N, int npoint,
-                      int skip_near_origin, int f64, int cluster, int threads,
-                      int ppt, int* out, void* stream) {
+// device: the card that holds the tensors.
+extern "C" int p2_fps(const void* xyz, int B, int N, int npoint, int skip_near_origin, int f64,
+                      int cluster, int threads, int ppt, int* out, int device, void* stream) {
   if (B <= 0 || npoint <= 0) return static_cast<int>(cudaSuccess);
   if (N <= 0 || cluster < 1 || cluster > kMaxCluster || cluster > N ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
@@ -333,10 +295,10 @@ extern "C" int p2_fps(const void* xyz, int B, int N, int npoint,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      f64 ? dispatch<double>(xyz, B, N, npoint, skip_near_origin, cluster, threads, ppt, out, s)
-          : dispatch<float>(xyz, B, N, npoint, skip_near_origin, cluster, threads, ppt, out, s);
-  return static_cast<int>(err);
+  return static_cast<int>(p2_on_device(device, [&] {
+    return f64 ? dispatch<double>(xyz, B, N, npoint, skip_near_origin, cluster, threads, ppt, out, s)
+               : dispatch<float>(xyz, B, N, npoint, skip_near_origin, cluster, threads, ppt, out, s);
+  }));
 }
 
 extern "C" const char* p2_error_string(int err) {

@@ -24,9 +24,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "fps.cu", "ball_query.cu", "ball_query_multi.cu", "gather.cu", "three_nn.cu", "scatter_add.cu",
-    "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu", "fused_gather_mm.cu",
+    "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu", "fused_gather_mm.cu", "fps_probe.cu",
 )
-HEADERS = ("sqdist.cuh", "smem_limit.cuh", "csr_sort.cuh")
+HEADERS = ("sqdist.cuh", "smem_limit.cuh", "csr_sort.cuh", "fps_step.cuh", "on_device.cuh")
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
 # so every distance rounds like the plain PyTorch versions (see sqdist.cuh).
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,11 +38,12 @@ NVCC_FLAGS = (
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {
-    "p2_fps": [_vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_fps": [_vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
+    "p2_fps_probe": [_i, _vp, _i, _i, _i, _i, _vp, _vp],
     "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _vp, _vp],
     "p2_ball_query_multi": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, ctypes.c_float, _i,
                             _vp, _vp, _vp],
-    "p2_gather": [_vp, _vp, _i, _i, _i, _i, _vp, _vp],
+    "p2_gather": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_scatter_add_sort": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
@@ -147,11 +148,13 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err} ({msg})")
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current stream on the tensor's device, as a C pointer."""
+def stream_of(t) -> int:
+    """PyTorch's current stream on the tensor's device, as the address that
+    ctypes passes for a void* (the raw accessor: a Stream object costs the
+    host more than launching a small kernel)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 _sm_counts: dict[int, int] = {}
@@ -161,14 +164,15 @@ def sm_count(t) -> int:
     """Streaming multiprocessors of the card that holds the tensor."""
     import torch
 
-    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    index = t.get_device()
     if index not in _sm_counts:
         _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return _sm_counts[index]
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """The tensor's data address, which ctypes passes for a void*."""
+    return t.data_ptr()
 
 
 def require(t, what: str, dtypes, ndim: int, last: int | None = None) -> None:

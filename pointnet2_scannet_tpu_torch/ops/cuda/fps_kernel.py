@@ -3,13 +3,14 @@ PyTorch version.
 
 Replaces pointnet2_scannet_tpu/ops/pallas/fps_kernel.py
 (furthest_point_sample_pallas). On the card the npoint-1 dependent steps,
-each ending in an argmax over the row, bound the kernel by synchronisation,
-and only B blocks (or clusters) run. The kernels keep xyz in shared memory
-and every thread's min-distances in registers for the whole loop, so device
-memory is read once and written once. A row that fits one block's shared
-memory runs one block; a larger row runs a thread-block cluster of up to 8
-blocks that agree on each step's winner through distributed shared memory
-(plan() picks; see the note at the head of csrc/fps.cu).
+each ending in an argmax over the row, bound the kernel by the latency of a
+step, and only B blocks (or clusters) run. The kernels keep xyz in shared
+memory and every thread's min-distances (and, in float32 up to 8 a thread,
+its points) in registers for the whole loop, so device memory is read once
+and written once. A row that fits one block's shared memory runs one block
+with one barrier a step; a larger row runs a thread-block cluster of up to
+8 blocks that agree on each step's winner through distributed shared
+memory (plan() picks; see the note at the head of csrc/fps.cu).
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ def plan(n: int, dtype: torch.dtype) -> Plan:
     (float32 or float64): one block where the row fits BLOCK_POINTS, else a
     cluster of ceil(n / BLOCK_POINTS) blocks, at most MAX_CLUSTER; threads
     cover a block's share 32 at a time up to 1024, and each holds the
-    smallest power of two of points that covers the rest."""
+    smallest power of two of points that covers the rest. On the H100 a row
+    that fits one block ran slower split over a cluster of 2, 4 or 8 blocks
+    at every SSG level (PERF.md)."""
     per_block = BLOCK_POINTS[dtype]
     limit = MAX_CLUSTER * per_block
     if not 0 < n <= limit:
@@ -110,11 +113,9 @@ def furthest_point_sample_cuda(
     if B == 0 or npoint == 0:
         return out
     p = plan(N, xyz.dtype)
-    with torch.cuda.device(xyz.device):
-        err = build.library().p2_fps(
-            build.ptr(xyz), B, N, npoint, int(skip_near_origin), int(xyz.dtype == torch.float64),
-            p.cluster, p.threads, p.ppt, build.ptr(out), build.stream_of(xyz),
-        )
+    err = build.library().p2_fps(
+        xyz.data_ptr(), B, N, npoint, int(skip_near_origin), int(xyz.dtype == torch.float64),
+        p.cluster, p.threads, p.ppt, out.data_ptr(), xyz.get_device(), build.stream_of(xyz))
     build.check(err, NAME)
     launches += 1
     variant_launches[p.variant] += 1

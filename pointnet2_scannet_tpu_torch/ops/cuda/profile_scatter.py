@@ -1,8 +1,9 @@
 """Device time of each kernel of the two scatter-adds (h, csrc/scatter_add.cu;
-f, csrc/scatter_smem.cu) and of the tiled gather (e, csrc/gather_smem.cu),
-on one GPU, at the shapes chip_smoke.py checks them at.
+f, csrc/scatter_smem.cu), of the tiled gather (e, csrc/gather_smem.cu), of
+the row gather (d, csrc/gather.cu) and of FPS (a, csrc/fps.cu), on one GPU,
+at the shapes chip_smoke.py checks them at.
 
-    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [--routes]
+    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [host] [--routes]
 
 h at the seven backwards of the SSG train step and the ten of the MSG train
 step (the grouping and interpolation gathers' gradients of 32 synthetic
@@ -16,8 +17,17 @@ bench_gather_torch.py's shapes (B 32, N 8192, J 32768 uniform indices, C
 9/32/64); e at the same gathers forward. For each call: the longest run of
 one index (the skew), the wrapper's time between CUDA events (launch cost
 included), and the device time of each kernel it launches from
-torch.profiler, averaged over REPS calls. With no kernel named, both. Needs
-a CUDA device.
+torch.profiler, averaged over REPS calls. d at SSG's 8 gathers (the four
+levels' centroids and groupings), SSG's 4 FP interpolation gathers and
+MSG's 16 (listed from the MSG model as chip_smoke.py lists them): d's
+device and wrapper time beside torch.gather's device time on an int64
+index made beforehand, and with --routes every words-a-thread choice of
+gather_kernel.plan(). a at SSG's four levels and P3's (8, 32768) -> 1024:
+wrapper and device time and fps_kernel.plan()'s launch; then the probes of
+csrc/fps_probe.cu at SA1's shape (the time a step of each part of a step)
+and the registers and spills ptxas reported for the FPS kernels. host: the
+host µs of each piece of d's and a's wrappers at SA4's shapes. With no kernel named, h and f.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -154,6 +164,199 @@ def report(torch, what: str, label: str, idx, n: int, c: int, fn) -> None:
           flush=True)
 
 
+def d_shapes(torch) -> dict:
+    """d's shape sets: label -> (src (B, N, C), idx (B, J)); SSG's 8 gathers,
+    SSG's 4 FP interpolation gathers, MSG's 16."""
+    from pointnet2_scannet_tpu_torch import ops
+    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel
+
+    xyz = level_clouds(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(n, c):
+        return torch.randn((BATCH, n, c), generator=gen, device="cuda")
+
+    sets = {"SSG 8": {}, "SSG FP 4": {}, "MSG 16": {}}
+    for k, (radius, c, fp) in enumerate(zip((0.1, 0.2, 0.4, 0.8), (6, 64, 128, 256),
+                                            (128, 256, 256, 512))):
+        x, q = xyz[k], xyz[k + 1]
+        n, m = x.shape[1], q.shape[1]
+        centroids = fps_kernel.furthest_point_sample_plain(x, m)
+        sets["SSG 8"][f"SA{k + 1} centroids ({BATCH},{n},3)x{m}"] = (x, centroids)
+        idx = ops.ball_query(radius, 32, x, q).reshape(BATCH, -1)
+        sets["SSG 8"][f"SA{k + 1} grouping ({BATCH},{n},{3 + c})x{idx.shape[1]}"] = (
+            torch.cat([x, rand(n, c)], dim=-1).contiguous(), idx)
+        nn = ops.three_nn(x, q)[1].reshape(BATCH, -1)
+        sets["SSG FP 4"][f"FP{k} ({BATCH},{m},{fp})x{nn.shape[1]}"] = (rand(m, fp), nn)
+    spec = msg_spec(20, 6)
+    model = PointNet2SemSeg(spec)
+    for k in range(len(spec.npoints)):
+        sa, c, x = getattr(model, f"sa_{k}"), spec.skip_channels[k], xyz[k]
+        n = x.shape[1]
+        idxs = ops.ball_query_multi(spec.radii[k], spec.nsamples[k], x, xyz[k + 1])
+        for s, (idx, mlp) in enumerate(zip(idxs, sa._mlps())):
+            idx = idx.reshape(BATCH, -1)
+            if sa._pregather(torch.empty((1, 1, c)), mlp.widths):
+                srcs = {"pregather zf": rand(n, mlp.widths[0]), "pregather xyz": x}
+            else:
+                srcs = {"grouping": torch.cat([x, rand(n, c)], dim=-1).contiguous()}
+            for what, src in srcs.items():
+                sets["MSG 16"][f"SA{k + 1} scale {s} {what} ({BATCH},{n},{src.shape[2]})x{idx.shape[1]}"] = (
+                    src, idx)
+    for k in range(len(spec.fp_mlps)):
+        c = spec.sa_out_channels[-1] if k == len(spec.fp_mlps) - 1 else spec.fp_mlps[k + 1][-1]
+        q = xyz[k + 1]
+        nn = ops.three_nn(xyz[k], q)[1].reshape(BATCH, -1)
+        sets["MSG 16"][f"FP{k} ({BATCH},{q.shape[1]},{c})x{nn.shape[1]}"] = (rand(q.shape[1], c), nn)
+    return sets
+
+
+def profile_d(torch, routes: bool) -> None:
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+
+    for name, shapes in d_shapes(torch).items():
+        total = {"d device": 0.0, "d wrapper": 0.0, "torch.gather device": 0.0}
+        for label, (src, idx) in shapes.items():
+            idx = idx.contiguous()
+            index = idx.long().unsqueeze(-1).expand(-1, -1, src.shape[2])
+            d_dev = sum(device_ms(torch, lambda: ga.gather_cuda(src, idx)).values())
+            d_wrap = wrapper_ms(torch, lambda: ga.gather_cuda(src, idx))
+            lib = sum(device_ms(torch, lambda: torch.gather(src, 1, index)).values())
+            for key, v in zip(total, (d_dev, d_wrap, lib)):
+                total[key] += v
+            where = ""
+            if hasattr(ga, "plan"):
+                (b, n, c), j = src.shape, idx.shape[1]
+                p = ga.plan(b, n, j, c, build.sm_count(src))
+                where = f", plan {tuple(p)}"
+                if routes:
+                    out = torch.empty((b, j, c), dtype=src.dtype, device="cuda")
+                    for vec in sorted({p.vec, 1}, reverse=True):
+                        for per in (1, 2, 4, 8):
+                            q = ga.Plan(vec, per, -(-b * j * (c // vec) // (per * ga.THREADS)))
+                            t = sum(device_ms(torch, lambda q=q: ga.launch(src, idx, out, q)).values())
+                            where += f"; {tuple(q)} {t:.4f}"
+            print(f"d {name} {label}: device {d_dev:.4f} ms, wrapper {d_wrap:.4f} ms, torch.gather "
+                  f"device {lib:.4f} ms{where}", flush=True)
+        print(f"d {name} summed: " + ", ".join(f"{k} {v:.4f} ms" for k, v in total.items()), flush=True)
+
+
+def fps_levels(torch) -> dict:
+    """label -> xyz of a's shapes: SSG's four levels (32 columns) and P3's
+    (8, 32768)."""
+    xyz = level_clouds(torch)
+    out = {f"SSG {x.shape[1]}->{q.shape[1]}": (x, q.shape[1]) for x, q in zip(xyz, xyz[1:])}
+    out["P3 32768->1024"] = (level_clouds(torch, npoints=32768, batch=8)[0], 1024)
+    return out
+
+
+def profile_a(torch) -> None:
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
+
+    ssg = 0.0
+    for label, (x, m) in fps_levels(torch).items():
+        try:
+            fps.furthest_point_sample_cuda(x, m)
+        except ValueError as e:  # an older checkout's limit
+            print(f"a {label}: {e}", flush=True)
+            continue
+        dev = sum(device_ms(torch, lambda: fps.furthest_point_sample_cuda(x, m)).values())
+        wrap = wrapper_ms(torch, lambda: fps.furthest_point_sample_cuda(x, m))
+        ssg += dev if label.startswith("SSG") else 0.0
+        where = f", plan {tuple(fps.plan(x.shape[1], x.dtype))}" if hasattr(fps, "plan") else ""
+        print(f"a {label} (B={x.shape[0]}): device {dev:.4f} ms ({1e3 * dev / (m - 1):.3f} us a "
+              f"step), wrapper {wrap:.4f} ms{where}", flush=True)
+    print(f"a SSG summed: device {ssg:.4f} ms", flush=True)
+
+
+def probe_a(torch) -> None:
+    """The probes of csrc/fps_probe.cu at SA1's shape, where the library has
+    them, and the registers and spills ptxas reported for the FPS kernels
+    (where this process built the library)."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    if hasattr(lib, "p2_fps_probe"):
+        x = level_clouds(torch)[0]
+        out = torch.empty((BATCH, 1024), dtype=torch.int32, device="cuda")
+        probes = (
+            (0, 1, 1024, "distance update, points in shared memory (the earlier design)"),
+            (1, 1, 1024, "block reduction, shuffles and two barriers (the earlier design)"),
+            (2, 2, 1024, "cluster exchange of fps_cluster_kernel, 2 blocks of 1024"),
+            (2, 4, 256, "cluster exchange of fps_cluster_kernel, 4 blocks of 256"),
+            (3, 1, 1024, "distance update, points in registers"),
+            (4, 1, 1024, "block reduction, redux keys and one barrier"),
+            (5, 2, 512, "exchange of a row split over 2 blocks of 512"),
+            (5, 4, 256, "exchange of a row split over 4 blocks of 256"),
+            (3, 1, 256, "distance update, points in registers, 256 threads (a 4-way split's share)"),
+        )
+        for kind, cluster, threads, what in probes:
+            src = x[:, : threads * 8].contiguous()
+
+            def run(kind=kind, cluster=cluster, threads=threads, src=src):
+                build.check(lib.p2_fps_probe(kind, build.ptr(src), BATCH, 1024, cluster, threads,
+                                             build.ptr(out), build.stream_of(src)), "fps_probe")
+
+            t = sum(device_ms(torch, run).values())
+            print(f"a probe {kind} {what} (B={BATCH}, {threads * 8} points a block, 1023 steps): "
+                  f"{t:.4f} ms, {1e3 * t / 1023:.3f} us a step", flush=True)
+    lines = build.build_log.splitlines()
+    if not lines:
+        print("a ptxas: the library was built by an earlier process; no ptxas report here")
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and "fps" in line:
+            print("a ptxas: " + " | ".join(part.strip() for part in lines[k:k + 4]), flush=True)
+
+
+def host_us(torch, fn, reps: int = 2000) -> float:
+    """Host µs a call of fn over reps calls, the card synchronised before
+    and after (the small launches queue faster than the card runs them)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * took / reps
+
+
+def host_costs(torch) -> None:
+    """The host time of the pieces of d's and a's wrappers at the deep
+    levels' shapes (SA4's centroids, the smallest gather; SA4's FPS), beside
+    torch.gather's whole call."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+
+    src = torch.randn((BATCH, 64, 3), device="cuda")
+    idx = torch.randint(0, 64, (BATCH, 16), device="cuda", dtype=torch.int32)
+    index = idx.long().unsqueeze(-1).expand(-1, -1, 3)
+    out = torch.empty((BATCH, 16, 3), device="cuda")
+    lib = build.library()
+    p = ga.plan(BATCH, 64, 16, 3, build.sm_count(src))
+    pieces = {
+        "build.require(src)": lambda: build.require(src, "src", (torch.float32, torch.int32), 3),
+        "torch.empty(device=src.device)": lambda: torch.empty((BATCH, 16, 3), dtype=src.dtype,
+                                                              device=src.device),
+        "with torch.cuda.device(src.device)": lambda: torch.cuda.device(src.device).__enter__(),
+        "build.stream_of": lambda: build.stream_of(src),
+        "plan (cached)": lambda: ga.plan(BATCH, 64, 16, 3, build.sm_count(src)),
+        "p2_gather, nothing to launch": lambda: lib.p2_gather(
+            src.data_ptr(), idx.data_ptr(), 0, 64, 16, 3, 1, 1, out.data_ptr(), 0, 0),
+        "gather_kernel.launch": lambda: ga.launch(src, idx, out, p),
+        "gather_kernel.gather_cuda": lambda: ga.gather_cuda(src, idx),
+        "torch.gather": lambda: torch.gather(src, 1, index),
+        "fps 64->16 (furthest_point_sample_cuda)": lambda: fps.furthest_point_sample_cuda(src, 16),
+    }
+    for what, fn in pieces.items():
+        print(f"host {what}: {host_us(torch, fn):.2f} us a call", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -165,7 +368,7 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
-    kernels = [a for a in sys.argv[1:] if a in ("h", "f")] or ["h", "f"]
+    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "host")] or ["h", "f"]
     routes = "--routes" in sys.argv[1:]
     print(f"device: {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -182,6 +385,13 @@ def main() -> int:
                 for p in sc.candidate_plans(b, n, j, c, build.sm_count(g)):
                     report(torch, f"h route {type(p).__name__}{tuple(p)}", label, idx, n, c,
                            lambda p=p: sc.launch(idx, g, n, p))
+    if "host" in kernels:
+        host_costs(torch)
+    if "d" in kernels:
+        profile_d(torch, routes)
+    if "a" in kernels:
+        profile_a(torch)
+        probe_a(torch)
     if "f" in kernels:
         for label, (idx, n, c) in f_shapes(torch).items():
             idx = idx.contiguous()

@@ -434,3 +434,12 @@ def test_profile_scatter_needs_a_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert profile_scatter.main() == 1
+
+
+@pytest.mark.parametrize("argv", [["d"], ["a"], ["d", "a", "--routes"]])
+def test_profile_scatter_refuses_each_kernel_without_a_card(monkeypatch, argv):
+    from pointnet2_scannet_tpu_torch.ops.cuda import profile_scatter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["profile_scatter", *argv])
+    assert profile_scatter.main() == 1

@@ -55,9 +55,10 @@ def _equal(got, want):
 
 # (N, npoint, dtype): one block a row up to 16384 float32 / 8192 float64
 # points, a cluster of blocks a row above (fps_kernel.plan), ragged shares
-# (16385, 20000, 8193) included
+# (16385, 20000, 8193) included; SSG's four levels (8192, 1024, 256 and 64
+# points in)
 FPS_SHAPES = [
-    (64, 16, torch.float32), (200, 50, torch.float32), (1024, 256, torch.float32),
+    (64, 16, torch.float32), (256, 64, torch.float32), (200, 50, torch.float32), (1024, 256, torch.float32),
     (8192, 1024, torch.float32), (16384, 512, torch.float32), (16385, 256, torch.float32),
     (20000, 256, torch.float32), (32768, 256, torch.float32), (65536, 128, torch.float32),
     (200, 50, torch.float64), (8192, 256, torch.float64), (8193, 128, torch.float64),
@@ -150,7 +151,7 @@ def test_ball_query_multi_kernel_radius_boundary(dev):
         _equal(g, w)
 
 
-@pytest.mark.parametrize("c", [3, 9, 67, 131, 259])
+@pytest.mark.parametrize("c", [3, 9, 67, 128, 131, 259, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 def test_gather_kernel_equals_plain(dev, c, dtype):
     g = torch.Generator(device=dev).manual_seed(c)
@@ -160,6 +161,65 @@ def test_gather_kernel_equals_plain(dev, c, dtype):
         src = torch.randint(-2**31, 2**31 - 1, (2, 300, c), generator=g, device=dev, dtype=dtype)
     idx = torch.randint(0, 300, (2, 1000), generator=g, device=dev, dtype=torch.int32)
     _equal(ga.gather_cuda(src, idx), ga.gather_plain(src, idx))
+
+
+# (B, N, J, C): J not a multiple of a tile (8 x 256 words), one batch row,
+# one source row, one index, 16-byte and 4-byte words
+GATHER_EDGE_SHAPES = [(3, 50, 1001, 128), (3, 50, 1001, 9), (1, 300, 777, 67), (2, 1, 513, 4),
+                      (2, 1, 7, 3), (1, 5, 1, 256)]
+
+
+@pytest.mark.parametrize("b,n,j,c", GATHER_EDGE_SHAPES)
+def test_gather_kernel_takes_ragged_and_tiny_shapes(dev, b, n, j, c):
+    g = torch.Generator(device=dev).manual_seed(j)
+    src = torch.randn((b, n, c), generator=g, device=dev)
+    idx = torch.randint(0, n, (b, j), generator=g, device=dev, dtype=torch.int32)
+    _equal(ga.gather_cuda(src, idx), ga.gather_plain(src, idx))
+
+
+@pytest.mark.parametrize("c", [128, 67])
+def test_gather_kernel_routes_equal_plain(dev, c):
+    # every words-a-thread choice, 16-byte words where C allows them
+    g = torch.Generator(device=dev).manual_seed(c)
+    src = torch.randn((3, 257, c), generator=g, device=dev)
+    idx = torch.randint(0, 257, (3, 1234), generator=g, device=dev, dtype=torch.int32)
+    want = ga.gather_plain(src, idx)
+    for vec in sorted({ga.plan(3, 257, 1234, c, 132).vec, 1}):
+        for per in (1, 2, 4, 8):
+            p = ga.Plan(vec, per, -(-3 * 1234 * (c // vec) // (per * ga.THREADS)))
+            before = ga.launches
+            _equal(ga.launch(src, idx, torch.empty_like(want), p), want)
+            assert ga.launches == before + 1
+
+
+@pytest.mark.parametrize("where", ["src", "out"])
+def test_gather_kernel_takes_pointers_off_16_byte_alignment(dev, where):
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, n, j, c = 2, 300, 1000, 128
+    src = torch.randn((b, n, c), generator=g, device=dev)
+    idx = torch.randint(0, n, (b, j), generator=g, device=dev, dtype=torch.int32)
+    want = ga.gather_plain(src, idx)
+    out = torch.empty((b, j, c), device=dev)
+    if where == "src":  # a contiguous view one word into its storage
+        src = torch.cat([torch.zeros(1, device=dev), src.reshape(-1)])[1:].view(b, n, c)
+        assert src.is_contiguous() and src.data_ptr() % 16 == 4
+    else:
+        out = torch.empty(b * j * c + 1, device=dev)[1:].view(b, j, c)
+    _equal(ga.launch(src, idx, out, ga.plan(b, n, j, c, 132)), want)
+
+
+@pytest.mark.parametrize("c", [3, 128])
+def test_gather_kernel_moves_raw_words(dev, c):
+    # -0.0, inf, -inf and NaN bit patterns (a quiet and a signalling NaN with
+    # payloads) come through unchanged, as float32 and as int32 words
+    words = torch.tensor([0x80000000, 0x7F800000, 0xFF800000, 0x7FC00001, 0x7F800001, 0xFFFFFFFF,
+                          0x00000001, 0x3F800000], dtype=torch.int64)
+    words = (words - (words >= 2**31).long() * 2**32).to(torch.int32)
+    src = words.repeat(2 * 40 * c // 8 + 1)[: 2 * 40 * c].view(2, 40, c).to(dev)
+    idx = torch.randint(0, 40, (2, 333), device=dev, dtype=torch.int32)
+    _equal(ga.gather_cuda(src, idx), ga.gather_plain(src, idx))
+    got = ga.gather_cuda(src.view(torch.float32), idx)
+    _equal(got.view(torch.int32), ga.gather_plain(src, idx))
 
 
 def test_gather_kernel_is_forward_only(dev):

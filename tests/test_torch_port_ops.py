@@ -569,6 +569,60 @@ def test_smem_plans_fit_shared_memory(sms):
                     assert ss.shared_bytes(q, n) <= ss.SHARED_BYTES
 
 
+# (N, J, C) of the row gathers (d) of the SSG forward (the four levels'
+# centroids and groupings, FP0-FP3's interpolation) and of the MSG forward
+# (SA1 and SA2 groupings, SA3 and SA4 pregather outputs and centred xyz per
+# scale, FP0-FP3), all at B = 32
+D_SHAPES = [
+    (8192, 1024, 3), (1024, 256, 3), (256, 64, 3), (64, 16, 3), (8192, 32768, 9), (1024, 8192, 67),
+    (256, 2048, 131), (64, 512, 259), (1024, 24576, 128), (256, 3072, 256), (64, 768, 256),
+    (16, 192, 512),
+    (8192, 16384, 9), (8192, 32768, 9), (1024, 4096, 99), (1024, 8192, 99), (256, 1024, 128),
+    (256, 1024, 3), (256, 2048, 128), (256, 2048, 3), (64, 256, 256), (64, 256, 3), (64, 512, 256),
+    (64, 512, 3), (1024, 24576, 256), (256, 3072, 512), (64, 768, 512), (16, 192, 1024),
+]
+# gather.cu's (vec, per_thread, blocks) there, per SM count: 16-byte words
+# where C % 4 == 0, 8 words a thread unless that leaves fewer than two
+# blocks a multiprocessor (the centroids, the pregather's xyz)
+D_PLANS = {
+    132: [(1, 1, 384), (1, 1, 96), (1, 1, 24), (1, 1, 6), (1, 8, 4608), (1, 8, 8576), (1, 8, 4192),
+          (1, 8, 2072), (4, 8, 12288), (4, 8, 3072), (4, 8, 768), (4, 8, 384),
+          (1, 8, 2304), (1, 8, 4608), (1, 8, 6336), (1, 8, 12672), (4, 8, 512), (1, 1, 384),
+          (4, 8, 1024), (1, 2, 384), (4, 4, 512), (1, 1, 96), (4, 8, 512), (1, 1, 192),
+          (4, 8, 24576), (4, 8, 6144), (4, 8, 1536), (4, 8, 768)],
+    114: [(1, 1, 384), (1, 1, 96), (1, 1, 24), (1, 1, 6), (1, 8, 4608), (1, 8, 8576), (1, 8, 4192),
+          (1, 8, 2072), (4, 8, 12288), (4, 8, 3072), (4, 8, 768), (4, 8, 384),
+          (1, 8, 2304), (1, 8, 4608), (1, 8, 6336), (1, 8, 12672), (4, 8, 512), (1, 1, 384),
+          (4, 8, 1024), (1, 2, 384), (4, 8, 256), (1, 1, 96), (4, 8, 512), (1, 1, 192),
+          (4, 8, 24576), (4, 8, 6144), (4, 8, 1536), (4, 8, 768)],
+}
+
+
+@pytest.mark.parametrize("sms,k", [(sms, k) for sms in D_PLANS for k in range(len(D_SHAPES))])
+def test_gather_plan(sms, k):
+    n, j, c = D_SHAPES[k]
+    assert tuple(kernels.gather_kernel.plan(32, n, j, c, sms)) == D_PLANS[sms][k]
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_gather_plans_cover_their_words(sms):
+    # each block's tile (per_thread x THREADS words) and its rows' offsets
+    # fit the kernel's static shared memory (8 bytes a row, at most a tile
+    # plus one rows); the blocks cover the output's words once
+    ga = kernels.gather_kernel
+    for b in (1, 2, 32):
+        for n in (1, 7, 64, 1024, 8192, 65536):
+            for j in (1, 37, 1000, 24576, 131072):
+                for c in (1, 3, 4, 9, 67, 128, 259, 1024):
+                    p = ga.plan(b, n, j, c, sms)
+                    assert p.vec == (4 if c % 4 == 0 else 1) and p.per_thread in (1, 2, 4, 8)
+                    words, tile = b * j * (c // p.vec), p.per_thread * ga.THREADS
+                    assert p.blocks * tile >= words > (p.blocks - 1) * tile
+                    if p.per_thread < ga.MAX_PER_THREAD:  # twice as many a thread: too few blocks
+                        assert -(-words // (2 * tile)) < 2 * sms
+                    assert 8 * (ga.MAX_PER_THREAD * ga.THREADS + 1) <= 48 * 1024
+
+
 # (N, dtype, (variant, cluster, threads, ppt)): one block up to 16384 float32
 # or 8192 float64 points, a cluster of ceil(N / that) blocks above
 FPS_PLANS = [
@@ -595,3 +649,16 @@ def test_fps_plan_refuses_rows_past_its_limit(n, dtype):
     limit = kernels.fps_kernel.MAX_CLUSTER * kernels.fps_kernel.BLOCK_POINTS[dtype]
     with pytest.raises(ValueError, match=f"N <= {limit}"):
         kernels.fps_kernel.plan(n, dtype)
+
+
+def test_every_c_entry_point_matches_its_ctypes_signature():
+    # ctypes passes exactly the arguments build._SIGNATURES lists: one too
+    # few or too many there shows only on the card, as a TypeError or as
+    # arguments shifted by one
+    import re
+
+    sources = "".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))
+    for name, argtypes in build._SIGNATURES.items():
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', sources)
+        assert found, name
+        assert len(found.group(1).split(",")) == len(argtypes), name
