@@ -9,8 +9,9 @@
    SSG serving path's shapes (32 columns of 8192 points, the four levels;
    the gather at the centroids, the groupings and FP0-FP3's interpolation):
    indices and gathers must be equal bit for bit; both times from CUDA events
-   after a warm-up, beside torch.gather's for each gather and FPS's plan
-   for each level; the gather summed over SSG's 8 gathers, its 12, MSG's 16.
+   after a warm-up, beside torch.gather's for each gather and the plan of
+   FPS, the ball query and 3-NN for each level; the gather summed over
+   SSG's 8 gathers, its 12, MSG's 16.
 4. The scatter-add (every gather's backward) at the seven shapes of the SSG
    train step, its indices the ball-query and 3-NN outputs of phase 3: equal
    bit for bit to the plain version run on CPU copies, and to itself across
@@ -91,7 +92,9 @@
     chunk recipe), float32, full width: FPS against its plain version bit
     for bit at (8, 32768) -> 1024 and (8, 20000) -> 1024 in float32 and
     (2, 32768) -> 1024 in float64, with points near the origin and exact
-    ties (a cluster of blocks a row); train 3 steps through
+    ties (a cluster of blocks a row); the ball query (its tiled route) at
+    (8, 32768) -> 1024 and 3-NN at (8, 32768, 1024) on P3's columns, bit for
+    bit against their plain versions and timed; train 3 steps through
     scripts/train_torch.py and serve through scripts/infer_torch.py, each
     launching the kernels of its path and FPS's cluster variant once a
     forward (SA1); one train step card vs CPU at 2 x 32768 under phase 11's
@@ -308,22 +311,6 @@ def gather_check(torch, tally, path, label, src, idx):
           library_fn=lambda: torch.gather(src, 1, index))
 
 
-def scan_points(torch, x, q, radius: float, k: int):
-    """(B, M) points a first-k-hits scan in index order reads per query: up
-    to its k-th hit, or all N."""
-    import numpy as np
-
-    from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
-
-    r = np.float32(radius)
-    r2 = torch.tensor(r * r, device=x.device)
-    out = torch.empty(q.shape[:2], dtype=torch.int64, device=x.device)
-    for b in range(x.shape[0]):
-        hits = (pairwise_sqdist(q[b], x[b]) < r2).cumsum(-1)
-        out[b] = ((hits < k).sum(-1) + 1).clamp(max=x.shape[1])
-    return out
-
-
 def serving_columns(n_scenes: int, npoints: int = NPOINTS):
     """Whole-scene columns of the synthetic scenes the serving run uses."""
     from pointnet2_scannet_tpu_torch.config import DataConfig
@@ -354,6 +341,27 @@ def level_clouds(torch):
     return xyz, fps_idx, cols[..., 3:].contiguous()
 
 
+def check_queries(torch, tallies, path, x, q, radius):
+    """The ball query (b) and 3-NN (i) at one level against their plain
+    versions, each labelled with its plan()."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel as nn3
+    from pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter import scan_points
+
+    (b, n, _), m = x.shape, q.shape[1]
+    sms = build.sm_count(x)
+    scans = int(scan_points(torch, x, q, radius, NSAMPLE).sum())
+    check(torch, tallies[bq.NAME], path,
+          f"ball_query r={radius} ({b},{n})->{m} ns={NSAMPLE} plan {tuple(bq.plan(b, n, m, sms))}",
+          lambda: bq.ball_query_cuda(radius, NSAMPLE, x, q),
+          lambda: bq.ball_query_plain(radius, NSAMPLE, x, q),
+          4 * b * (3 * n + 3 * m + m * NSAMPLE), 9 * scans)
+    check(torch, tallies[nn3.NAME], path, f"three_nn ({b},{n},{m}) plan {tuple(nn3.plan(b, n, m, sms))}",
+          lambda: nn3.three_nn_cuda(x, q), lambda: nn3.three_nn_plain(x, q),
+          4 * b * (3 * n + 3 * m + 6 * n), 9 * b * n * m)
+
+
 def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
     """Phase 3: every forward kernel vs its plain version at the SSG path's
     shapes. Returns the (label, idx (B, J), N, C) of every gather whose
@@ -379,18 +387,11 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
               4 * BATCH * (3 * n_in + n_out), 10 * BATCH * (n_out - 1) * n_in)
         gather_check(torch, tallies[ga.NAME], "ssg", f"gather centroids ({BATCH},{n_in},3)x{n_out}",
                      x, fps_idx[k])
-        scans = int(scan_points(torch, x, q, radius, NSAMPLE).sum())
-        check(torch, tallies[bq.NAME], "ssg", f"ball_query r={radius} N={n_in} M={n_out} ns={NSAMPLE}",
-              lambda: bq.ball_query_cuda(radius, NSAMPLE, x, q),
-              lambda: bq.ball_query_plain(radius, NSAMPLE, x, q),
-              4 * BATCH * (3 * n_in + 3 * n_out + n_out * NSAMPLE), 9 * scans)
+        check_queries(torch, tallies, "ssg", x, q, radius)
         nidx = bq.ball_query_cuda(radius, NSAMPLE, x, q).reshape(BATCH, -1)
         src = torch.cat([x, feats[k]], dim=-1).contiguous()
         gather_check(torch, tallies[ga.NAME], "ssg",
                      f"gather grouping ({BATCH},{n_in},{3 + c})x{nidx.shape[1]}", src, nidx)
-        check(torch, tallies[nn3.NAME], "ssg", f"three_nn n={n_in} m={n_out}",
-              lambda: nn3.three_nn_cuda(x, q), lambda: nn3.three_nn_plain(x, q),
-              4 * BATCH * (3 * n_in + 3 * n_out + 6 * n_in), 9 * BATCH * n_in * n_out)
         if k > 0:  # SA1 groups input data: no gradient is taken there
             backward.append((f"SA{k + 1} grouping", nidx, n_in, 3 + c))
         nn_idx = nn3.three_nn_cuda(x, q)[1].reshape(BATCH, -1)
@@ -466,6 +467,7 @@ def check_multi(torch, tallies, xyz) -> list:
     from pointnet2_scannet_tpu_torch.models import msg_spec
     from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
     from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_multi_kernel as bqm
+    from pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter import scan_points
 
     spec = msg_spec(20, 6)
     out = []
@@ -713,6 +715,18 @@ def check_p3_fps(torch, tally) -> None:
               lambda: fps.furthest_point_sample_plain(xyz, P3_CENTROIDS),
               xyz.element_size() * b * 3 * n + 4 * b * P3_CENTROIDS,
               10 * b * (P3_CENTROIDS - 1) * n)
+
+
+def check_p3_queries(torch, tallies) -> None:
+    """Phase 18: the ball query (b: the tiled route, SA1's radius) and 3-NN
+    (i: FP0) against their plain versions, bit for bit, at P3's (8, 32768)
+    -> 1024 on real synthetic columns, the centroids from the plain FPS."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps, gather_kernel as ga
+
+    cols = serving_columns(2, P3_NPOINTS)[:P3_BATCH, :, :3]
+    x = torch.from_numpy(cols).to("cuda").contiguous()
+    q = ga.gather_plain(x, fps.furthest_point_sample_plain(x, P3_CENTROIDS)).contiguous()
+    check_queries(torch, tallies, "p3", x, q, LEVELS[0][2])
 
 
 def on_path(kind: str, training: bool, config: str = "default", npoints: int = NPOINTS) -> tuple[set, set]:
@@ -1271,6 +1285,7 @@ def main() -> int:
     check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats)
     check_fused(torch, tallies)
     check_p3_fps(torch, tallies["furthest_point_sample"])
+    check_p3_queries(torch, tallies)
     del backward, multi_idx, xyz, fps_idx, input_feats
     for name, t in tallies.items():
         for path, p in t.paths.items():

@@ -40,11 +40,11 @@ _i = ctypes.c_int
 _SIGNATURES = {
     "p2_fps": [_vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_fps_probe": [_i, _vp, _i, _i, _i, _i, _vp, _vp],
-    "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _vp, _vp],
+    "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_ball_query_multi": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, ctypes.c_float, _i,
                             _vp, _vp, _vp],
     "p2_gather": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
-    "p2_three_nn": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
+    "p2_three_nn": [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp, _i, _vp],
     "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_scatter_add_sort": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
     "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],

@@ -1,9 +1,10 @@
 """Device time of each kernel of the two scatter-adds (h, csrc/scatter_add.cu;
 f, csrc/scatter_smem.cu), of the tiled gather (e, csrc/gather_smem.cu), of
-the row gather (d, csrc/gather.cu) and of FPS (a, csrc/fps.cu), on one GPU,
-at the shapes chip_smoke.py checks them at.
+the row gather (d, csrc/gather.cu), of FPS (a, csrc/fps.cu), of 3-NN (i,
+csrc/three_nn.cu) and of the single-radius ball query (b,
+csrc/ball_query.cu), on one GPU, at the shapes chip_smoke.py checks them at.
 
-    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [host] [--routes]
+    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [host] [--routes]
 
 h at the seven backwards of the SSG train step and the ten of the MSG train
 step (the grouping and interpolation gathers' gradients of 32 synthetic
@@ -25,8 +26,19 @@ index made beforehand, and with --routes every words-a-thread choice of
 gather_kernel.plan(). a at SSG's four levels and P3's (8, 32768) -> 1024:
 wrapper and device time and fps_kernel.plan()'s launch; then the probes of
 csrc/fps_probe.cu at SA1's shape (the time a step of each part of a step)
-and the registers and spills ptxas reported for the FPS kernels. host: the
-host µs of each piece of d's and a's wrappers at SA4's shapes. With no kernel named, h and f.
+and the registers and spills ptxas reported for the FPS kernels. i at SSG's
+four FP levels (32 columns: (n, m) = (8192, 1024), (1024, 256), (256, 64),
+(64, 16)) and P3's FP0 (8, 32768, 1024); b at SSG's four SA levels (radii
+0.1-0.8, 32 samples) and P3's SA1 (8, 32768 -> 1024, r 0.1), i's levels
+beside their insertion statistics (a query's top-3 insertions, and the
+share of known points at which some lane of a warp inserts), b's beside
+their scan statistics (the mean share of the row a query scans up to
+its 32nd hit; the pairs tested if groups of G consecutive queries scanned
+as long as their longest member, over the pairs scanned, at G = 4, 8, 32);
+for both the wrapper and device ms, the plan where the module has one
+(with --routes every launch shape it could take) and ptxas' registers.
+host: the host µs of each piece of d's, a's, i's and b's wrappers at SA4's
+and FP3's shapes. With no kernel named, h and f.
 Needs a CUDA device.
 """
 
@@ -302,12 +314,137 @@ def probe_a(torch) -> None:
             t = sum(device_ms(torch, run).values())
             print(f"a probe {kind} {what} (B={BATCH}, {threads * 8} points a block, 1023 steps): "
                   f"{t:.4f} ms, {1e3 * t / 1023:.3f} us a step", flush=True)
+    ptxas("a", "fps")
+
+
+def ptxas(what: str, name: str) -> None:
+    """The registers and spills ptxas reported for the kernels whose mangled
+    name holds `name` (only in the process that built the library)."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+
     lines = build.build_log.splitlines()
     if not lines:
-        print("a ptxas: the library was built by an earlier process; no ptxas report here")
+        print(f"{what} ptxas: the library was built by an earlier process; no ptxas report here")
     for k, line in enumerate(lines):
-        if "Compiling entry function" in line and "fps" in line:
-            print("a ptxas: " + " | ".join(part.strip() for part in lines[k:k + 4]), flush=True)
+        if "Compiling entry function" in line and name in line:
+            print(f"{what} ptxas: " + " | ".join(part.strip() for part in lines[k:k + 4]), flush=True)
+
+
+def scan_points(torch, x, q, radius: float, k: int):
+    """(B, M) points a first-k-hits scan in index order reads per query: up
+    to its k-th hit, or all N."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
+
+    r = np.float32(radius)
+    r2 = torch.tensor(r * r, device=x.device)
+    out = torch.empty(q.shape[:2], dtype=torch.int64, device=x.device)
+    for b in range(x.shape[0]):
+        hits = (pairwise_sqdist(q[b], x[b]) < r2).cumsum(-1)
+        out[b] = ((hits < k).sum(-1) + 1).clamp(max=x.shape[1])
+    return out
+
+
+def scan_stats(torch, x, q, radius: float, k: int) -> str:
+    """The mean share of the row a query's scan reads, and the group waste:
+    the pairs that groups of G consecutive queries of a batch row would test
+    if each scanned as long as its longest member, over the pairs scanned."""
+    scans = scan_points(torch, x, q, radius, k).double()
+    out = [f"scan {float(scans.mean()) / x.shape[1]:.3f} of the row"]
+    for g in (4, 8, 32):
+        m = scans.shape[1] // g * g
+        if m == 0:
+            continue
+        longest = scans[:, :m].reshape(scans.shape[0], -1, g).amax(-1)
+        out.append(f"G {g} {float(longest.sum()) * g / float(scans[:, :m].sum()):.3f}x")
+    return ", ".join(out)
+
+
+def insertion_stats(torch, x, q) -> str:
+    """How often a strict-< top-3 scan of the known points q in index order
+    inserts: a query's insertions, and the share of (warp of 32 consecutive
+    queries, known point) pairs at which some lane inserts."""
+    from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
+
+    d = pairwise_sqdist(x, q)  # (B, n, m)
+    (b, n, m), w = d.shape, x.shape[1] // 32 * 32
+    top = torch.full((b, n, 3), float("inf"), device=x.device)
+    ins = torch.empty((b, n, m), dtype=torch.bool, device=x.device)
+    for k in range(m):
+        col = d[..., k]
+        ins[..., k] = col < top[..., 2]
+        merged = torch.cat([top, col[..., None]], -1).sort(-1).values[..., :3]
+        top = torch.where(ins[..., k, None], merged, top)
+    warp = ins[:, :w].reshape(b, -1, 32, m).any(2).float().mean() if w else float("nan")
+    return f"{float(ins.sum(-1).float().mean()):.1f} insertions a query, a warp's {float(warp):.3f}"
+
+
+def profile_i(torch, routes: bool) -> None:
+    """i at SSG's FP levels and P3's FP0: device and wrapper ms, the plan."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel as nn3
+
+    xyz = level_clouds(torch)
+    shapes = {f"SSG FP{k}": (xyz[k], xyz[k + 1]) for k in range(4)}
+    p3 = level_clouds(torch, npoints=32768, batch=8)
+    shapes["P3 FP0"] = (p3[0], p3[1])
+    total = {"device": 0.0, "wrapper": 0.0}
+    for label, (x, q) in shapes.items():
+        (b, n, _), m = x.shape, q.shape[1]
+        dev = sum(device_ms(torch, lambda: nn3.three_nn_cuda(x, q)).values())
+        wrap = wrapper_ms(torch, lambda: nn3.three_nn_cuda(x, q))
+        if label.startswith("SSG"):
+            total["device"] += dev
+            total["wrapper"] += wrap
+        where = ""
+        if hasattr(nn3, "plan"):
+            p = nn3.plan(b, n, m, build.sm_count(x))
+            where = f", plan {tuple(p)}"
+            if routes:
+                dist2 = torch.empty((b, n, 3), device="cuda")
+                idx = torch.empty((b, n, 3), dtype=torch.int32, device="cuda")
+                for c in nn3.candidate_plans(b, n, m):
+                    t = sum(device_ms(torch, lambda c=c: nn3.launch(x, q, dist2, idx, c)).values())
+                    where += f"; {tuple(c)} {t:.4f}"
+        print(f"i {label} (B={b}, n={n}, m={m}; {insertion_stats(torch, x, q)}): device {dev:.4f} ms, "
+              f"wrapper {wrap:.4f} ms{where}", flush=True)
+    print("i SSG summed: " + ", ".join(f"{k} {v:.4f} ms" for k, v in total.items()), flush=True)
+    ptxas("i", "three_nn_kernel")
+
+
+def profile_b(torch, routes: bool) -> None:
+    """b at SSG's SA levels and P3's SA1: device and wrapper ms, the plan,
+    the scan statistics."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+
+    xyz = level_clouds(torch)
+    shapes = {f"SSG SA{k + 1}": (xyz[k], xyz[k + 1], r) for k, r in enumerate((0.1, 0.2, 0.4, 0.8))}
+    p3 = level_clouds(torch, npoints=32768, batch=8)
+    shapes["P3 SA1"] = (p3[0], p3[1], 0.1)
+    total = {"device": 0.0, "wrapper": 0.0}
+    k = 32
+    for label, (x, q, r) in shapes.items():
+        (b, n, _), m = x.shape, q.shape[1]
+        dev = sum(device_ms(torch, lambda: bq.ball_query_cuda(r, k, x, q)).values())
+        wrap = wrapper_ms(torch, lambda: bq.ball_query_cuda(r, k, x, q))
+        if label.startswith("SSG"):
+            total["device"] += dev
+            total["wrapper"] += wrap
+        where = ""
+        if hasattr(bq, "plan"):
+            p = bq.plan(b, n, m, build.sm_count(x))
+            where = f", plan {tuple(p)}"
+            if routes:
+                out = torch.empty((b, m, k), dtype=torch.int32, device="cuda")
+                for c in bq.candidate_plans(b, n, m, build.sm_count(x)):
+                    t = sum(device_ms(torch, lambda c=c: bq.launch(r, k, x, q, out, c)).values())
+                    where += f"; {tuple(c)} {t:.4f}"
+        print(f"b {label} (B={b}, N={n}, M={m}, r={r}, {k} samples; {scan_stats(torch, x, q, r, k)}): "
+              f"device {dev:.4f} ms, wrapper {wrap:.4f} ms{where}", flush=True)
+    print("b SSG summed: " + ", ".join(f"{k} {v:.4f} ms" for k, v in total.items()), flush=True)
+    ptxas("b", "ball_query_kernel")
 
 
 def host_us(torch, fn, reps: int = 2000) -> float:
@@ -326,14 +463,17 @@ def host_us(torch, fn, reps: int = 2000) -> float:
 
 
 def host_costs(torch) -> None:
-    """The host time of the pieces of d's and a's wrappers at the deep
-    levels' shapes (SA4's centroids, the smallest gather; SA4's FPS), beside
-    torch.gather's whole call."""
+    """The host time of the pieces of d's, a's, i's and b's wrappers at the
+    deep levels' shapes (SA4's centroids, the smallest gather; SA4's FPS and
+    ball query; FP3's 3-NN), beside torch.gather's whole call."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
     from pointnet2_scannet_tpu_torch.ops.cuda import build
     from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
     from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel as nn3
 
     src = torch.randn((BATCH, 64, 3), device="cuda")
+    cen = src[:, :16].contiguous()
     idx = torch.randint(0, 64, (BATCH, 16), device="cuda", dtype=torch.int32)
     index = idx.long().unsqueeze(-1).expand(-1, -1, 3)
     out = torch.empty((BATCH, 16, 3), device="cuda")
@@ -352,6 +492,18 @@ def host_costs(torch) -> None:
         "gather_kernel.gather_cuda": lambda: ga.gather_cuda(src, idx),
         "torch.gather": lambda: torch.gather(src, 1, index),
         "fps 64->16 (furthest_point_sample_cuda)": lambda: fps.furthest_point_sample_cuda(src, 16),
+        "torch.empty twice (i's two outputs)": lambda: (
+            torch.empty((BATCH, 64, 3), device=src.device),
+            torch.empty((BATCH, 64, 3), dtype=torch.int32, device=src.device)),
+        "torch.empty once, two views (i's outputs in one buffer)": lambda: (
+            lambda buf: (buf[0].view(torch.float32), buf[1]))(
+            torch.empty((2, BATCH, 64, 3), dtype=torch.int32, device=src.device)),
+        "p2_three_nn, nothing to launch": lambda: lib.p2_three_nn(
+            *[0] * len(build._SIGNATURES["p2_three_nn"])),
+        "p2_ball_query, nothing to launch": lambda: lib.p2_ball_query(
+            *[0] * len(build._SIGNATURES["p2_ball_query"])),
+        "three_nn 64x16 (three_nn_cuda, FP3)": lambda: nn3.three_nn_cuda(src, cen),
+        "ball_query 64->16 (ball_query_cuda, SA4)": lambda: bq.ball_query_cuda(0.8, 32, src, cen),
     }
     for what, fn in pieces.items():
         print(f"host {what}: {host_us(torch, fn):.2f} us a call", flush=True)
@@ -368,7 +520,7 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
-    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "host")] or ["h", "f"]
+    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "i", "b", "host")] or ["h", "f"]
     routes = "--routes" in sys.argv[1:]
     print(f"device: {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -392,6 +544,10 @@ def main() -> int:
     if "a" in kernels:
         profile_a(torch)
         probe_a(torch)
+    if "i" in kernels:
+        profile_i(torch, routes)
+    if "b" in kernels:
+        profile_b(torch, routes)
     if "f" in kernels:
         for label, (idx, n, c) in f_shapes(torch).items():
             idx = idx.contiguous()

@@ -436,7 +436,7 @@ def test_profile_scatter_needs_a_card(monkeypatch):
     assert profile_scatter.main() == 1
 
 
-@pytest.mark.parametrize("argv", [["d"], ["a"], ["d", "a", "--routes"]])
+@pytest.mark.parametrize("argv", [["d"], ["a"], ["d", "a", "--routes"], ["i"], ["b"]])
 def test_profile_scatter_refuses_each_kernel_without_a_card(monkeypatch, argv):
     from pointnet2_scannet_tpu_torch.ops.cuda import profile_scatter
 

@@ -243,6 +243,123 @@ def test_three_nn_kernel_equals_plain(dev, n, m):
     _equal(got[1], want[1])
 
 
+
+def _three_nn_equal(unknown, known, got=None):
+    want = nn3.three_nn_plain(unknown, known)
+    got = nn3.three_nn_cuda(unknown, known) if got is None else got
+    _equal(got[0], want[0])
+    _equal(got[1], want[1])
+
+
+# (B, n, m): n not a multiple of any thread's points times its block, m
+# past one tile (1024 known points) and not a multiple of it
+@pytest.mark.parametrize("b,n,m", [(2, 1000, 300), (3, 777, 2500), (1, 1537, 20000)])
+def test_three_nn_kernel_launch_shapes_equal_plain(dev, b, n, m):
+    # every launch shape (points a thread, threads a block) that plan() can
+    # pick, with exact ties: known points repeated across the tile boundary,
+    # unknown points repeated within a thread's and across threads' queries
+    unknown = _cloud(n, (b, n, 3), dev)
+    unknown[:, 1::2] = unknown[:, : n // 2].clone()
+    known = _cloud(m + 7, (b, m, 3), dev)
+    if m > 1024:
+        known[:, 1024: 1024 + min(1024, m - 1024)] = known[:, : min(1024, m - 1024)].clone()
+    for p in nn3.candidate_plans(b, n, m):
+        before = nn3.launches
+        out = (torch.empty((b, n, 3), device=dev), torch.empty((b, n, 3), dtype=torch.int32, device=dev))
+        _three_nn_equal(unknown, known, nn3.launch(unknown, known, *out, p))
+        assert nn3.launches == before + 1, p
+
+
+def test_three_nn_kernel_takes_one_unknown_and_three_known(dev):
+    unknown = _cloud(1, (1, 1, 3), dev)
+    known = _cloud(2, (1, 3, 3), dev)
+    _three_nn_equal(unknown, known)
+
+
+def test_three_nn_kernel_on_an_all_zero_row(dev):
+    # a padded row of whole-scene training: every distance ties at 0
+    unknown = _cloud(3, (2, 300, 3), dev)
+    known = _cloud(4, (2, 70, 3), dev)
+    unknown[1] = 0.0
+    known[1] = 0.0
+    dist2, idx = nn3.three_nn_cuda(unknown, known)
+    assert idx[1].cpu().tolist() == [[0, 1, 2]] * 300 and float(dist2[1].abs().max()) == 0.0
+    _three_nn_equal(unknown, known)
+
+
+@pytest.mark.parametrize("where", ["unknown", "known"])
+def test_three_nn_kernel_takes_pointers_off_16_byte_alignment(dev, where):
+    unknown = _cloud(5, (2, 500, 3), dev)
+    known = _cloud(6, (2, 1100, 3), dev)
+    t = unknown if where == "unknown" else known
+    view = torch.cat([torch.zeros(1, device=dev), t.reshape(-1)])[1:].view(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    if where == "unknown":
+        unknown = view
+    else:
+        known = view
+    _three_nn_equal(unknown, known)
+
+
+def _ball_query_equal(radius, nsample, xyz, q):
+    _equal(bq.ball_query_cuda(radius, nsample, xyz, q), bq.ball_query_plain(radius, nsample, xyz, q))
+
+
+# (N, M, radius, nsample): the resident route (8192) and the tiled one
+# (20000, 32768: several tiles, the last one partial at 20000); M that does
+# not fill a block of 16 warps; nsample 64 and nsample past N
+@pytest.mark.parametrize("n,m,radius,nsample", [
+    (8192, 1024, 0.1, 32), (20000, 1024, 0.1, 32), (32768, 1024, 0.1, 32), (8192, 5, 0.2, 64),
+    (20000, 77, 0.05, 64), (100, 13, 2.0, 128), (20000, 9, 3.0, 30000),
+])
+def test_ball_query_kernel_routes_equal_plain(dev, n, m, radius, nsample):
+    xyz = _cloud(n + m, (2, n, 3), dev)
+    q = xyz[:, :m].contiguous()
+    q[0, 0] = 10.0  # an empty ball: all zeros
+    xyz[1, n // 2:] = xyz[1, : n - n // 2].clone()  # duplicates
+    route = bq.plan(2, n, m, 132).route
+    assert route == ("resident" if n <= bq.RESIDENT_POINTS else "tiled")
+    _ball_query_equal(radius, nsample, xyz, q)
+
+
+@pytest.mark.parametrize("n", [300, 8192, 20000])
+def test_ball_query_kernel_launch_shapes_equal_plain(dev, n):
+    # every launch shape candidate_plans() lists: both routes where the row
+    # fits shared memory, 8 and 16 warps, blocks that hold one query a warp
+    # and blocks that hold many
+    m = 200
+    xyz = _cloud(n, (2, n, 3), dev)
+    q = xyz[:, :m].contiguous()
+    want = bq.ball_query_plain(0.15, 32, xyz, q)
+    for p in bq.candidate_plans(2, n, m, 132):
+        before = bq.launches
+        _equal(bq.launch(0.15, 32, xyz, q, torch.empty_like(want), p), want)
+        assert bq.launches == before + 1, p
+
+
+def test_ball_query_kernel_on_an_all_zero_row(dev):
+    # a padded row of whole-scene training: every point hits, indices 0..k-1
+    xyz = _cloud(8, (2, 8192, 3), dev)
+    xyz[1] = 0.0
+    q = xyz[:, :64].contiguous()
+    got = bq.ball_query_cuda(0.1, 32, xyz, q)
+    assert got[1].cpu().tolist() == [list(range(32))] * 64
+    _ball_query_equal(0.1, 32, xyz, q)
+
+
+@pytest.mark.parametrize("n,at", [(64, 3), (20000, 4100), (32768, 20000)])
+def test_ball_query_kernel_radius_boundary_on_each_route(dev, n, at):
+    # a point at exactly r misses, one an ulp inside hits (at a tile past
+    # the first on the tiled route)
+    r = np.float32(0.25)
+    xyz = torch.full((1, n, 3), 3.0, device=dev)
+    xyz[0, at] = torch.tensor([float(r), 0.0, 0.0])
+    xyz[0, at + 1] = torch.tensor([float(np.nextafter(r, np.float32(0))), 0.0, 0.0])
+    q = torch.zeros((1, 1, 3), device=dev)
+    got = bq.ball_query_cuda(0.25, 4, xyz, q)
+    assert got.cpu().tolist() == [[[at + 1] * 4]]
+    _equal(got, bq.ball_query_plain(0.25, 4, xyz, q))
+
 # small SSG and MSG models; the MSG one's second level takes the pregather
 # composition in float32 (c_in = 16 + 16 + 3 >= 2 * 16)
 SMALL_SPECS = {

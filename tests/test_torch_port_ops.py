@@ -662,3 +662,87 @@ def test_every_c_entry_point_matches_its_ctypes_signature():
         found = re.search(rf'extern "C" int {name}\(([^)]*)\)', sources)
         assert found, name
         assert len(found.group(1).split(",")) == len(argtypes), name
+
+
+# (B, n or N, m or M) at which chip_smoke.py runs 3-NN (i) and the ball
+# query (b): SSG's and MSG's levels at 32 columns, P2's FP0 and SA1 at 8000
+# and 7936 points (7936's FP0 goes to the query-major kernel), P3's levels
+# at 8 x 32768, whole-scene micro-batches of 16 and 2 columns, the card vs
+# CPU check at 2 x 32768, and (i only) n = m = 8192, j's counterpart
+QUERY_SHAPES = [
+    (32, 8192, 1024), (32, 1024, 256), (32, 256, 64), (32, 64, 16), (32, 8000, 1024), (32, 7936, 1024),
+    (8, 32768, 1024), (8, 1024, 256), (8, 256, 64), (8, 64, 16), (16, 8192, 1024), (2, 8192, 1024),
+    (2, 32768, 1024),
+]
+I_SHAPES = QUERY_SHAPES + [(32, 8192, 8192)]
+# three_nn.cu's (points a thread, threads a block, blocks a batch row) per
+# SM count: 4 points a thread at the full-width FP0, fewer and smaller
+# blocks at the deep levels so that they still cover the multiprocessors
+I_PLANS = {
+    132: [(4, 256, 8), (1, 128, 8), (1, 64, 4), (1, 64, 1), (4, 256, 8), (4, 256, 8), (4, 256, 32),
+          (1, 64, 16), (1, 64, 4), (1, 64, 1), (2, 256, 16), (1, 64, 128), (1, 256, 128), (4, 256, 8)],
+    114: [(4, 256, 8), (1, 256, 4), (1, 64, 4), (1, 64, 1), (4, 256, 8), (4, 256, 8), (4, 256, 32),
+          (1, 64, 16), (1, 64, 4), (1, 64, 1), (4, 256, 8), (1, 128, 64), (2, 256, 64), (4, 256, 8)],
+}
+# ball_query.cu's (route, tile, warps, queries a block, blocks a batch row):
+# the row whole in shared memory up to 16384 points (padded to 128), tiles
+# of 4096 past it; blocks that fill the card twice, one query a warp at least
+B_PLANS = {
+    132: [("resident", 8192, 32, 64, 16), ("resident", 1024, 32, 32, 8), ("resident", 256, 32, 32, 2),
+          ("resident", 128, 32, 16, 1), ("resident", 8064, 32, 64, 16), ("resident", 7936, 32, 64, 16),
+          ("tiled", 4096, 32, 32, 32), ("resident", 1024, 32, 32, 8), ("resident", 256, 32, 32, 2),
+          ("resident", 128, 32, 16, 1), ("resident", 8192, 32, 32, 32), ("resident", 8192, 32, 32, 32),
+          ("tiled", 4096, 32, 32, 32)],
+    114: [("resident", 8192, 32, 74, 14), ("resident", 1024, 32, 32, 8), ("resident", 256, 32, 32, 2),
+          ("resident", 128, 32, 16, 1), ("resident", 8064, 32, 74, 14), ("resident", 7936, 32, 74, 14),
+          ("tiled", 4096, 32, 32, 32), ("resident", 1024, 32, 32, 8), ("resident", 256, 32, 32, 2),
+          ("resident", 128, 32, 16, 1), ("resident", 8192, 32, 37, 28), ("resident", 8192, 32, 32, 32),
+          ("tiled", 4096, 32, 32, 32)],
+}
+
+
+@pytest.mark.parametrize("sms,k", [(sms, k) for sms in I_PLANS for k in range(len(I_SHAPES))])
+def test_three_nn_plan(sms, k):
+    assert tuple(kernels.three_nn_kernel.plan(*I_SHAPES[k], sms)) == I_PLANS[sms][k]
+
+
+@pytest.mark.parametrize("sms,k", [(sms, k) for sms in B_PLANS for k in range(len(QUERY_SHAPES))])
+def test_ball_query_plan(sms, k):
+    assert tuple(kernels.ball_query_kernel.plan(*QUERY_SHAPES[k], sms)) == B_PLANS[sms][k]
+
+
+SWEEP = (1, 3, 64, 100, 1024, 8000, 16384, 16385, 20000, 32768, 65536)
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_three_nn_plans_cover_their_queries(sms):
+    # the blocks of a row cover its n unknown points once, with a block
+    # size three_nn.cu takes
+    nn = kernels.three_nn_kernel
+    for b in (1, 2, 8, 32):
+        for n in SWEEP:
+            for m in (3, 16, 1024, 2500, 65536):
+                p = nn.plan(b, n, m, sms)
+                assert p.per_thread in nn.PER_THREAD and p.threads in nn.THREADS
+                per_block = p.per_thread * p.threads
+                assert p.blocks * per_block >= n > (p.blocks - 1) * per_block
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_ball_query_plans_fit_shared_memory(sms):
+    # every plan's block fits a multiprocessor's shared memory (static
+    # arrays and the card's reserve included), its tile holds whole steps of
+    # 128 points (the resident one the whole row), the tiled route's counts
+    # fit their static arrays, and the blocks of a row cover its queries once
+    bq = kernels.ball_query_kernel
+    for b in (1, 2, 8, 32):
+        for n in SWEEP:
+            for m in SWEEP:
+                p = bq.plan(b, n, m, sms)
+                assert p.route == ("resident" if n <= bq.RESIDENT_POINTS else "tiled")
+                assert p.tile % bq.STEP == 0 and (p.route == "tiled" or p.tile >= n)
+                assert bq.shared_bytes(p) + bq.BLOCK_RESERVED <= bq.SM_SHARED
+                assert bq.shared_bytes(p) <= 232448  # a block's limit on the H100
+                assert p.warps * 32 <= 1024
+                assert p.route == "resident" or p.per_block <= bq.MAX_TILED_QUERIES
+                assert p.blocks * p.per_block >= m > (p.blocks - 1) * p.per_block
