@@ -20,7 +20,7 @@
    about 1000 times (B 2, J 131072, C 64: the card-wide sort's route).
 5. The two-radius ball query of the MSG levels against its plain version at
    the four MSG levels (the same level clouds), bit for bit, timed beside
-   two single-radius launches per level.
+   two single-radius launches per level, each level with its plan.
 6. The gather at the MSG model's grouping and interpolation widths, and the
    scatter-add at its train step's backward shapes, both listed from the MSG
    model (its pregather gate picks which gathers a level makes): the checks
@@ -467,6 +467,7 @@ def check_multi(torch, tallies, xyz) -> list:
     from pointnet2_scannet_tpu_torch.models import msg_spec
     from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
     from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_multi_kernel as bqm
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
     from pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter import scan_points
 
     spec = msg_spec(20, 6)
@@ -477,7 +478,8 @@ def check_multi(torch, tallies, xyz) -> list:
         scans = int(torch.maximum(scan_points(torch, x, q, radii[0], ks[0]),
                                   scan_points(torch, x, q, radii[1], ks[1])).sum())
         check(torch, tallies[bqm.NAME], "msg",
-              f"ball_query_multi r={radii} N={n} M={m} ns={ks}",
+              f"ball_query_multi r={radii} N={n} M={m} ns={ks} plan "
+              f"{tuple(bqm.plan(BATCH, n, m, build.sm_count(x)))}",
               lambda: bqm.ball_query_multi_cuda(radii, ks, x, q),
               lambda: bqm.ball_query_multi_plain(radii, ks, x, q),
               4 * BATCH * (3 * n + 3 * m + m * sum(ks)), 10 * scans,

@@ -48,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include "csr_sort.cuh"
+#include "on_device.cuh"
 #include "smem_limit.cuh"
 
 namespace {
@@ -293,10 +294,11 @@ cudaError_t launch_block(const int* idx, const float* g, int B, int N, int J, in
 // (the output rows a block takes, 1 to N), walkers (the warps that sort, 1
 // to 32) and page (entries a stage of the page holds, 1 to 1024), all from
 // scatter_kernel.plan(), which keeps J <= 65535 and the block's shared
-// memory (scatter_kernel.block_bytes) within the card's.
+// memory (scatter_kernel.block_bytes) within the card's. device: the card
+// that holds the tensors.
 extern "C" int p2_scatter_add(const int* idx, const float* g, int B, int N, int J, int C,
                               int chunks, int vec, int rows_per_group, int walkers, int page,
-                              float* out, void* stream) {
+                              float* out, int device, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   if (J < 0 || J > kMaxBlockJ || B > 65535 || rows_per_group < 1 || rows_per_group > N ||
       (N + rows_per_group - 1) / rows_per_group > 65535 || walkers < 1 ||
@@ -304,24 +306,27 @@ extern "C" int p2_scatter_add(const int* idx, const float* g, int B, int N, int 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (chunks * 10 + vec) {
-#define P2_BLOCK_CASE(c, v)                                                                     \
-  case c * 10 + v:                                                                              \
-    err = launch_block<c, v>(idx, g, B, N, J, C, rows_per_group, walkers, page, out, s);       \
-    break;
-    P2_BLOCK_CASE(1, 1) P2_BLOCK_CASE(2, 1) P2_BLOCK_CASE(3, 1) P2_BLOCK_CASE(4, 1)
-    P2_BLOCK_CASE(1, 4) P2_BLOCK_CASE(2, 4) P2_BLOCK_CASE(3, 4) P2_BLOCK_CASE(4, 4)
+  return static_cast<int>(p2_on_device(device, [&] {
+    switch (chunks * 10 + vec) {
+#define P2_BLOCK_CASE(c, v) \
+  case c * 10 + v:          \
+    return launch_block<c, v>(idx, g, B, N, J, C, rows_per_group, walkers, page, out, s);
+      P2_BLOCK_CASE(1, 1) P2_BLOCK_CASE(2, 1) P2_BLOCK_CASE(3, 1) P2_BLOCK_CASE(4, 1)
+      P2_BLOCK_CASE(1, 4) P2_BLOCK_CASE(2, 4) P2_BLOCK_CASE(3, 4) P2_BLOCK_CASE(4, 4)
 #undef P2_BLOCK_CASE
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+      default: return cudaErrorInvalidValue;
+    }
+  }));
 }
 
 // The sort route: csr_scatter_add (csr_sort.cuh) with scatter_kernel.plan()'s
-// tile, walkers and rows; scratch as csr_scatter_add takes it.
+// tile, walkers and rows; scratch as csr_scatter_add takes it; device as
+// above.
 extern "C" int p2_scatter_add_sort(const int* idx, const float* g, int B, int N, int J, int C,
                                    int tile, int walkers, int rows, int* scratch, float* out,
-                                   void* stream) {
-  return csr_scatter_add(idx, g, B, N, J, C, tile, walkers, rows, scratch, out, stream);
+                                   int device, void* stream) {
+  return static_cast<int>(p2_on_device(device, [&] {
+    return static_cast<cudaError_t>(
+        csr_scatter_add(idx, g, B, N, J, C, tile, walkers, rows, scratch, out, stream));
+  }));
 }

@@ -8,7 +8,8 @@ Each block stages its batch row in shared memory (whole, or two tiles at a
 time past RESIDENT_POINTS), and a warp scans one query at a time, 128
 points a step, appending hits in index order with ballots and popcounts
 and stopping once the row is full; plan() picks the route and the grid.
-See the note at the head of csrc/ball_query.cu.
+The scan is csrc/ball_scan.cuh's, which the two-radius query shares; see
+the notes at the head of csrc/ball_query.cu and csrc/ball_scan.cuh.
 """
 
 from __future__ import annotations
@@ -47,17 +48,22 @@ class Plan(NamedTuple):
     blocks: int  # blocks a batch row
 
 
-def shared_bytes(p: Plan) -> int:
-    """Shared memory a block of plan p takes, static arrays included."""
+def shared_bytes(p: Plan, radii: int = 1) -> int:
+    """Shared memory a block of plan p takes for `radii` rows a query (1 here,
+    2 for ball_query_multi.cu), static arrays included."""
     if p.route == "resident":
         return 12 * p.tile + 4
-    return 2 * 12 * p.tile + 8 * MAX_TILED_QUERIES
+    return 2 * 12 * p.tile + 8 * radii * MAX_TILED_QUERIES
 
 
-def _plan(b: int, n: int, m: int, sms: int, route: str, warps: int, waves: float = WAVES) -> Plan:
+def route_plan(b: int, n: int, m: int, sms: int, route: str, warps: int, waves: float = WAVES,
+               radii: int = 1) -> Plan:
+    """The launch on a given route with warps a block, as many blocks a
+    batch row as fill the multiprocessors `waves` times (by threads and
+    shared memory), at least one query a warp."""
     tile = -(-n // STEP) * STEP if route == "resident" else TILE
     p = Plan(route, tile, warps, 0, 0)
-    per_sm = min(SM_THREADS // (32 * warps), SM_SHARED // (shared_bytes(p) + BLOCK_RESERVED))
+    per_sm = min(SM_THREADS // (32 * warps), SM_SHARED // (shared_bytes(p, radii) + BLOCK_RESERVED))
     blocks = max(1, min(int(per_sm * sms * waves) // b, -(-m // warps)))
     per_block = -(-m // blocks)
     if route == "tiled":
@@ -73,15 +79,16 @@ def plan(b: int, n: int, m: int, sms: int) -> Plan:
     fill the multiprocessors WAVES times (by threads and shared memory), at
     least one query a warp. On the H100 at SSG's SA1 the second wave evened
     out the blocks' unequal scans (PERF.md)."""
-    return _plan(b, n, m, sms, "resident" if n <= RESIDENT_POINTS else "tiled", WARPS)
+    return route_plan(b, n, m, sms, "resident" if n <= RESIDENT_POINTS else "tiled", WARPS)
 
 
-def candidate_plans(b: int, n: int, m: int, sms: int) -> list:
+def candidate_plans(b: int, n: int, m: int, sms: int, radii: int = 1) -> list:
     """Launch shapes to profile: plan()'s route (and the tiled one where the
     row would stay whole) with 8, 16 and 32 warps a block, at blocks that
     fill the card once, twice and four times."""
     routes = ["tiled"] if n > RESIDENT_POINTS else ["resident", "tiled"]
-    return [_plan(b, n, m, sms, r, w, v) for r in routes for w in (8, 16, 32) for v in (1, 2, 4)]
+    return [route_plan(b, n, m, sms, r, w, v, radii) for r in routes for w in (8, 16, 32)
+            for v in (1, 2, 4)]
 
 
 def ball_query_plain(
@@ -143,6 +150,7 @@ def ball_query_cuda(
     M = new_xyz.shape[1]
     if new_xyz.shape[0] != B or new_xyz.get_device() != xyz.get_device():
         raise ValueError("xyz and new_xyz must share batch size and device")
+    build.check_batch(B, NAME)
     out = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
     if B * M == 0 or nsample == 0:
         return out

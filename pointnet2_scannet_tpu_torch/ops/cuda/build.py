@@ -24,9 +24,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "fps.cu", "ball_query.cu", "ball_query_multi.cu", "gather.cu", "three_nn.cu", "scatter_add.cu",
-    "gather_smem.cu", "scatter_smem.cu", "three_nn_q.cu", "fused_gather_mm.cu", "fps_probe.cu",
+    "gather_smem.cu", "scatter_smem.cu", "fused_gather_mm.cu", "fps_probe.cu",
 )
-HEADERS = ("sqdist.cuh", "smem_limit.cuh", "csr_sort.cuh", "fps_step.cuh", "on_device.cuh")
+HEADERS = (
+    "sqdist.cuh", "smem_limit.cuh", "csr_sort.cuh", "fps_step.cuh", "on_device.cuh", "ball_scan.cuh",
+)
 # sm_90a: Hopper. -fmad=false: no a*b+c contraction anywhere in these sources,
 # so every distance rounds like the plain PyTorch versions (see sqdist.cuh).
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -41,18 +43,21 @@ _SIGNATURES = {
     "p2_fps": [_vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_fps_probe": [_i, _vp, _i, _i, _i, _i, _vp, _vp],
     "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _i, _vp, _i, _vp],
-    "p2_ball_query_multi": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, ctypes.c_float, _i,
-                            _vp, _vp, _vp],
+    "p2_ball_query_multi": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, ctypes.c_float, _i, _i, _i,
+                            _i, _i, _vp, _vp, _i, _vp],
     "p2_gather": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp, _i, _vp],
-    "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
-    "p2_scatter_add_sort": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
+    "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
+    "p2_scatter_add_sort": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _i, _vp],
     "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
     "p2_scatter_smem_accumulate": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],
-    "p2_three_nn_q": [_vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     "p2_fused_gather_mm": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp, _vp],
 }
+
+# batch rows a launch takes: the kernels that run one grid row (or slice) a
+# batch row stop at gridDim.y's (and gridDim.z's) limit
+MAX_BATCH = 65535
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the last build, if any
@@ -173,6 +178,14 @@ def sm_count(t) -> int:
 def ptr(t) -> int:
     """The tensor's data address, which ctypes passes for a void*."""
     return t.data_ptr()
+
+
+def check_batch(b: int, kernel: str) -> None:
+    """Raise a ValueError naming the limit where a batch of b rows passes
+    MAX_BATCH, before anything is allocated or launched (the C entry points
+    refuse it too, as a bare "invalid argument")."""
+    if b > MAX_BATCH:
+        raise ValueError(f"{kernel} takes a batch of at most {MAX_BATCH} rows, got B = {b}")
 
 
 def require(t, what: str, dtypes, ndim: int, last: int | None = None) -> None:

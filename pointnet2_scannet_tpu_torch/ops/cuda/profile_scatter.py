@@ -1,10 +1,11 @@
 """Device time of each kernel of the two scatter-adds (h, csrc/scatter_add.cu;
 f, csrc/scatter_smem.cu), of the tiled gather (e, csrc/gather_smem.cu), of
 the row gather (d, csrc/gather.cu), of FPS (a, csrc/fps.cu), of 3-NN (i,
-csrc/three_nn.cu) and of the single-radius ball query (b,
-csrc/ball_query.cu), on one GPU, at the shapes chip_smoke.py checks them at.
+csrc/three_nn.cu; j, the query-major route, runs it too) and of the ball
+queries (b, csrc/ball_query.cu; c, csrc/ball_query_multi.cu), on one GPU,
+at the shapes chip_smoke.py checks them at.
 
-    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [host] [--routes]
+    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [host] [--routes]
 
 h at the seven backwards of the SSG train step and the ten of the MSG train
 step (the grouping and interpolation gathers' gradients of 32 synthetic
@@ -36,8 +37,13 @@ their scan statistics (the mean share of the row a query scans up to
 its 32nd hit; the pairs tested if groups of G consecutive queries scanned
 as long as their longest member, over the pairs scanned, at G = 4, 8, 32);
 for both the wrapper and device ms, the plan where the module has one
-(with --routes every launch shape it could take) and ptxas' registers.
-host: the host µs of each piece of d's, a's, i's and b's wrappers at SA4's
+(with --routes every launch shape it could take) and ptxas' registers. c
+(the two-radius ball query, csrc/ball_query_multi.cu) at MSG's four levels
+(radii 0.05/0.1 to 0.4/0.8, 16 and 32 samples) beside two launches of b,
+with each radius's scan share; j (the query-major 3-NN) at FP0 of
+7936-point columns, at n = m = 8192 and at one row of 256 queries against
+8192 known points, beside i with i's insertion statistics. host: the host
+µs of each piece of d's, a's, i's, b's, c's, j's and h's wrappers at SA4's
 and FP3's shapes. With no kernel named, h and f.
 Needs a CUDA device.
 """
@@ -317,16 +323,17 @@ def probe_a(torch) -> None:
     ptxas("a", "fps")
 
 
-def ptxas(what: str, name: str) -> None:
+def ptxas(what: str, *names: str) -> None:
     """The registers and spills ptxas reported for the kernels whose mangled
-    name holds `name` (only in the process that built the library)."""
+    name holds every one of `names` (only in the process that built the
+    library)."""
     from pointnet2_scannet_tpu_torch.ops.cuda import build
 
     lines = build.build_log.splitlines()
     if not lines:
         print(f"{what} ptxas: the library was built by an earlier process; no ptxas report here")
     for k, line in enumerate(lines):
-        if "Compiling entry function" in line and name in line:
+        if "Compiling entry function" in line and all(name in line for name in names):
             print(f"{what} ptxas: " + " | ".join(part.strip() for part in lines[k:k + 4]), flush=True)
 
 
@@ -444,7 +451,79 @@ def profile_b(torch, routes: bool) -> None:
         print(f"b {label} (B={b}, N={n}, M={m}, r={r}, {k} samples; {scan_stats(torch, x, q, r, k)}): "
               f"device {dev:.4f} ms, wrapper {wrap:.4f} ms{where}", flush=True)
     print("b SSG summed: " + ", ".join(f"{k} {v:.4f} ms" for k, v in total.items()), flush=True)
-    ptxas("b", "ball_query_kernel")
+    ptxas("b", "ball_query", "ILi1E")  # ball_scan.cuh's instances for one radius
+
+
+def profile_c(torch, routes: bool) -> None:
+    """c at MSG's four levels: device and wrapper ms beside two launches of
+    b, each radius's scan share and the longer of the two (the fused
+    scan's), the plan where the module has one (with --routes every launch
+    shape it could take)."""
+    from pointnet2_scannet_tpu_torch.models import msg_spec
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_multi_kernel as bqm
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+
+    xyz = level_clouds(torch)
+    spec = msg_spec(20, 6)
+    total = {"device": 0.0, "wrapper": 0.0, "two b device": 0.0, "two b wrapper": 0.0}
+    for k, (radii, ks) in enumerate(zip(spec.radii, spec.nsamples)):
+        x, q = xyz[k], xyz[k + 1]
+        (b, n, _), m = x.shape, q.shape[1]
+
+        def fused():
+            return bqm.ball_query_multi_cuda(radii, ks, x, q)
+
+        def two():
+            return bq.ball_query_cuda(radii[0], ks[0], x, q), bq.ball_query_cuda(radii[1], ks[1], x, q)
+
+        times = (sum(device_ms(torch, fused).values()), wrapper_ms(torch, fused),
+                 sum(device_ms(torch, two).values()), wrapper_ms(torch, two))
+        for key, v in zip(total, times):
+            total[key] += v
+        scans = [scan_points(torch, x, q, r, s).double() for r, s in zip(radii, ks)]
+        share = ", ".join(f"r {r} scans {float(t.mean()) / n:.3f}" for r, t in zip(radii, scans))
+        share += f", the longer {float(torch.maximum(*scans).mean()) / n:.3f} of the row"
+        where = ""
+        if hasattr(bqm, "plan"):
+            p = bqm.plan(b, n, m, build.sm_count(x))
+            where = f", plan {tuple(p)}"
+            if routes:
+                outs = tuple(torch.empty((b, m, s), dtype=torch.int32, device="cuda") for s in ks)
+                for c in bqm.candidate_plans(b, n, m, build.sm_count(x)):
+                    t = sum(device_ms(torch, lambda c=c: bqm.launch(radii, ks, x, q, outs, c)).values())
+                    where += f"; {tuple(c)} {t:.4f}"
+        print(f"c MSG SA{k + 1} (B={b}, N={n}, M={m}, r={radii}, {ks} samples; {share}): device "
+              f"{times[0]:.4f} ms, wrapper {times[1]:.4f} ms; two b launches device {times[2]:.4f} ms, "
+              f"wrapper {times[3]:.4f} ms{where}", flush=True)
+    print("c MSG summed: " + ", ".join(f"{k} {v:.4f} ms" for k, v in total.items()), flush=True)
+    ptxas("c", "ball_query_multi_kernel")  # the earlier one-warp-a-query kernel
+    ptxas("c", "ball_query", "ILi2E")  # ball_scan.cuh's instances for two radii
+
+
+def profile_j(torch) -> None:
+    """j at FP0 of 7936-point columns, at n = m = 8192 (another column's
+    points as the known set) and at one row of 256 queries against 8192
+    known points: j's device and wrapper ms beside i's, with i's insertion
+    statistics."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel as nn3
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_q_kernel as nnq
+
+    xyz = level_clouds(torch)
+    shapes = {
+        "FP0 of 7936-point columns": (xyz[0][:, :7936].contiguous(), xyz[1]),
+        "n = m = 8192": (xyz[0], xyz[0].roll(1, dims=0).contiguous()),
+        "one row, 256 queries": (xyz[1][:1, :256].contiguous(), xyz[0][:1].contiguous()),
+    }
+    for label, (x, q) in shapes.items():
+        (b, n, _), m = x.shape, q.shape[1]
+        times = []
+        for fn in (nnq.three_nn_q_cuda, nn3.three_nn_cuda):
+            times += [sum(device_ms(torch, lambda fn=fn: fn(x, q)).values()),
+                      wrapper_ms(torch, lambda fn=fn: fn(x, q))]
+        print(f"j {label} (B={b}, n={n}, m={m}; {insertion_stats(torch, x, q)}; source "
+              f"{nnq.SOURCE.rsplit('/', 1)[-1]}): device {times[0]:.4f} ms, wrapper {times[1]:.4f} ms; "
+              f"i device {times[2]:.4f} ms, wrapper {times[3]:.4f} ms", flush=True)
 
 
 def host_us(torch, fn, reps: int = 2000) -> float:
@@ -467,10 +546,13 @@ def host_costs(torch) -> None:
     deep levels' shapes (SA4's centroids, the smallest gather; SA4's FPS and
     ball query; FP3's 3-NN), beside torch.gather's whole call."""
     from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_multi_kernel as bqm
     from pointnet2_scannet_tpu_torch.ops.cuda import build
     from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
     from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
     from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel as nn3
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_q_kernel as nnq
 
     src = torch.randn((BATCH, 64, 3), device="cuda")
     cen = src[:, :16].contiguous()
@@ -504,6 +586,14 @@ def host_costs(torch) -> None:
             *[0] * len(build._SIGNATURES["p2_ball_query"])),
         "three_nn 64x16 (three_nn_cuda, FP3)": lambda: nn3.three_nn_cuda(src, cen),
         "ball_query 64->16 (ball_query_cuda, SA4)": lambda: bq.ball_query_cuda(0.8, 32, src, cen),
+        "p2_ball_query_multi, nothing to launch": lambda: lib.p2_ball_query_multi(
+            *[0] * len(build._SIGNATURES["p2_ball_query_multi"])),
+        "ball_query_multi 64->16 (ball_query_multi_cuda, MSG SA4)": lambda: bqm.ball_query_multi_cuda(
+            (0.4, 0.8), (16, 32), src, cen),
+        "three_nn_q 64x16 (three_nn_q_cuda, j's wrapper at FP3's shape)": lambda: nnq.three_nn_q_cuda(
+            src, cen),
+        "scatter_add 16x3 -> 64 (scatter_add_cuda, SA4's centroids' backward)": lambda: sc.scatter_add_cuda(
+            idx, cen, 64),
     }
     for what, fn in pieces.items():
         print(f"host {what}: {host_us(torch, fn):.2f} us a call", flush=True)
@@ -520,7 +610,7 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
-    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "i", "b", "host")] or ["h", "f"]
+    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "i", "b", "c", "j", "host")] or ["h", "f"]
     routes = "--routes" in sys.argv[1:]
     print(f"device: {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -548,6 +638,10 @@ def main() -> int:
         profile_i(torch, routes)
     if "b" in kernels:
         profile_b(torch, routes)
+    if "c" in kernels:
+        profile_c(torch, routes)
+    if "j" in kernels:
+        profile_j(torch)
     if "f" in kernels:
         for label, (idx, n, c) in f_shapes(torch).items():
             idx = idx.contiguous()

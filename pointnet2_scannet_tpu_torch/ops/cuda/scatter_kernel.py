@@ -119,18 +119,16 @@ def launch(idx: torch.Tensor, g: torch.Tensor, n: int, p) -> torch.Tensor:
         return out
     if isinstance(p, BlockPlan) and g.data_ptr() % 16:
         p = p._replace(vec=1)  # 16-byte copies need g's rows 16-byte aligned
-    with torch.cuda.device(g.device):
-        if isinstance(p, BlockPlan):
-            err = build.library().p2_scatter_add(
-                build.ptr(idx), build.ptr(g), B, n, J, C, p.chunks, p.vec, p.rows, p.walkers, p.page,
-                build.ptr(out), build.stream_of(g),
-            )
-        else:
-            scratch = torch.empty(B * (p.tiles * n + n + 1 + J), dtype=torch.int32, device=g.device)
-            err = build.library().p2_scatter_add_sort(
-                build.ptr(idx), build.ptr(g), B, n, J, C, p.tile, p.walkers, p.rows,
-                build.ptr(scratch), build.ptr(out), build.stream_of(g),
-            )
+    lib, device, stream = build.library(), g.get_device(), build.stream_of(g)
+    if isinstance(p, BlockPlan):
+        err = lib.p2_scatter_add(
+            idx.data_ptr(), g.data_ptr(), B, n, J, C, p.chunks, p.vec, p.rows, p.walkers, p.page,
+            out.data_ptr(), device, stream)
+    else:
+        scratch = torch.empty(B * (p.tiles * n + n + 1 + J), dtype=torch.int32, device=g.device)
+        err = lib.p2_scatter_add_sort(
+            idx.data_ptr(), g.data_ptr(), B, n, J, C, p.tile, p.walkers, p.rows,
+            scratch.data_ptr(), out.data_ptr(), device, stream)
     build.check(err, NAME)
     launches += 1
     return out
@@ -147,4 +145,5 @@ def scatter_add_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor
         raise ValueError("idx must be (B, J) on the device of g (B, J, C)")
     if not 0 < n <= MAX_N:
         raise ValueError(f"scatter_add_cuda takes 0 < n <= {MAX_N}, got {n}")
+    build.check_batch(B, NAME)
     return launch(idx, g, n, plan(B, n, J, C, build.sm_count(g)))

@@ -127,6 +127,7 @@ def scatter_smem_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tenso
         raise ValueError("idx must be (B, J) on the device of g (B, J, C)")
     if not 0 < n <= MAX_N:
         raise ValueError(f"scatter_smem_cuda takes 0 < n <= {MAX_N}, got {n}")
+    build.check_batch(B, NAME)
     out = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
     if out.numel() == 0:
         return out

@@ -89,22 +89,22 @@ def three_nn_plain(
 def launch(unknown: torch.Tensor, known: torch.Tensor, dist2: torch.Tensor, idx: torch.Tensor,
            p: Plan) -> tuple[torch.Tensor, torch.Tensor]:
     """three_nn.cu with plan p into dist2 and idx (B, n, 3) on checked
-    tensors."""
-    global launches
+    tensors. Counts no launch: three_nn_cuda and
+    three_nn_q_kernel.three_nn_q_cuda count theirs."""
     B, n, _ = unknown.shape
     err = build.library().p2_three_nn(
         unknown.data_ptr(), known.data_ptr(), B, n, known.shape[1], p.per_thread, p.threads,
         dist2.data_ptr(), idx.data_ptr(), unknown.get_device(), build.stream_of(unknown))
     build.check(err, NAME)
-    launches += 1
     return dist2, idx
 
 
-def three_nn_cuda(
-    unknown: torch.Tensor, known: torch.Tensor
+def run(
+    unknown: torch.Tensor, known: torch.Tensor, kernel: str = NAME
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, n, 3) x (B, m, 3) float32 on the card, m >= 3 -> (dist2, idx);
-    launches three_nn.cu."""
+    """Check (B, n, 3) x (B, m, 3) float32 on the card, m >= 3, allocate
+    dist2 and idx and launch three_nn.cu with plan() unless B * n == 0;
+    the batch-limit error names `kernel`. Counts no launch."""
     build.require(unknown, "unknown", (torch.float32,), 3, 3)
     build.require(known, "known", (torch.float32,), 3, 3)
     B, n, _ = unknown.shape
@@ -113,8 +113,21 @@ def three_nn_cuda(
         raise ValueError("unknown and known must share batch size and device")
     if m < 3:
         raise ValueError(f"three_nn needs at least 3 known points, got {m}")
+    build.check_batch(B, kernel)
     dist2 = torch.empty((B, n, 3), dtype=torch.float32, device=unknown.device)
     idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
     if B * n == 0:
         return dist2, idx
     return launch(unknown, known, dist2, idx, plan(B, n, m, build.sm_count(unknown)))
+
+
+def three_nn_cuda(
+    unknown: torch.Tensor, known: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, n, 3) x (B, m, 3) float32 on the card, m >= 3 -> (dist2, idx);
+    launches three_nn.cu."""
+    global launches
+    out = run(unknown, known)
+    if out[0].numel():
+        launches += 1
+    return out

@@ -1,25 +1,27 @@
-"""Three nearest neighbours, one warp per query: the CUDA kernel
-(csrc/three_nn_q.cu) and its plain PyTorch version.
+"""Three nearest neighbours where the JAX package takes its query-major
+kernel: three_nn.cu launched through a wrapper of its own, and its plain
+PyTorch version.
 
 Replaces pointnet2_scannet_tpu/ops/pallas/three_nn_kernel.py
 (three_nn_pallas, the query-major kernel, which the JAX package takes where
 its known-major kernel is refused; ops/tuning.three_nn_route copies that
-routing). Contract, as three_nn_kernel.py's: the three smallest d^2
-ascending with int32 indices, ties to the lowest index, bit-equal to the
-plain version and to three_nn.cu. Where three_nn.cu scans all m known points
-in one thread per query, this kernel spreads a query's scan over the 32
-lanes of a warp and merges their top-3 lists; see csrc/three_nn_q.cu.
+routing). Its contract is the known-major kernel's: the three smallest d^2
+ascending with int32 indices, ties to the lowest index. The TPU needed two
+kernels for the two tilings of its distance tile; on the card one thread
+per query scanning the known points from shared memory serves both, so
+this op runs three_nn.cu with three_nn_kernel.plan() (see
+three_nn_kernel.py) and counts those launches apart from three_nn's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pointnet2_scannet_tpu_torch.ops.cuda import build
+from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel
 from pointnet2_scannet_tpu_torch.ops.cuda.three_nn_kernel import three_nn_plain
 
 NAME = "three_nn_q"
-SOURCE = "pointnet2_scannet_tpu_torch/csrc/three_nn_q.cu"
+SOURCE = three_nn_kernel.SOURCE
 REPLACES = "pointnet2_scannet_tpu/ops/pallas/three_nn_kernel.py:140"
 
 launches = 0
@@ -36,25 +38,9 @@ def three_nn_q_cuda(
     unknown: torch.Tensor, known: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, n, 3) x (B, m, 3) float32 on the card, m >= 3 -> (dist2, idx);
-    launches three_nn_q.cu."""
+    launches three_nn.cu."""
     global launches
-    build.require(unknown, "unknown", (torch.float32,), 3, 3)
-    build.require(known, "known", (torch.float32,), 3, 3)
-    B, n, _ = unknown.shape
-    m = known.shape[1]
-    if known.shape[0] != B or known.device != unknown.device:
-        raise ValueError("unknown and known must share batch size and device")
-    if m < 3:
-        raise ValueError(f"three_nn needs at least 3 known points, got {m}")
-    dist2 = torch.empty((B, n, 3), dtype=torch.float32, device=unknown.device)
-    idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
-    if B * n == 0:
-        return dist2, idx
-    with torch.cuda.device(unknown.device):
-        err = build.library().p2_three_nn_q(
-            build.ptr(unknown), build.ptr(known), B, n, m, build.ptr(dist2),
-            build.ptr(idx), build.stream_of(unknown),
-        )
-    build.check(err, NAME)
-    launches += 1
-    return dist2, idx
+    out = three_nn_kernel.run(unknown, known, NAME)
+    if out[0].numel():
+        launches += 1
+    return out

@@ -2,8 +2,9 @@
 
 three_nn returns squared distances, ascending, lowest index on ties (the JAX
 package's ops/interpolate.py), routed by ops/tuning.three_nn_route: the
-query-major kernel (three_nn_q.cu) where the JAX package takes its
-query-major Pallas kernel, three_nn.cu everywhere else. three_interpolate is
+query-major route (three_nn_q_kernel, which runs three_nn.cu under its own
+launch counter) where the JAX package takes its query-major Pallas kernel,
+three_nn_kernel everywhere else. three_interpolate is
 the gather form (interpolate.py:74-93), which reads no switch: one
 gather_rows of the 3n neighbour rows, so its gradient is the same
 deterministic scatter-add as every other gather's, then the weighted sum in

@@ -16,8 +16,9 @@ as follows (on the CPU every route runs the kernels' plain versions):
 - gather_route: "vmem" and "xla" run gather.cu forward and scatter_add.cu
   backward (the port's row gather, since the first slice); "mxu" runs
   gather_smem.cu forward and scatter_smem.cu backward (ops/mxu_gather.py).
-- three_nn_route: "t" runs three_nn.cu, "q" three_nn_q.cu, and "xla" (XLA's
-  top-k in the JAX package) three_nn.cu.
+- three_nn_route: "t" runs three_nn_kernel, "q" three_nn_q_kernel (the same
+  three_nn.cu under its own launch counter), and "xla" (XLA's top-k in the
+  JAX package) three_nn_kernel.
 
 route_counts tallies the routes taken (no launch involved), so a test can
 show on the CPU which kernels a run would have launched on the card.

@@ -118,23 +118,36 @@ def test_ball_query_kernel_radius_boundary(dev):
     _equal(got, bq.ball_query_plain(0.25, 4, xyz, q))
 
 
-@pytest.mark.parametrize(
-    "radii,nsamples,n,m",
-    [((0.05, 0.1), (16, 32), 8192, 1024), ((0.1, 0.2), (16, 32), 1024, 256),
-     ((0.2, 0.4), (16, 32), 256, 64), ((0.4, 0.8), (16, 32), 64, 16),
-     ((0.5, 0.15), (40, 8), 300, 77), ((2.0, 0.3), (24, 33), 16, 5)],
-)
-def test_ball_query_multi_kernel_equals_plain_and_two_single_queries(dev, radii, nsamples, n, m):
-    xyz = _cloud(n + m + 1, (3, n, 3), dev)
-    q = xyz[:, :m].contiguous()
-    q[0, 0] = 10.0  # an empty ball: all zeros in both rows
-    before = bqm.launches
-    got = bqm.ball_query_multi_cuda(radii, nsamples, xyz, q)
-    assert bqm.launches == before + 1
-    want = bqm.ball_query_multi_plain(radii, nsamples, xyz, q)
-    for g, w, r, k in zip(got, want, radii, nsamples):
+def _multi_equal(radii, nsamples, xyz, q, got=None):
+    got = bqm.ball_query_multi_cuda(radii, nsamples, xyz, q) if got is None else got
+    for g, w, r, k in zip(got, bqm.ball_query_multi_plain(radii, nsamples, xyz, q), radii, nsamples):
         _equal(g, w)
         _equal(g, bq.ball_query_cuda(r, k, xyz, q))
+
+
+# (radii, nsamples, N, M, side of the cloud): MSG's four levels, small and
+# ragged shapes; then dense clouds (rows fill): MSG SA1's radii in both
+# orders on the resident route (8192) and the tiled one (20000, 32768),
+# equal radii, nsample past the hits (short rows) and past N, one nsample 0
+@pytest.mark.parametrize(
+    "radii,nsamples,n,m,side",
+    [((0.05, 0.1), (16, 32), 8192, 1024, 1.5), ((0.1, 0.2), (16, 32), 1024, 256, 1.5),
+     ((0.2, 0.4), (16, 32), 256, 64, 1.5), ((0.4, 0.8), (16, 32), 64, 16, 1.5),
+     ((0.5, 0.15), (40, 8), 300, 77, 1.5), ((2.0, 0.3), (24, 33), 16, 5, 1.5),
+     ((0.05, 0.1), (16, 32), 8192, 1024, 0.6), ((0.1, 0.05), (32, 16), 8192, 1024, 0.6),
+     ((0.05, 0.1), (16, 32), 20000, 300, 0.6), ((0.1, 0.05), (32, 16), 32768, 200, 0.6),
+     ((0.1, 0.1), (8, 40), 300, 50, 0.6), ((2.0, 0.05), (128, 64), 100, 13, 0.6),
+     ((3.0, 0.02), (30000, 5), 20000, 9, 0.6), ((0.05, 0.1), (0, 32), 8192, 64, 0.6)],
+)
+def test_ball_query_multi_kernel_equals_plain_and_two_single_queries(dev, radii, nsamples, n, m, side):
+    xyz = _cloud(n + m + 1, (3, n, 3), dev, hi=side)
+    q = xyz[:, :m].contiguous()
+    q[0, 0] = 10.0  # an empty ball: all zeros in both rows
+    xyz[2, n // 2:] = xyz[2, : n - n // 2].clone()  # duplicates
+    assert bqm.plan(3, n, m, 132).route == ("resident" if n <= bq.RESIDENT_POINTS else "tiled")
+    before = bqm.launches
+    _multi_equal(radii, nsamples, xyz, q)
+    assert bqm.launches == before + 1
 
 
 def test_ball_query_multi_kernel_radius_boundary(dev):
@@ -149,6 +162,70 @@ def test_ball_query_multi_kernel_radius_boundary(dev):
     assert got[1].cpu().tolist() == [[[4, 4, 4, 4]]]
     for g, w in zip(got, bqm.ball_query_multi_plain((0.5, 0.25), (6, 4), xyz, q)):
         _equal(g, w)
+
+
+@pytest.mark.parametrize("radii,nsamples", [((0.05, 0.1), (16, 32)), ((0.1, 0.05), (32, 16))])
+def test_ball_query_multi_kernel_launch_shapes_equal_plain(dev, radii, nsamples):
+    # every launch shape candidate_plans() lists, and the tiled route forced
+    # with tiles of 128 and 384 points, whose boundaries the repeated points
+    # straddle (ties between a tile's points and the next tile's)
+    n, m = 2000, 200
+    xyz = _cloud(11, (2, n, 3), dev, hi=0.3)
+    xyz[:, 384:768] = xyz[:, :384].clone()
+    xyz[:, 1000:1130] = xyz[:, 120:250].clone()
+    q = xyz[:, 100:100 + m].contiguous()
+    want = bqm.ball_query_multi_plain(radii, nsamples, xyz, q)
+    plans = bqm.candidate_plans(2, n, m, 132) + [
+        bq.Plan("tiled", tile, warps, per_block, -(-m // per_block))
+        for tile in (128, 384) for warps, per_block in ((8, 32), (32, 200))]
+    for p in plans:
+        outs = tuple(torch.empty_like(w) for w in want)
+        got = bqm.launch(radii, nsamples, xyz, q, outs, p)
+        for g, w in zip(got, want):
+            _equal(g, w)
+    _multi_equal(radii, nsamples, xyz, q, got)
+
+
+@pytest.mark.parametrize("n,at", [(64, 3), (20000, 4100), (32768, 20000)])
+@pytest.mark.parametrize("order", [1, -1])
+def test_ball_query_multi_kernel_radius_boundary_on_each_route(dev, n, at, order):
+    # at each radius a point at exactly r misses and one an ulp inside hits
+    # (on the tiled route in a tile past the first), radii in both orders
+    r1, r2 = np.float32(0.25), np.float32(0.5)
+    xyz = torch.full((1, n, 3), 3.0, device=dev)
+    for k, x in enumerate((r1, np.nextafter(r1, np.float32(0)), r2, np.nextafter(r2, np.float32(0)))):
+        xyz[0, at + k] = torch.tensor([float(x), 0.0, 0.0])
+    q = torch.zeros((1, 1, 3), device=dev)
+    radii, nsamples = (0.5, 0.25)[::order], (6, 4)[::order]
+    got = bqm.ball_query_multi_cuda(radii, nsamples, xyz, q)
+    wide, narrow = got[::order]
+    assert wide.cpu().tolist() == [[[at, at + 1, at + 3, at, at, at]]]
+    assert narrow.cpu().tolist() == [[[at + 1] * 4]]
+    _multi_equal(radii, nsamples, xyz, q, got)
+
+
+BATCH_LIMITED = {
+    "ball_query": lambda x, i: bq.ball_query_cuda(0.1, 4, x, x),
+    "ball_query_multi": lambda x, i: bqm.ball_query_multi_cuda((0.1, 0.2), (4, 8), x, x),
+    "three_nn": lambda x, i: nn3.three_nn_cuda(x, x.expand(-1, 3, -1).contiguous()),
+    "three_nn_q": lambda x, i: kernels.three_nn_q_kernel.three_nn_q_cuda(x, x.expand(-1, 3, -1).contiguous()),
+    "scatter_add": lambda x, i: sc.scatter_add_cuda(i, x, 1),
+    "scatter_smem": lambda x, i: kernels.scatter_smem_kernel.scatter_smem_cuda(i, x, 1),
+}
+
+
+@pytest.mark.parametrize("name", BATCH_LIMITED)
+def test_wrappers_refuse_a_batch_past_the_grid_limit(dev, name):
+    # B = 65536 rows of one point: a ValueError naming the limit, before any
+    # launch; 65535 rows launch
+    x, i = torch.zeros((65536, 1, 3), device=dev), torch.zeros((65536, 1), dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match=f"{name} takes a batch of at most 65535 rows"):
+        BATCH_LIMITED[name](x, i)
+    assert kernels.launch_counts() == before
+    BATCH_LIMITED[name](x[:65535], i[:65535])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before[name] + 1
 
 
 @pytest.mark.parametrize("c", [3, 9, 67, 128, 131, 259, 512])
@@ -267,7 +344,7 @@ def test_three_nn_kernel_launch_shapes_equal_plain(dev, b, n, m):
         before = nn3.launches
         out = (torch.empty((b, n, 3), device=dev), torch.empty((b, n, 3), dtype=torch.int32, device=dev))
         _three_nn_equal(unknown, known, nn3.launch(unknown, known, *out, p))
-        assert nn3.launches == before + 1, p
+        assert nn3.launches == before, p  # launch() counts none: three_nn_cuda and j's wrapper do
 
 
 def test_three_nn_kernel_takes_one_unknown_and_three_known(dev):
@@ -726,9 +803,11 @@ def test_scatter_smem_kernel_refuses_what_it_cannot_take(dev):
 
 
 # (B, n, m): the routed shapes (FP0 at 7936 points, n = m = 8192, a query
-# count under 256), small and ragged ones, duplicates for ties
+# count under 256), small and ragged ones, duplicates for ties, and few
+# queries against many known points (one row, 256 against 8192)
 @pytest.mark.parametrize("b,n,m", [(32, 7936, 1024), (2, 8192, 8192), (2, 200, 128), (2, 768, 1024),
-                                   (2, 8000, 1024), (3, 7, 3), (2, 50, 33), (1, 300, 2500)])
+                                   (2, 8000, 1024), (3, 7, 3), (2, 50, 33), (1, 300, 2500),
+                                   (32, 8192, 8192), (1, 256, 8192)])
 def test_three_nn_q_kernel_equals_plain_and_three_nn(dev, b, n, m):
     from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_q_kernel as nnq
 
@@ -736,9 +815,9 @@ def test_three_nn_q_kernel_equals_plain_and_three_nn(dev, b, n, m):
     known = _cloud(m + 1, (b, m, 3), dev)
     known[-1, m // 2:] = known[-1, : m - m // 2].clone()  # duplicates: exact ties
     unknown[0, :2] = known[0, :2]  # d^2 = 0
-    before = nnq.launches
+    before, before_i = nnq.launches, nn3.launches
     got = nnq.three_nn_q_cuda(unknown, known)
-    assert nnq.launches == before + 1
+    assert nnq.launches == before + 1 and nn3.launches == before_i
     for want in (nnq.three_nn_q_plain(unknown, known), nn3.three_nn_cuda(unknown, known)):
         _same_bits(got[0], want[0])
         _equal(got[1], want[1])

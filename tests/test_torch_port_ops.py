@@ -11,6 +11,7 @@ version; the CUDA kernels themselves are held against those plain versions
 in tests/test_torch_port_gpu.py.
 """
 
+import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -386,6 +387,14 @@ def test_kernel_modules_name_their_sources_and_tpu_kernels():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
     assert build.library_path() == build.library_path()  # content-hashed name
+    # j runs i's kernel: its own counter and TPU kernel, three_nn.cu's source
+    assert kernels.three_nn_q_kernel.SOURCE == kernels.three_nn_kernel.SOURCE
+    assert kernels.three_nn_q_kernel.REPLACES != kernels.three_nn_kernel.REPLACES
+    assert not (root / "pointnet2_scannet_tpu_torch/csrc/three_nn_q.cu").exists()
+    # b and c share one scan header, which the library's hash covers
+    for source in ("ball_query.cu", "ball_query_multi.cu"):
+        assert '#include "ball_scan.cuh"' in (build.CSRC / source).read_text()
+    assert "ball_scan.cuh" in build.HEADERS
 
 
 # (B, N, J, C, SMs, (rows, width, tiles, blocks)): gather_smem.cu's tiles and
@@ -711,6 +720,114 @@ def test_ball_query_plan(sms, k):
     assert tuple(kernels.ball_query_kernel.plan(*QUERY_SHAPES[k], sms)) == B_PLANS[sms][k]
 
 
+# (B, N, M) of the two-radius query (c): MSG's four levels at 32 columns, the
+# whole-scene micro-batches of 16 and 2 columns, and rows past 16384 points
+# (the tiled route): P3's SA1 at 8 x 32768 and one row of 20000
+C_SHAPES = [(32, 8192, 1024), (32, 1024, 256), (32, 256, 64), (32, 64, 16), (16, 8192, 1024),
+            (2, 8192, 1024), (8, 32768, 1024), (1, 20000, 256)]
+# ball_query_multi.cu's (route, tile, warps, queries a block, blocks a batch
+# row): b's rule, the tiled route's counts for both rows in shared memory
+C_PLANS = {
+    132: [("resident", 8192, 32, 64, 16), ("resident", 1024, 32, 32, 8), ("resident", 256, 32, 32, 2),
+          ("resident", 128, 32, 16, 1), ("resident", 8192, 32, 32, 32), ("resident", 8192, 32, 32, 32),
+          ("tiled", 4096, 32, 32, 32), ("tiled", 4096, 32, 32, 8)],
+    114: [("resident", 8192, 32, 74, 14), ("resident", 1024, 32, 32, 8), ("resident", 256, 32, 32, 2),
+          ("resident", 128, 32, 16, 1), ("resident", 8192, 32, 37, 28), ("resident", 8192, 32, 32, 32),
+          ("tiled", 4096, 32, 32, 32), ("tiled", 4096, 32, 32, 8)],
+}
+
+
+@pytest.mark.parametrize("sms,k", [(sms, k) for sms in C_PLANS for k in range(len(C_SHAPES))])
+def test_ball_query_multi_plan(sms, k):
+    bq, bqm = kernels.ball_query_kernel, kernels.ball_query_multi_kernel
+    p = bqm.plan(*C_SHAPES[k], sms)
+    assert tuple(p) == C_PLANS[sms][k]
+    assert tuple(p) == tuple(bq.plan(*C_SHAPES[k], sms))  # b's launch where the shapes agree
+    assert bq.shared_bytes(p, bqm.RADII) <= 232448  # a block's limit on the H100
+    assert bq.shared_bytes(p, bqm.RADII) + bq.BLOCK_RESERVED <= bq.SM_SHARED
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each C call, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """CPU tensors pass the wrappers' device checks on a card of 132
+    multiprocessors whose C entry points only record their arguments."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "require", lambda *a, **k: None)
+    monkeypatch.setattr(build, "sm_count", lambda t: 132)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())  # f's context
+    kernels.reset_launch_counts()
+    return lib
+
+
+@pytest.mark.parametrize("radii,nsamples", [((0.05, 0.1), (16, 32)), ((0.1, 0.05), (32, 16))])
+def test_ball_query_multi_wrapper_launches_its_plan(fake_card, radii, nsamples):
+    bqm = kernels.ball_query_multi_kernel
+    xyz = torch.zeros((2, 8192, 3))
+    q = torch.zeros((2, 1024, 3))
+    outs = bqm.ball_query_multi_cuda(radii, nsamples, xyz, q)
+    assert [tuple(o.shape) for o in outs] == [(2, 1024, k) for k in nsamples]
+    [(name, args)] = fake_card.calls
+    p = bqm.plan(2, 8192, 1024, 132)
+    assert name == "p2_ball_query_multi"
+    # the radii in the caller's order (the entry point puts the wider first)
+    assert args[2:13] == (2, 8192, 1024, *(x for pair in zip(radii, nsamples) for x in pair),
+                          int(p.route == "tiled"), p.tile, p.warps, p.per_block)
+    assert kernels.launch_counts()["ball_query_multi"] == 1
+    assert kernels.launch_counts()["ball_query"] == 0
+
+
+def test_three_nn_q_wrapper_runs_i_kernel_with_i_plan(fake_card):
+    nn3, nnq = kernels.three_nn_kernel, kernels.three_nn_q_kernel
+    for b, n, m in ((32, 7936, 1024), (2, 8192, 8192), (1, 256, 8192)):
+        nnq.three_nn_q_cuda(torch.zeros((b, n, 3)), torch.zeros((b, m, 3)))
+        name, args = fake_card.calls[-1]
+        p = nn3.plan(b, n, m, 132)
+        assert name == "p2_three_nn" and args[2:7] == (b, n, m, p.per_thread, p.threads)
+    # j's launches stay j's
+    assert kernels.launch_counts()["three_nn_q"] == 3
+    assert kernels.launch_counts()["three_nn"] == 0
+
+
+def test_batch_limit_refuses_65536_rows_and_takes_65535():
+    assert build.MAX_BATCH == 65535
+    build.check_batch(65535, "ball_query")
+    with pytest.raises(ValueError, match="at most 65535 rows, got B = 65536"):
+        build.check_batch(65536, "ball_query")
+
+
+BATCH_LIMITED = {
+    "ball_query": lambda x, i: kernels.ball_query_kernel.ball_query_cuda(0.1, 4, x, x),
+    "ball_query_multi": lambda x, i: kernels.ball_query_multi_kernel.ball_query_multi_cuda(
+        (0.1, 0.2), (4, 8), x, x),
+    "three_nn": lambda x, i: kernels.three_nn_kernel.three_nn_cuda(x, x.expand(-1, 3, -1)),
+    "three_nn_q": lambda x, i: kernels.three_nn_q_kernel.three_nn_q_cuda(x, x.expand(-1, 3, -1)),
+    "scatter_add": lambda x, i: kernels.scatter_kernel.scatter_add_cuda(i, x, 1),
+    "scatter_smem": lambda x, i: kernels.scatter_smem_kernel.scatter_smem_cuda(i, x, 1),
+}
+
+
+@pytest.mark.parametrize("name", BATCH_LIMITED)
+def test_wrappers_refuse_a_batch_past_the_limit_before_launching(fake_card, name):
+    x, i = torch.zeros((65536, 1, 3)), torch.zeros((65536, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"{name} takes a batch of at most 65535"):
+        BATCH_LIMITED[name](x, i)
+    assert fake_card.calls == []
+    BATCH_LIMITED[name](x[:65535], i[:65535])  # the limit itself launches
+    assert len(fake_card.calls) == 1
+
+
 SWEEP = (1, 3, 64, 100, 1024, 8000, 16384, 16385, 20000, 32768, 65536)
 
 
@@ -739,6 +856,7 @@ def test_ball_query_plans_fit_shared_memory(sms):
         for n in SWEEP:
             for m in SWEEP:
                 p = bq.plan(b, n, m, sms)
+                assert tuple(kernels.ball_query_multi_kernel.plan(b, n, m, sms)) == tuple(p)
                 assert p.route == ("resident" if n <= bq.RESIDENT_POINTS else "tiled")
                 assert p.tile % bq.STEP == 0 and (p.route == "tiled" or p.tile >= n)
                 assert bq.shared_bytes(p) + bq.BLOCK_RESERVED <= bq.SM_SHARED
