@@ -1,0 +1,306 @@
+"""Benchmark of the PyTorch + CUDA port (pointnet2_scannet_tpu_torch): the
+port's counterpart of bench.py. Prints ONE JSON line.
+
+    python bench_torch.py                 # the card, full size
+    python bench_torch.py --device cpu    # the plain versions, small (a check of the flow, not a speed)
+
+Headline, as bench.py's: `metric` train_points_per_sec_ssg_b32_n8192, its
+`value` the SSG train step's points a second at B 32 x 8192 x 9, float32
+(forward, loss, backward, Adam, confusion matrix), from `step_ms`: the median
+of 3 windows of 20 steps each between CUDA events, after 3 warm steps, with
+`step_ms_min` / `step_ms_max`. The inputs are bench.py's
+(bench.py:123-134): numpy's generator seeded 0, points uniform in [0, 1.5)
+over xyz + 6 feature channels, labels uniform in [0, 20), weights 1; the
+model's weights from torch.Generator().manual_seed(0). Other fields:
+
+  msg_points_per_sec, msg_step_ms[_min|_max]   the MSG model, the same way
+  train_repeats, fused_steps      3; 1 (the port runs one step a dispatch)
+  model_tflops_fwd                bench.py's analytic forward matmul FLOPs of
+                                  the SSG model at B 32 x 8192 (TF)
+  mfu_f32                         3 x those FLOPs / SSG step / the card's
+                                  float32 peak outside the tensor cores (TF32
+                                  is off): F32_PEAK by device name, null for a
+                                  card not listed
+  serve_columns_per_sec_ssg|msg   one warm Predictor.predict batch of 32
+                                  columns (labels to the host included),
+                                  median of 9
+  wholescene_ms_ssg|msg           one synthetic scene's whole-scene update
+                                  (grad_accum_step a micro-batch of 32
+                                  columns, apply_accumulated), median of 10,
+                                  as chip_smoke.py times it
+  p3_step_ms[_min|_max]           the SSG step at 8 x 32768 (the 32768-point
+                                  chunk recipe), as step_ms
+  device, power_limit             nvidia-smi's name and power limit
+  unported                        bench.py's fields not ported yet, each with
+                                  its ROADMAP queue 1 item
+
+No vs_baseline (its divisor estimates another card) and no TPU figure.
+--device cpu runs every cell at B 2 x 1024 (P3: 1 x 2048; the scene cut to
+3 columns at micro-batch 2, the second padded), one step a window and one
+timed serving batch and update: its rates are the host's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+METRIC = "train_points_per_sec_ssg_b32_n8192"
+TRAIN_REPEATS = 3
+# per device: batch x points of the train and serving cells, P3's, steps a
+# train window, warm-up calls, timed serving batches, and the whole-scene
+# cell's micro-batch, columns (None: the whole scene) and timed updates
+SIZES = {
+    "cuda": {"batch": 32, "npoints": 8192, "p3": (8, 32768), "steps": 20, "warm": 3, "serve_repeats": 9,
+             "ws_batch": 32, "ws_columns": None, "ws_repeats": 10},
+    "cpu": {"batch": 2, "npoints": 1024, "p3": (1, 2048), "steps": 1, "warm": 1, "serve_repeats": 1,
+            "ws_batch": 2, "ws_columns": 3, "ws_repeats": 1},
+}
+# float32 FLOP/s outside the tensor cores, by torch.cuda.get_device_name
+# (NVIDIA's data sheet: H100 SXM at 700 W)
+F32_PEAK = {"NVIDIA H100 80GB HBM3": 67e12}
+UNPORTED = {  # bench.py's fields -> ROADMAP queue 1 item
+    **{k: 10 for k in ("step_ms_bf16", "step_ms_bf16_min", "step_ms_bf16_max", "step_ms_bf16_per_dispatch",
+                       "ssg_bf16_points_per_sec", "msg_bf16_points_per_sec", "msg_bf16_step_ms_min",
+                       "msg_bf16_step_ms_max", "mfu_bf16")},
+    **{k: 7 for k in ("eval_scenes_per_sec", "eval_sps_min", "eval_sps_max", "eval_repeats")},
+}
+
+
+def fwd_matmul_flops(spec, B: int, N: int) -> float:
+    """Analytic forward matmul FLOPs (pointwise MLPs + head) of one batch
+    (bench.py's fwd_matmul_flops, on either package's spec)."""
+    pts = [N] + list(spec.npoints)
+    f = 0.0
+    cin_feats = spec.input_channels
+    for lvl in range(len(spec.npoints)):
+        M = spec.npoints[lvl]
+        for s, widths in enumerate(spec.sa_mlps[lvl]):
+            K = spec.nsamples[lvl][s]
+            cin = cin_feats + (3 if spec.use_xyz else 0)
+            for w in widths:
+                f += 2.0 * B * M * K * cin * w
+                cin = w
+        cin_feats = sum(w[-1] for w in spec.sa_mlps[lvl])
+    chans = list(spec.skip_channels)  # feature channels per level pre-FP
+    cur = chans[-1]
+    for lvl in reversed(range(len(spec.fp_mlps))):
+        cin = cur + chans[lvl]
+        for w in spec.fp_mlps[lvl]:
+            f += 2.0 * B * pts[lvl] * cin * w
+            cin = w
+        cur = cin
+    cin = cur
+    for w in spec.cls_fc:
+        f += 2.0 * B * N * cin * w
+        cin = w
+    f += 2.0 * B * N * cin * spec.num_classes
+    return f
+
+
+def timed_windows(fn, device, steps: int, repeats: int, warm: int) -> list[float]:
+    """Sorted ms a call of fn over `repeats` windows of `steps` back-to-back
+    calls, after `warm` calls: each window between its own pair of CUDA
+    events on the card (all windows queued, one synchronise at the end), on
+    the host clock around a synchronised window elsewhere."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    for _ in range(warm):
+        fn()
+    if not cuda:
+        out = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            out.append((time.perf_counter() - t0) * 1e3 / steps)
+        return sorted(out)
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) / steps for s, e in events)
+
+
+def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0):
+    """A train state over a seeded SSG or MSG model at full width (xyz + 6
+    feature channels, 20 classes)."""
+    import dataclasses
+
+    import torch
+
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
+
+    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=dropout)
+    model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(seed), device=device)
+    return ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=seed)
+
+
+def train_inputs(batch: int, npoints: int, device) -> dict:
+    """bench.py's train batch (bench.py:123-134), on device."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    pc = rng.uniform(0.0, 1.5, size=(batch, npoints, 9)).astype(np.float32)
+    raw = {
+        "points": pc,
+        "labels": rng.integers(0, 20, size=(batch, npoints)).astype(np.int32),
+        "weights": np.ones((batch, npoints), np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+
+
+def train_ms(kind: str, device, batch: int, npoints: int, steps: int, warm: int) -> list[float]:
+    """Sorted ms a train step over TRAIN_REPEATS windows of `steps` steps."""
+    import torch
+
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    state = fresh_state(kind, device)
+    data = train_inputs(batch, npoints, device)
+    losses = []
+    times = timed_windows(lambda: losses.append(ts.train_step(state, data, num_classes=20)["loss"]),
+                          device, steps, TRAIN_REPEATS, warm)
+    if not bool(torch.isfinite(losses[-1])):
+        raise RuntimeError(f"{kind} train step at {batch} x {npoints}: the loss is not finite")
+    return times
+
+
+def serve_ms(kind: str, device, batch: int, npoints: int, repeats: int) -> list[float]:
+    """Sorted ms of `repeats` Predictor.predict calls on one batch of `batch`
+    columns (labels back on the host), after one warm call."""
+    import numpy as np
+    import torch
+
+    from pointnet2_scannet_tpu_torch.engine.export import Predictor
+    from pointnet2_scannet_tpu_torch.models import get_model
+
+    model = get_model(20, is_msg=kind == "msg", input_channels=6, generator=torch.Generator().manual_seed(0))
+    predictor = Predictor(model, batch_size=batch, npoints=npoints, channels=9, device=device)
+    columns = train_inputs(batch, npoints, "cpu")["points"].numpy()
+    labels = predictor.predict(columns)
+    if labels.shape != (batch, npoints) or labels.min() < 0 or labels.max() >= 20:
+        raise RuntimeError(f"{kind} serving: labels of shape {labels.shape} outside [0, 20)")
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        predictor.predict(columns)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def wholescene_dataset(n_scenes: int, npoints: int):
+    """The training scenes of a --synthetic --use_wholescene run of n scenes,
+    tiled at full width into npoints-point columns."""
+    from pointnet2_scannet_tpu_torch.config import DataConfig
+    from pointnet2_scannet_tpu_torch.data import WholeSceneDataset, make_synthetic_store
+
+    cfg = DataConfig(npoints=npoints, use_color=True, use_normal=True)
+    return WholeSceneDataset(make_synthetic_store(n_scenes, seed=0), cfg, seed=0)
+
+
+def wholescene_time(kind: str, device, micro_batch: int, npoints: int, columns: int | None = None,
+                    repeats: int = 10, warm: int = 3) -> dict:
+    """The steady whole-scene update of one synthetic scene (its first
+    `columns` columns where given) at micro-batches of micro_batch columns:
+    grad_accum_step a micro-batch, then apply_accumulated, the micro-batches
+    on the device beforehand; sorted ms of `repeats` updates, each timed
+    alone, and the scene's real and padded rows."""
+    import torch
+
+    from pointnet2_scannet_tpu_torch.data.pipeline import to_device
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.engine.solver import _SceneBatchIterator
+
+    ds = wholescene_dataset(1, npoints)
+    t0 = time.perf_counter()
+    scene = ds.get_scene(0)
+    tile_ms = (time.perf_counter() - t0) * 1e3
+    scene = tuple(a[:columns] for a in scene)
+    micro = [to_device(mb, device) for mb in _SceneBatchIterator(ds, micro_batch).micro_batches(*scene)]
+    state = fresh_state(kind, device)
+
+    def update():
+        count = 0.0
+        for mb in micro:
+            count = count + ts.grad_accum_step(state, mb, num_classes=20)["count"]
+        ts.apply_accumulated(state, count)
+
+    times = timed_windows(update, device, 1, repeats, warm)
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise RuntimeError("the steady whole-scene updates left non-finite parameters")
+    real = scene[0].shape[0]
+    return {"times": times, "real": real, "padded": len(micro) * micro_batch - real,
+            "micro_batches": len(micro), "tile_ms": tile_ms}
+
+
+def card_line() -> str:
+    """The first card's `name, power.limit` line from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def run(device: str = "cuda") -> dict:
+    """Every cell on `device` ("cuda" or "cpu"); the JSON row."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import pointnet2_scannet_tpu_torch  # noqa: F401  (switches TF32 off)
+    from pointnet2_scannet_tpu_torch.models import ssg_spec
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available (use --device cpu)")
+    size = SIZES[device]
+    b, n, steps, warm = size["batch"], size["npoints"], size["steps"], size["warm"]
+    row = {"metric": METRIC, "unit": "points/sec", "batch": b, "npoints": n}
+    train = {kind: train_ms(kind, device, b, n, steps, warm) for kind in ("ssg", "msg")}
+    ssg_ms = train["ssg"][TRAIN_REPEATS // 2]
+    flops = fwd_matmul_flops(ssg_spec(20, 6), b, n)
+    name, limit = (part.strip() for part in card_line().rsplit(",", 1)) if device == "cuda" else ("cpu", None)
+    peak = F32_PEAK.get(name)
+    row.update({
+        "value": b * n / ssg_ms * 1e3,
+        "step_ms": ssg_ms, "step_ms_min": train["ssg"][0], "step_ms_max": train["ssg"][-1],
+        "msg_points_per_sec": b * n / train["msg"][TRAIN_REPEATS // 2] * 1e3,
+        "msg_step_ms": train["msg"][TRAIN_REPEATS // 2], "msg_step_ms_min": train["msg"][0],
+        "msg_step_ms_max": train["msg"][-1],
+        "train_repeats": TRAIN_REPEATS, "fused_steps": 1,
+        "model_tflops_fwd": flops / 1e12,
+        "mfu_f32": 3.0 * flops / (ssg_ms / 1e3) / peak if peak else None,
+    })
+    for kind in ("ssg", "msg"):
+        times = serve_ms(kind, device, b, n, size["serve_repeats"])
+        row[f"serve_columns_per_sec_{kind}"] = b / times[len(times) // 2] * 1e3
+    for kind in ("ssg", "msg"):
+        ws = wholescene_time(kind, device, size["ws_batch"], n, size["ws_columns"], size["ws_repeats"], warm)
+        row[f"wholescene_ms_{kind}"] = ws["times"][len(ws["times"]) // 2]
+    p3 = train_ms("ssg", device, *size["p3"], steps, warm)
+    row.update({"p3_step_ms": p3[TRAIN_REPEATS // 2], "p3_step_ms_min": p3[0], "p3_step_ms_max": p3[-1],
+                "device": name, "power_limit": limit, "unported": UNPORTED})
+    return row
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = p.parse_args(argv)
+    print(json.dumps(run(args.device)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -41,7 +41,8 @@
    3-NN (j) at FP0 of 7936-point columns and at n = m = 8192; the fused
    gather-matmul (k) at scripts/bench_fused_sa.py's shape (B 32, N 8192,
    J 32768, C 9, F 32), beside the unfused composition it replaces (d, then
-   torch.matmul).
+   torch.matmul) and its own general route (w in shared memory), with the
+   device time of both routes from torch.profiler.
 9. Serve synthetic scenes through scripts/infer_torch.py, the SSG model then
    the MSG model, at full width (xyz + color + normal, 8192-point columns,
    batch 32, float32) with weights drawn from a seeded generator: the
@@ -99,13 +100,23 @@
     launching the kernels of its path and FPS's cluster variant once a
     forward (SA1); one train step card vs CPU at 2 x 32768 under phase 11's
     bounds; the steady 8 x 32768 train step, timed.
-19. Print one JSON line of kernel results (time, plain time, the card's bound
+19. bench_torch.py's cells (bench_torch.run("cuda")), its JSON line printed:
+    the SSG and MSG train steps, serving batches and whole-scene updates,
+    and P3's step; every number finite and positive, and the default route's
+    kernels launched (FPS, both ball queries, the gather, 3-NN, the
+    scatter-add) and no other.
+20. A short SSG run of scripts/train_torch.py (phase 10's) under --trace:
+    one trace file, whose kernel events name FPS and the other hand-written
+    kernels of the step.
+21. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one), the card line, and last {"ok": true, "device": {...}}.
 
-Each run of phases 9, 10, 12, 13, 14, 15, 16 and 18 starts with every launch
-counter at 0 and must launch every kernel of its path and no other. Any
+The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
+17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
+13, 14, 15, 16, 18, 19 and 20 starts with every launch counter at 0 and must
+launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
 """
@@ -116,10 +127,11 @@ import contextlib
 import importlib.util
 import json
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
+
+import bench_torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 BATCH = 32
@@ -173,14 +185,6 @@ WS_CHECK_COLUMNS, WS_CHECK_BATCH = 3, 2
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, torch) -> float:
     """Mean milliseconds per call from CUDA events, after a warm-up, over
     enough calls to fill about 0.2 s."""
@@ -198,23 +202,6 @@ def cuda_ms(fn, torch) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def event_times(torch, fn, warm: int = 3, n: int = 10) -> list:
-    """Sorted milliseconds of n calls of fn, each between its own pair of
-    CUDA events, after warm calls (allocator, cuBLAS heuristics)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in events)
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -550,7 +537,7 @@ def time_pregather(torch) -> None:
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
     batch = train_batch(torch, BATCH, "cuda")
-    state = fresh_state(torch, 0.5, "cuda", "msg")
+    state = bench_torch.fresh_state("msg", "cuda", 0.5)
     model = state.model
     levels = [m for m in model.modules() if isinstance(m, SetAbstraction)]
 
@@ -683,21 +670,36 @@ def check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats) -> None:
 
 def check_fused(torch, tallies) -> None:
     """Phase 8, k: the fused gather-matmul against its plain version at
-    bench_fused_sa.py's shape, bit for bit, timed beside the plain version
-    and the unfused composition it replaces (d, then torch.matmul). No
-    single PyTorch call gathers and multiplies: no library call."""
+    bench_fused_sa.py's shape, bit for bit, timed beside the plain version,
+    the unfused composition it replaces (d, then torch.matmul) and its
+    general route (w in shared memory, the earlier design); then its device
+    time from torch.profiler. No single PyTorch call gathers and multiplies: no
+    library call."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
     from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
     from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+    from pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     c, f, j = FUSED_C, FUSED_F, BENCH_J
     src = torch.randn((BATCH, BENCH_N, c), generator=gen, device="cuda")
     idx = torch.randint(0, BENCH_N, (BATCH, j), generator=gen, device="cuda", dtype=torch.int32)
     w = torch.randn((c, f), generator=gen, device="cuda") * 0.1
-    check(torch, tallies[fk.NAME], "bench", f"fused_gather_mm bench ({BATCH},{BENCH_N},{c})x{j}x({c},{f})",
+    p = fk.plan(BATCH, BENCH_N, j, c, f, build.sm_count(src))
+    general = fk.candidate_plans(BATCH, BENCH_N, j, c, f, build.sm_count(src))[-1]
+    out = torch.empty((BATCH, j, f), device="cuda")
+    if not torch.equal(fk.launch(src, idx, w, out, general), fk.fused_gather_mm_plain(src, idx, w)):
+        raise RuntimeError("fused_gather_mm's general route differs from the plain version")
+    check(torch, tallies[fk.NAME], "bench",
+          f"fused_gather_mm bench ({BATCH},{BENCH_N},{c})x{j}x({c},{f}) plan {tuple(p)}",
           lambda: fk.fused_gather_mm_cuda(src, idx, w), lambda: fk.fused_gather_mm_plain(src, idx, w),
           4 * (distinct_rows(idx) * c + BATCH * j + c * f + BATCH * j * f), 2 * BATCH * j * c * f,
-          counterpart_ms=lambda: ga.gather_cuda(src, idx) @ w)
+          counterpart_ms=lambda: ga.gather_cuda(src, idx) @ w,
+          general_route_ms=lambda: fk.launch(src, idx, w, out, general))
+    runs = {f"plan {tuple(p)}": lambda: fk.fused_gather_mm_cuda(src, idx, w),
+            f"general route {tuple(general)}": lambda: fk.launch(src, idx, w, out, general)}
+    print("kernel fused_gather_mm bench device ms (torch.profiler): " + ", ".join(
+        f"{label} {sum(device_ms(torch, fn).values()):.4f}" for label, fn in runs.items()), flush=True)
 
 
 def check_p3_fps(torch, tally) -> None:
@@ -874,23 +876,28 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
 
 
 def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
-              wholescene: bool = False, batch_size: int = BATCH) -> dict:
-    """Phases 10, 12, 13 and 16: training through scripts/train_torch.py,
+              wholescene: bool = False, batch_size: int = BATCH, trace: bool = False) -> dict:
+    """Phases 10, 12, 13, 16 and 20: training through scripts/train_torch.py,
     through the kernels; chunked (3 steps of 32 chunks) or whole-scene
-    (WS_EPOCHS epochs of one update per scene)."""
+    (WS_EPOCHS epochs of one update per scene); with trace, under --trace
+    (check_trace)."""
     import math
 
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config, {npoints}-point columns{', whole scenes' * wholescene})"
+    name = (f"{kind.upper()} ({config} config, {npoints}-point columns{', whole scenes' * wholescene}"
+            f"{', --trace' * trace})")
     scenes, batch, epochs = (WS_SCENES, WS_BATCH, WS_EPOCHS) if wholescene else (batch_size, batch_size, 3)
+    mode = f"{'ws' if wholescene else 'chunks'}{'_trace' * trace}"
+    trace_dir = tmp / f"trace_{kind}_{config}_{npoints}_{mode}"
     train_torch = load_script("train_torch")
     args = train_torch.parse_args([
         "--synthetic", "--synthetic_scenes", str(scenes), "--batch_size", str(batch),
         "--epoch", str(epochs), "--npoints", str(npoints), "--use_color", "--use_normal",
         "--verbose", "1", "--device", "cuda", "--tag", "chip_smoke",
-        "--output_root", str(tmp / f"train_{kind}_{config}_{npoints}_{'ws' if wholescene else 'chunks'}"),
+        "--output_root", str(tmp / f"train_{kind}_{config}_{npoints}_{mode}"),
         *(["--use_msg"] if kind == "msg" else []), *(["--use_wholescene"] if wholescene else []),
+        *(["--trace", str(trace_dir)] if trace else []),
     ])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -920,23 +927,39 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
             else f"{epochs} steps of {batch} x {npoints} and {epochs} validations")
     print(f"train {name}: {work} in {took:.2f} s; losses {losses}; best val voxel mIoU "
           f"{best['voxel_miou']:.4f}; peak device memory {peak:.2f} GiB", flush=True)
+    if trace:
+        check_trace(trace_dir)
     return {"launches": launches, "peak_gib": peak}
 
 
-def wholescene_dataset(n_scenes: int):
-    """The training scenes of a --synthetic --use_wholescene run of n scenes,
-    tiled at full width."""
-    from pointnet2_scannet_tpu_torch.config import DataConfig
-    from pointnet2_scannet_tpu_torch.data import WholeSceneDataset, make_synthetic_store
+# the hand-written kernels (csrc/, each in an anonymous namespace) of an SSG
+# train step at 8192 points: FPS, the ball query's resident route, the row
+# gather, 3-NN and the scatter-add's block route
+TRACE_KERNELS = {"fps_kernel", "ball_query_resident_kernel", "gather_kernel", "three_nn_kernel", "block_kernel"}
 
-    cfg = DataConfig(npoints=NPOINTS, use_color=True, use_normal=True)
-    return WholeSceneDataset(make_synthetic_store(n_scenes, seed=0), cfg, seed=0)
+
+def check_trace(trace_dir: pathlib.Path) -> None:
+    """Phase 20: --trace wrote one Chrome trace file, whose kernel events
+    name FPS and the other hand-written kernels of the SSG step."""
+    import collections
+    import re
+
+    files = sorted(trace_dir.iterdir()) if trace_dir.is_dir() else []
+    if len(files) != 1 or not files[0].name.endswith(".json"):
+        raise RuntimeError(f"--trace wrote {[f.name for f in files]}, not one trace file")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    ours = collections.Counter(m.group(1) for n in kernels if (m := re.match(r"void \(anonymous namespace\)::(\w+)", n)))
+    print(f"trace {files[0].name}: {files[0].stat().st_size / 2**20:.1f} MiB, {len(events)} events, "
+          f"{len(kernels)} kernel events; hand-written kernels {dict(ours)}", flush=True)
+    if not TRACE_KERNELS <= set(ours):
+        raise RuntimeError(f"the trace names no kernel {sorted(TRACE_KERNELS - set(ours))}")
 
 
 def print_columns() -> None:
     """Phase 16's column counts: per training scene, its columns, its
     micro-batches of WS_BATCH and the padded rows of its last one."""
-    ds = wholescene_dataset(WS_SCENES)
+    ds = bench_torch.wholescene_dataset(WS_SCENES, NPOINTS)
     cols = [ds.get_scene(i)[0].shape[0] for i in range(len(ds))]
     print(f"whole scenes: columns per training scene {cols}; micro-batches of {WS_BATCH}: "
           f"{[-(-c // WS_BATCH) for c in cols]}, padded rows {[-c % WS_BATCH for c in cols]}", flush=True)
@@ -957,18 +980,6 @@ def train_batch(torch, n: int, device, npoints: int = NPOINTS):
     return to_device(next(iter(BatchLoader(ds, n, drop_last=True))), device)
 
 
-def fresh_state(torch, dropout: float, device, kind: str, seed: int = 0):
-    """A train state over a seeded SSG or MSG model at full width."""
-    import dataclasses
-
-    from pointnet2_scannet_tpu_torch.engine import train_state as ts
-    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
-
-    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=dropout)
-    model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(seed), device=device)
-    return ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=seed)
-
-
 def grad_errors(got: dict, want: dict) -> list:
     """Per-tensor relative L2 error of gradients, sorted, worst first."""
     return sorted(((float((got[k].double() - w).norm() / w.norm()), k) for k, w in want.items()),
@@ -983,7 +994,7 @@ def train_step_card_vs_cpu(torch, kind: str, config: str = "default", npoints: i
 
     out = {}
     for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
-        state = fresh_state(torch, 0.0, device, kind)
+        state = bench_torch.fresh_state(kind, device, 0.0)
         state.model.to(dtype)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
                  for k, v in train_batch(torch, 2, device, npoints).items()}
@@ -1059,14 +1070,15 @@ def wholescene_card_vs_cpu(torch, kind: str) -> None:
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.engine.solver import _SceneBatchIterator
 
-    feats, labels, weights = (a[:WS_CHECK_COLUMNS] for a in wholescene_dataset(1).get_scene(0))
+    scene = bench_torch.wholescene_dataset(1, NPOINTS).get_scene(0)
+    feats, labels, weights = (a[:WS_CHECK_COLUMNS] for a in scene)
     micro = list(_SceneBatchIterator(None, WS_CHECK_BATCH).micro_batches(feats, labels, weights))
     masks = [mb["row_mask"].tolist() for mb in micro]
     padded = to_device(micro[-1], "cuda")
     padded_kernels(torch, padded["points"][..., :3].contiguous(), kind)
     out = {}
     for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
-        state = fresh_state(torch, 0.0, device, kind)
+        state = bench_torch.fresh_state(kind, device, 0.0)
         state.model.to(dtype)
         loss_sum = count = 0.0
         for mb in micro:
@@ -1105,38 +1117,17 @@ def wholescene_card_vs_cpu(torch, kind: str) -> None:
         torch.testing.assert_close(gpu_b[k], b, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
 
 
-def wholescene_time(torch, kind: str) -> dict:
+def wholescene_time(kind: str) -> dict:
     """Phase 17: the steady whole-scene update of one synthetic scene at
-    micro-batch BATCH (grad_accum_step per micro-batch, apply_accumulated),
-    its micro-batches on the card beforehand, timed with CUDA events."""
-    from pointnet2_scannet_tpu_torch.data.pipeline import to_device
-    from pointnet2_scannet_tpu_torch.engine import train_state as ts
-    from pointnet2_scannet_tpu_torch.engine.solver import _SceneBatchIterator
-
-    ds = wholescene_dataset(1)
-    t0 = time.perf_counter()
-    scene = ds.get_scene(0)
-    tile_s = time.perf_counter() - t0
-    micro = [to_device(mb, "cuda") for mb in _SceneBatchIterator(ds, BATCH).micro_batches(*scene)]
-    real = scene[0].shape[0]
-    padded = len(micro) * BATCH - real
-    state = fresh_state(torch, 0.5, "cuda", kind)
-
-    def update():
-        count = 0.0
-        for mb in micro:
-            count = count + ts.grad_accum_step(state, mb, num_classes=20)["count"]
-        ts.apply_accumulated(state, count)
-
-    times = event_times(torch, update)
-    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
-        raise RuntimeError("the steady whole-scene updates left non-finite parameters")
+    micro-batch BATCH, timed by bench_torch.wholescene_time (its cell)."""
+    ws = bench_torch.wholescene_time(kind, "cuda", BATCH, NPOINTS)
+    times = ws["times"]
     ms = times[len(times) // 2]
-    pps = real * NPOINTS / (ms / 1e3)
-    print(f"whole-scene update {kind.upper()} steady state: one scene of {real} real and {padded} "
-          f"padded rows ({len(micro)} micro-batch(es) of {BATCH} x {NPOINTS}) in {ms:.2f} ms median of "
-          f"{len(times)} (min {times[0]:.2f}, max {times[-1]:.2f}): {pps:.0f} real points/s; host "
-          f"tiling of the scene {tile_s * 1e3:.1f} ms", flush=True)
+    pps = ws["real"] * NPOINTS / (ms / 1e3)
+    print(f"whole-scene update {kind.upper()} steady state: one scene of {ws['real']} real and "
+          f"{ws['padded']} padded rows ({ws['micro_batches']} micro-batch(es) of {BATCH} x {NPOINTS}) in "
+          f"{ms:.2f} ms median of {len(times)} (min {times[0]:.2f}, max {times[-1]:.2f}): {pps:.0f} real "
+          f"points/s; host tiling of the scene {ws['tile_ms']:.1f} ms", flush=True)
     return {"ms": ms, "points_per_s": pps}
 
 
@@ -1153,7 +1144,7 @@ def train_step_repeat_and_time(torch, kind: str, config: str = "default", batch_
     states = []
     kernels.reset_launch_counts()
     for _ in range(2):
-        state = fresh_state(torch, 0.5, "cuda", kind)
+        state = bench_torch.fresh_state(kind, "cuda", 0.5)
         ts.train_step(state, batch, num_classes=20)
         states.append(state.model.state_dict())
     check_launches(kernels.launch_counts(), kind, True, f"{name} determinism", config, npoints)
@@ -1166,7 +1157,8 @@ def train_step_repeat_and_time(torch, kind: str, config: str = "default", batch_
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    times = event_times(torch, lambda: losses.append(ts.train_step(state, batch, num_classes=20)["loss"]))
+    times = bench_torch.timed_windows(
+        lambda: losses.append(ts.train_step(state, batch, num_classes=20)["loss"]), "cuda", 1, 10, 3)
     if not bool(torch.isfinite(losses[-1])):
         raise RuntimeError("the steady-state train step's loss is not finite")
     ms = times[len(times) // 2]
@@ -1185,7 +1177,7 @@ def time_configs(torch) -> None:
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
     batch = train_batch(torch, BATCH, "cuda")
-    state = fresh_state(torch, 0.5, "cuda", "ssg")
+    state = bench_torch.fresh_state("ssg", "cuda", 0.5)
     model = state.model
 
     def forward():
@@ -1251,6 +1243,36 @@ def bench_fused(torch) -> dict:
     return launches
 
 
+BENCH_KERNELS = {"furthest_point_sample", "ball_query", "ball_query_multi", "gather", "three_nn", "scatter_add"}
+
+
+def bench(torch) -> dict:
+    """Phase 19: bench_torch.run("cuda"), whose JSON line is printed here;
+    every cell must give finite positive numbers, and the run must launch
+    the default route's kernels (BENCH_KERNELS) and no other. Returns its
+    launch counts."""
+    import math
+
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    row = bench_torch.run("cuda")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(json.dumps(row), flush=True)
+    print(f"bench_torch: launches {launches}", flush=True)
+    missing = sorted(k for k in BENCH_KERNELS if launches[k] == 0)
+    stray = sorted(k for k, n in launches.items() if k not in BENCH_KERNELS and n)
+    if missing or stray:
+        raise RuntimeError(f"bench_torch launched no {missing} kernel, or launched {stray}")
+    numbers = {k: v for k, v in row.items() if isinstance(v, float)}
+    bad = sorted(k for k, v in numbers.items() if not (math.isfinite(v) and v > 0))
+    if bad or row["metric"] != bench_torch.METRIC or len(numbers) < 16:
+        raise RuntimeError(f"bench_torch's row has no finite positive {bad}: {row}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1263,7 +1285,7 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import build
 
     kind = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = bench_torch.card_line()
     print(f"device: {kind} (count {torch.cuda.device_count()}); nvidia-smi: {card}", flush=True)
 
     t0 = time.perf_counter()
@@ -1334,12 +1356,15 @@ def main() -> int:
     tally({"launches": bench_fused(torch)})
     for model_kind in KINDS:  # phase 17
         wholescene_card_vs_cpu(torch, model_kind)
-        wholescene_time(torch, model_kind)
+        wholescene_time(model_kind)
     train_step_card_vs_cpu(torch, "ssg", npoints=P3_NPOINTS)  # phase 18
     train_step_repeat_and_time(torch, "ssg", batch_size=P3_BATCH, npoints=P3_NPOINTS)
+    tally({"launches": bench(torch)})  # phase 19
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 20
+        tally(train_cli(torch, pathlib.Path(tmp), "ssg", trace=True))
 
     print(json.dumps({"kernels": [t.row(launches[name]) for name, t in tallies.items()]}))
-    print(card_line())
+    print(bench_torch.card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -13,11 +13,15 @@ WholeSceneSolver trains on whole scenes instead: one optimizer update per
 scene, with the gradients accumulated over fixed-size micro-batches of the
 scene's columns, the last one padded and masked.
 
-The JAX package's meshes (dp, dp x tp), multi-process runs, resident scene
-store and profiler capture are not ported (ROADMAP queue 1, items 12 and 13).
-The train step runs once per batch: --fused_steps K is recorded in the
-config and gives the same math per step as K steps fused (CUDA graphs are
-item 12).
+With a trace_dir, one train epoch (the second when there is one: the first
+carries the allocator's and cuBLAS's warm-up) runs under torch.profiler,
+host activity and, on a GPU, the card's kernels, and is written into
+trace_dir as a Chrome / TensorBoard trace file (JAX: jax.profiler.trace).
+
+The JAX package's meshes (dp, dp x tp), multi-process runs and resident
+scene store are not ported (ROADMAP queue 1, items 12 and 13). The train
+step runs once per batch: --fused_steps K is recorded in the config and
+gives the same math per step as K steps fused (CUDA graphs are item 12).
 """
 
 from __future__ import annotations
@@ -56,6 +60,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _trace(trace_dir: str | pathlib.Path, device: torch.device):
+    """torch.profiler over host activity and, on a GPU, the card's; the
+    trace file goes into trace_dir when the context closes."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(trace_dir)))
+
+
 class Solver:
     """Trains a PointNet2SemSeg on chunked scenes on one device."""
 
@@ -68,8 +81,10 @@ class Solver:
         output_dir: str | pathlib.Path,
         *,
         device: torch.device | str,
+        trace_dir: str | pathlib.Path | None = None,
     ):
         self.config = config
+        self.trace_dir = trace_dir  # execution only: never written into the run config
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.train_dataset = train_dataset
@@ -143,7 +158,13 @@ class Solver:
         t_start = time.time()
         for epoch in range(start_epoch, epochs):
             self._start_epoch(epoch, epochs)
-            train_stats = self._run_train_epoch(epoch, epochs, verbose, t_start)
+            if self.trace_dir is not None and epoch == min(start_epoch + 1, epochs - 1):
+                print(f"capturing profiler trace -> {self.trace_dir}", flush=True)
+                with _trace(self.trace_dir, self.device):
+                    train_stats = self._run_train_epoch(epoch, epochs, verbose, t_start)
+                self.trace_dir = None
+            else:
+                train_stats = self._run_train_epoch(epoch, epochs, verbose, t_start)
             self.logger.add_scalars("train", train_stats, epoch)
 
             if self.val_loader is not None:

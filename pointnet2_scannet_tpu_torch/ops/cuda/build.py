@@ -52,7 +52,7 @@ _SIGNATURES = {
     "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
     "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
     "p2_scatter_smem_accumulate": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],
-    "p2_fused_gather_mm": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_fused_gather_mm": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
 }
 
 # batch rows a launch takes: the kernels that run one grid row (or slice) a

@@ -2,10 +2,11 @@
 f, csrc/scatter_smem.cu), of the tiled gather (e, csrc/gather_smem.cu), of
 the row gather (d, csrc/gather.cu), of FPS (a, csrc/fps.cu), of 3-NN (i,
 csrc/three_nn.cu; j, the query-major route, runs it too) and of the ball
-queries (b, csrc/ball_query.cu; c, csrc/ball_query_multi.cu), on one GPU,
-at the shapes chip_smoke.py checks them at.
+queries (b, csrc/ball_query.cu; c, csrc/ball_query_multi.cu) and of the
+fused gather-matmul (k, csrc/fused_gather_mm.cu), on one GPU, at the shapes
+chip_smoke.py checks them at.
 
-    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [host] [--routes]
+    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [k] [host] [--routes]
 
 h at the seven backwards of the SSG train step and the ten of the MSG train
 step (the grouping and interpolation gathers' gradients of 32 synthetic
@@ -42,8 +43,13 @@ for both the wrapper and device ms, the plan where the module has one
 (radii 0.05/0.1 to 0.4/0.8, 16 and 32 samples) beside two launches of b,
 with each radius's scan share; j (the query-major 3-NN) at FP0 of
 7936-point columns, at n = m = 8192 and at one row of 256 queries against
-8192 known points, beside i with i's insertion statistics. host: the host
-µs of each piece of d's, a's, i's, b's, c's, j's and h's wrappers at SA4's
+8192 known points, beside i with i's insertion statistics. k (the fused
+gather-matmul, csrc/fused_gather_mm.cu) at scripts/bench_fused_sa.py's
+shape (B 32, N 8192, J 32768, C 9, F 32): device, wrapper and host time,
+bytes a second against the bound, beside the unfused composition (d, then
+torch.matmul) and d alone, with --routes every launch its plan() could
+take, ptxas' registers and the innermost loops of its SASS (cuobjdump).
+host: the host µs of each piece of d's, a's, i's, b's, c's, j's and h's wrappers at SA4's
 and FP3's shapes. With no kernel named, h and f.
 Needs a CUDA device.
 """
@@ -526,6 +532,106 @@ def profile_j(torch) -> None:
               f"i device {times[2]:.4f} ms, wrapper {times[3]:.4f} ms", flush=True)
 
 
+K_SHAPE = (32, 8192, 32768, 9, 32)  # B, N, J, C, F: scripts/bench_fused_sa.py's
+
+
+def sass_loops(what: str, *names: str, loops: int = 8) -> None:
+    """Instruction counts of the kernels whose mangled name holds every one of
+    `names`, from `cuobjdump -sass` of the built library: the whole kernel,
+    then each loop (a span that a backward branch closes) in address order,
+    with its most frequent opcodes."""
+    import collections
+    import pathlib
+    import re
+    import subprocess
+
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+
+    tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    run = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True, text=True,
+                         timeout=120)
+    if run.returncode:
+        print(f"{what} sass: cuobjdump failed ({run.stderr.strip()[-300:]})", flush=True)
+        return
+    text = run.stdout
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        name = fn.split(None, 1)[0]
+        if not all(n in name for n in names):
+            continue
+        insts, labels = [], {}
+        for line in fn.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                labels[label.group(1)] = len(insts)
+            m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+            if m:
+                insts.append((int(m.group(1), 16), m.group(2)))
+        at = {addr: k for k, (addr, _) in enumerate(insts)}
+        spans = []
+        for k, (_, text_) in enumerate(insts):
+            op = re.sub(r"^@!?U?P\w+\s+", "", text_).split()
+            if not op or not op[0].startswith("BRA"):
+                continue
+            hexa, label = re.search(r"0x([0-9a-f]+)", text_), re.search(r"(\.L_x_\d+)", text_)
+            target = at.get(int(hexa.group(1), 16)) if hexa else labels.get(label.group(1)) if label else None
+            if target is not None and target <= k:
+                spans.append((target, k))
+
+        def hist(part):
+            ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0] for _, t in part)
+            return ", ".join(f"{op} {n}" for op, n in ops.most_common(8))
+
+        print(f"{what} sass {name[:60]}: {len(insts)} instructions ({hist(insts)})", flush=True)
+        for lo, hi in sorted(set(spans))[:loops]:
+            print(f"{what} sass loop [{lo}, {hi}]: {hi - lo + 1} instructions ({hist(insts[lo:hi + 1])})",
+                  flush=True)
+
+
+def profile_k(torch, routes: bool) -> None:
+    """k at bench_fused_sa's shape: device, wrapper and host time, the bytes a
+    second against the bound, the unfused counterpart (d, then torch.matmul)
+    and d alone; with --routes every launch k's plan() could take; ptxas'
+    registers and the SASS loops."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+
+    b, n, j, c, f = K_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    src = torch.randn((b, n, c), generator=gen, device="cuda")
+    idx = torch.randint(0, n, (b, j), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.randn((c, f), generator=gen, device="cuda") * 0.1
+    s = idx.sort(dim=1).values
+    rows = b + int((s[:, 1:] != s[:, :-1]).sum())
+    nbytes = 4 * (rows * c + b * j + c * f + b * j * f)
+    bound = nbytes / 3.35e12 * 1e3
+    want = fk.fused_gather_mm_plain(src, idx, w)
+    fns = {
+        "k": lambda: fk.fused_gather_mm_cuda(src, idx, w),
+        "d + torch.matmul": lambda: ga.gather_cuda(src, idx) @ w,
+        "d alone": lambda: ga.gather_cuda(src, idx),
+    }
+    for label, fn in fns.items():
+        dev = sum(device_ms(torch, fn).values())
+        wrap = wrapper_ms(torch, fn)
+        host = host_us(torch, fn, reps=200)
+        more = ""
+        if label == "k":
+            more = (f", {nbytes / dev / 1e6:.0f} GB/s on the device ({bound / dev:.3f} of the bound "
+                    f"{bound:.4f} ms), equal to plain {torch.equal(fn(), want)}")
+            if hasattr(fk, "plan"):
+                more += f", plan {tuple(fk.plan(b, n, j, c, f, build.sm_count(src)))}"
+        print(f"k {label} (B={b}, N={n}, J={j}, C={c}, F={f}): device {dev:.4f} ms, wrapper {wrap:.4f} ms, "
+              f"host {host:.2f} us a call{more}", flush=True)
+    if routes and hasattr(fk, "candidate_plans"):
+        out = torch.empty((b, j, f), device="cuda")
+        for p in fk.candidate_plans(b, n, j, c, f, build.sm_count(src)):
+            t = sum(device_ms(torch, lambda p=p: fk.launch(src, idx, w, out, p)).values())
+            print(f"k route {tuple(p)}: device {t:.4f} ms, equal to plain {torch.equal(out, want)}", flush=True)
+    ptxas("k", "fused_gather_mm")
+    sass_loops("k", "fused_gather_mm")
+
+
 def host_us(torch, fn, reps: int = 2000) -> float:
     """Host µs a call of fn over reps calls, the card synchronised before
     and after (the small launches queue faster than the card runs them)."""
@@ -610,7 +716,7 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
-    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "i", "b", "c", "j", "host")] or ["h", "f"]
+    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "i", "b", "c", "j", "k", "host")] or ["h", "f"]
     routes = "--routes" in sys.argv[1:]
     print(f"device: {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -642,6 +748,8 @@ def main() -> int:
         profile_c(torch, routes)
     if "j" in kernels:
         profile_j(torch)
+    if "k" in kernels:
+        profile_k(torch, routes)
     if "f" in kernels:
         for label, (idx, n, c) in f_shapes(torch).items():
             idx = idx.contiguous()

@@ -18,9 +18,14 @@ best.txt.
       --batch_size 4 --epoch 2 --device cpu
   python scripts/train_torch.py --resume outputs/<run> --epoch 4
 
-The JAX package's execution flags that have no counterpart here yet raise
-NotImplementedError naming their ROADMAP item; --fused_steps is recorded and
-the port runs one step per batch, the same math per step.
+--trace DIR writes a torch.profiler trace (Chrome / TensorBoard format: host
+activity and, on a GPU, the card's kernels) of one train epoch into DIR, the
+second when there is one. The JAX package's execution flags that have no
+counterpart here yet raise NotImplementedError naming their ROADMAP item;
+--fused_steps is recorded and the port runs one step per batch, the same
+math per step.
+
+  python scripts/train_torch.py --synthetic --use_color --use_normal --epoch 2 --trace /tmp/trace
 """
 
 from __future__ import annotations
@@ -198,7 +203,7 @@ def train(args) -> tuple[pathlib.Path, dict]:
         bn=cfg.model.bn,
         generator=torch.Generator().manual_seed(seed),
     )
-    solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device)
+    solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device, trace_dir=args.trace)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
     print(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}",
           flush=True)
@@ -246,6 +251,10 @@ def parse_args(argv=None):
     p.add_argument("--num_devices", type=int, default=None,
                    help="1 only; more devices are ROADMAP item 12")
     p.add_argument("--tp", type=int, default=None, help="1 only (ROADMAP item 12)")
+    p.add_argument("--trace", type=str, default=None, metavar="DIR",
+                   help="capture a torch.profiler trace (Chrome/TensorBoard format) of one train "
+                   "epoch into DIR: the second epoch when there is one, so that the first's "
+                   "warm-up stays out of the steady-state timeline")
     p.add_argument("--shuffle", action="store_true",
                    help="shuffle scene order across train batches each epoch")
     p.add_argument("--device_store", action="store_true", help="not ported yet (ROADMAP item 13)")

@@ -1,0 +1,100 @@
+"""The port's benchmark (bench_torch.py) and train_torch.py --trace, on the CPU.
+
+- bench_torch.fwd_matmul_flops, the port's copy of bench.py's, gives
+  bench.py's number exactly on the JAX package's SSG and MSG specs (and on
+  the port's, which are the same architecture), at B 32 x 8192 and small.
+- bench_torch.run("cpu") (the plain versions at B 2 x 1024) returns every
+  field of its JSON row, rates positive, with the map of bench.py's fields
+  that are not ported yet; run in a process where importing jax or the JAX
+  package fails.
+- train_torch.py --trace DIR over 2 tiny epochs writes one trace file, of the
+  second epoch, prints the capture line once and trains exactly as the same
+  run without --trace.
+"""
+
+import contextlib
+import importlib.util
+import io
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+import bench
+import bench_torch
+from pointnet2_scannet_tpu import models as jax_models
+from pointnet2_scannet_tpu_torch import models as port_models
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FIELDS = (
+    "metric", "value", "unit", "step_ms", "step_ms_min", "step_ms_max", "msg_points_per_sec", "msg_step_ms",
+    "msg_step_ms_min", "msg_step_ms_max", "train_repeats", "fused_steps", "model_tflops_fwd", "mfu_f32",
+    "serve_columns_per_sec_ssg", "serve_columns_per_sec_msg", "wholescene_ms_ssg", "wholescene_ms_msg",
+    "p3_step_ms", "p3_step_ms_min", "p3_step_ms_max", "device", "power_limit", "unported",
+)
+
+
+@pytest.mark.parametrize("b,n", [(32, 8192), (2, 1024)])
+@pytest.mark.parametrize("kind", ["ssg", "msg"])
+def test_fwd_matmul_flops_equals_bench_py(kind, b, n):
+    jax_spec = getattr(jax_models, f"{kind}_spec")(20, 6)
+    port_spec = getattr(port_models, f"{kind}_spec")(20, 6)
+    want = bench.fwd_matmul_flops(jax_spec, b, n)
+    assert bench_torch.fwd_matmul_flops(jax_spec, b, n) == want
+    assert bench_torch.fwd_matmul_flops(port_spec, b, n) == want > 0
+
+
+def test_bench_torch_runs_on_the_cpu_without_jax():
+    code = (
+        "import json, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'pointnet2_scannet_tpu'): sys.modules[m] = None\n"
+        "import bench_torch\n"
+        "print(json.dumps(bench_torch.run('cpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(FIELDS) <= set(row), sorted(set(FIELDS) - set(row))
+    assert row["metric"] == "train_points_per_sec_ssg_b32_n8192" and row["unit"] == "points/sec"
+    assert (row["device"], row["power_limit"], row["mfu_f32"]) == ("cpu", None, None)
+    assert (row["batch"], row["npoints"], row["train_repeats"], row["fused_steps"]) == (2, 1024, 3, 1)
+    rates = [k for k in FIELDS if k not in ("metric", "unit", "device", "power_limit", "unported", "mfu_f32")]
+    assert all(row[k] > 0 for k in rates), {k: row[k] for k in rates}
+    assert row["step_ms_min"] <= row["step_ms"] <= row["step_ms_max"]
+    assert row["value"] == pytest.approx(2 * 1024 / row["step_ms"] * 1e3)
+    assert row["model_tflops_fwd"] == bench.fwd_matmul_flops(jax_models.ssg_spec(20, 6), 2, 1024) / 1e12
+    # bench.py's fields that are not ported: bf16 (item 10) and eval (item 7)
+    assert row["unported"]["mfu_bf16"] == row["unported"]["ssg_bf16_points_per_sec"] == 10
+    assert row["unported"]["eval_scenes_per_sec"] == 7
+    assert not set(row["unported"]) & set(row) and "vs_baseline" not in row
+
+
+def _train(argv):
+    spec = importlib.util.spec_from_file_location("train_torch", ROOT / "scripts" / "train_torch.py")
+    train_torch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_torch)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_torch.train(train_torch.parse_args(argv))
+    return out.getvalue()
+
+
+def test_train_torch_trace_writes_one_trace_of_the_second_epoch(tmp_path):
+    base = ["--device", "cpu", "--synthetic", "--synthetic_scenes", "4", "--npoints", "256", "--batch_size", "4",
+            "--verbose", "1", "--use_color", "--use_normal", "--epoch", "2"]
+    trace = tmp_path / "trace"
+    plain = _train([*base, "--output_root", str(tmp_path / "plain")])
+    traced = _train([*base, "--output_root", str(tmp_path / "traced"), "--trace", str(trace)])
+    assert traced.count("capturing profiler trace") == 1 and "capturing" not in plain
+    # the capture line falls between epoch 1's end and epoch 2's first step
+    assert re.search(r"epoch \[1/2\] done.*\ncapturing profiler trace -> .*\nepoch \[2/2\] iter", traced)
+    files = list(trace.iterdir())
+    assert len(files) == 1 and files[0].name.endswith(".pt.trace.json")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    losses = [re.findall(r"^epoch \[\d/2\] .*loss (\S+)", log, re.M) for log in (plain, traced)]
+    assert len(losses[0]) == 4 and losses[0] == losses[1]

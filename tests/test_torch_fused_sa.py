@@ -95,3 +95,27 @@ def test_bench_fused_sa_torch_passes_its_check_on_the_cpu():
     assert row["device"] == "cpu" and (row["B"], row["N"], row["J"]) == (2, 1024, 4096)
     assert row["fused rel err"] < 1e-5 and row["unfused rel err"] < 1e-5
     assert all(row[f"{k} ms"] > 0 for k in ("gather-only", "gather+matmul", "fused"))
+
+
+# (B, N, J, C, F, SMs, plan): the fixed route at bench_fused_sa's shape on an
+# H100 SXM (132 SMs) and PCIe (114), one wave of 3 blocks an SM; fewer blocks
+# than that where there are fewer 128-row tiles (J 200: two a batch row, the
+# second part-filled); past 65535 batch rows (one grid dimension's limit);
+# the general route at other C and F and where a batch row's source passes
+# 32-bit offsets
+K_PLANS = [
+    (32, 8192, 32768, 9, 32, 132, ("fixed", 396)), (32, 8192, 32768, 9, 32, 114, ("fixed", 342)),
+    (3, 300, 200, 9, 32, 132, ("fixed", 6)), (65537, 3, 5, 9, 32, 132, ("fixed", 396)),
+    (32, 8192, 32768, 32, 64, 132, ("general", 8448)), (3, 100, 77, 5, 7, 132, ("general", 2)),
+    (1, 2**28, 128, 9, 32, 132, ("general", 4)),
+]
+
+
+@pytest.mark.parametrize("b,n,j,c,f,sms,want", K_PLANS)
+def test_fused_gather_mm_plan(b, n, j, c, f, sms, want):
+    p = fk.plan(b, n, j, c, f, sms)
+    assert tuple(p) == want
+    routes = fk.candidate_plans(b, n, j, c, f, sms)
+    assert p in routes and routes[-1].route == "general"
+    assert {q.route for q in routes} == (set(fk.ROUTES) if p.route == "fixed" else {"general"})
+    assert all(q.blocks >= 1 for q in routes)

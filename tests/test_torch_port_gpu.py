@@ -891,20 +891,67 @@ def test_train_step_under_the_mxu_config_matches_the_cpu(dev, mxu_config):
 # --- the fused gather-matmul (k) and whole-scene training
 
 # (B, N, J, C, F): bench_fused_sa's C and F at small sizes, and ragged ones
-# (F % 4 != 0 takes the kernel's word-by-word stores; C * F up to 17030 words)
+# (F % 4 != 0 takes the kernel's word-by-word stores; C * F up to 17030
+# words); C 9 / F 32 takes the fixed route (J 200 and 1: a last tile that the
+# 128-row tile does not fill), every other shape the general one
 FUSED_SHAPES = [(2, 256, 256, 9, 32), (3, 100, 77, 5, 7), (2, 300, 129, 32, 64), (1, 64, 5, 131, 130),
-                (2, 128, 128, 1, 1), (4, 1024, 1000, 3, 6)]
+                (2, 128, 128, 1, 1), (4, 1024, 1000, 3, 6), (3, 300, 200, 9, 32), (2, 50, 1, 9, 32)]
 
 
-@pytest.mark.parametrize("b,n,j,c,f", FUSED_SHAPES)
-def test_fused_gather_mm_kernel_equals_plain(dev, b, n, j, c, f):
-    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
-
+def _fused_inputs(dev, b, n, j, c, f):
     gen = torch.Generator(device=dev).manual_seed(b * n + c)
     src = torch.randn((b, n, c), generator=gen, device=dev)
     src[0, 0, 0] = -0.0
     idx = torch.randint(0, n, (b, j), generator=gen, device=dev, dtype=torch.int32)
-    w = torch.randn((c, f), generator=gen, device=dev)
+    idx[0, 0] = 0  # the -0.0 word is gathered: 0 + (-0.0) * w must give +0.0 on both sides
+    return src, idx, torch.randn((c, f), generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("b,n,j,c,f", FUSED_SHAPES)
+def test_fused_gather_mm_kernel_equals_plain(dev, b, n, j, c, f):
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
+
+    src, idx, w = _fused_inputs(dev, b, n, j, c, f)
+    route = fk.plan(b, n, j, c, f, build.sm_count(src)).route
+    assert route == ("fixed" if (c, f) == fk.FIXED else "general")
+    before = fk.launches
+    _equal(fk.fused_gather_mm_cuda(src, idx, w), fk.fused_gather_mm_plain(src, idx, w))
+    assert fk.launches == before + 1
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_fused_gather_mm_kernel_routes_equal_plain(dev, aligned):
+    # every launch the kernel takes at a fixed-route shape whose J the tile
+    # does not divide (10 tiles, every second part-filled), plus persistent
+    # grids of fewer blocks than tiles (each block walks several, across
+    # batch rows) and of more, each into a 16-byte-aligned output and one 4
+    # bytes off it
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
+
+    b, n, j, c, f = 5, 300, 200, 9, 32
+    src, idx, w = _fused_inputs(dev, b, n, j, c, f)
+    want = fk.fused_gather_mm_plain(src, idx, w)
+    plans = fk.candidate_plans(b, n, j, c, f, build.sm_count(src))
+    assert {p.route for p in plans} == set(fk.ROUTES)
+    plans += [fk.Plan("fixed", k) for k in (1, 3, 4, 7, 23)] + [fk.Plan("general", 3)]
+    for p in plans:
+        buf = torch.full((b * j * f + 1,), float("nan"), device=dev)
+        out = (buf[:-1] if aligned else buf[1:]).view(b, j, f)
+        assert (out.data_ptr() % 16 == 0) == aligned
+        before = fk.launches
+        _equal(fk.launch(src, idx, w, out, p), want)
+        assert fk.launches == before + 1, p
+
+
+def test_fused_gather_mm_kernel_takes_more_batch_rows_than_a_grid_dimension(dev):
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import fused_gather_mm_kernel as fk
+
+    b, n, j, c, f = build.MAX_BATCH + 2, 3, 5, 9, 32
+    src, idx, w = _fused_inputs(dev, b, n, j, c, f)
+    assert fk.plan(b, n, j, c, f, build.sm_count(src)).route == "fixed"
     before = fk.launches
     _equal(fk.fused_gather_mm_cuda(src, idx, w), fk.fused_gather_mm_plain(src, idx, w))
     assert fk.launches == before + 1
