@@ -30,14 +30,21 @@ model's weights from torch.Generator().manual_seed(0). Other fields:
                                   as chip_smoke.py times it
   p3_step_ms[_min|_max]           the SSG step at 8 x 32768 (the 32768-point
                                   chunk recipe), as step_ms
+  eval_scenes_per_sec             scripts/bench_eval.py's measure: 4 synthetic
+  eval_sps_min, eval_sps_max      scenes of 100 000 points through
+  eval_repeats                    WholeSceneEvaluator.evaluate (SSG, 8192-point
+                                  columns, batch 16), wall clock with tiling
+                                  and metrics, median of 3 after one
+                                  evaluation of a one-scene dataset
   device, power_limit             nvidia-smi's name and power limit
   unported                        bench.py's fields not ported yet, each with
                                   its ROADMAP queue 1 item
 
 No vs_baseline (its divisor estimates another card) and no TPU figure.
 --device cpu runs every cell at B 2 x 1024 (P3: 1 x 2048; the scene cut to
-3 columns at micro-batch 2, the second padded), one step a window and one
-timed serving batch and update: its rates are the host's.
+3 columns at micro-batch 2, the second padded; eval: 1 scene of 8000 points
+at batch 2), one step a window and one timed serving batch, update and
+evaluation: its rates are the host's.
 """
 
 from __future__ import annotations
@@ -53,22 +60,22 @@ ROOT = pathlib.Path(__file__).resolve().parent
 METRIC = "train_points_per_sec_ssg_b32_n8192"
 TRAIN_REPEATS = 3
 # per device: batch x points of the train and serving cells, P3's, steps a
-# train window, warm-up calls, timed serving batches, and the whole-scene
-# cell's micro-batch, columns (None: the whole scene) and timed updates
+# train window, warm-up calls, timed serving batches, the whole-scene cell's
+# micro-batch, columns (None: the whole scene) and timed updates, and the
+# eval cell's scenes, points a scene, batch and timed evaluations
 SIZES = {
     "cuda": {"batch": 32, "npoints": 8192, "p3": (8, 32768), "steps": 20, "warm": 3, "serve_repeats": 9,
-             "ws_batch": 32, "ws_columns": None, "ws_repeats": 10},
+             "ws_batch": 32, "ws_columns": None, "ws_repeats": 10, "eval": (4, 100_000, 16, 3)},
     "cpu": {"batch": 2, "npoints": 1024, "p3": (1, 2048), "steps": 1, "warm": 1, "serve_repeats": 1,
-            "ws_batch": 2, "ws_columns": 3, "ws_repeats": 1},
+            "ws_batch": 2, "ws_columns": 3, "ws_repeats": 1, "eval": (1, 8_000, 2, 1)},
 }
 # float32 FLOP/s outside the tensor cores, by torch.cuda.get_device_name
 # (NVIDIA's data sheet: H100 SXM at 700 W)
 F32_PEAK = {"NVIDIA H100 80GB HBM3": 67e12}
 UNPORTED = {  # bench.py's fields -> ROADMAP queue 1 item
-    **{k: 10 for k in ("step_ms_bf16", "step_ms_bf16_min", "step_ms_bf16_max", "step_ms_bf16_per_dispatch",
-                       "ssg_bf16_points_per_sec", "msg_bf16_points_per_sec", "msg_bf16_step_ms_min",
-                       "msg_bf16_step_ms_max", "mfu_bf16")},
-    **{k: 7 for k in ("eval_scenes_per_sec", "eval_sps_min", "eval_sps_max", "eval_repeats")},
+    k: 10 for k in ("step_ms_bf16", "step_ms_bf16_min", "step_ms_bf16_max", "step_ms_bf16_per_dispatch",
+                    "ssg_bf16_points_per_sec", "msg_bf16_points_per_sec", "msg_bf16_step_ms_min",
+                    "msg_bf16_step_ms_max", "mfu_bf16")
 }
 
 
@@ -248,6 +255,37 @@ def wholescene_time(kind: str, device, micro_batch: int, npoints: int, columns: 
             "micro_batches": len(micro), "tile_ms": tile_ms}
 
 
+def eval_rates(device, n_scenes: int, n_points: int, npoints: int, batch: int, repeats: int) -> list[float]:
+    """Sorted scenes/s of `repeats` WholeSceneEvaluator.evaluate calls over
+    n_scenes synthetic scenes of n_points points (scripts/bench_eval.py's
+    measure): the SSG model at full width with seeded random weights, batch
+    columns a forward, wall clock with tiling and metrics, after one
+    evaluation of a one-scene dataset."""
+    import math
+
+    import torch
+
+    from pointnet2_scannet_tpu_torch.config import DataConfig
+    from pointnet2_scannet_tpu_torch.data import WholeSceneDataset, make_synthetic_store
+    from pointnet2_scannet_tpu_torch.engine.evaluator import WholeSceneEvaluator
+    from pointnet2_scannet_tpu_torch.models import get_model
+
+    cfg = DataConfig(npoints=npoints, use_color=True, use_normal=True)
+    model = get_model(20, is_msg=False, input_channels=6, generator=torch.Generator().manual_seed(0))
+    ev = WholeSceneEvaluator(model, device=device, batch_size=batch)
+    ev.evaluate(WholeSceneDataset(make_synthetic_store(1, n_points=n_points), cfg, seed=0), verbose=False)
+    ds = WholeSceneDataset(make_synthetic_store(n_scenes, n_points=n_points), cfg, seed=0)
+    rates = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        report = ev.evaluate(ds, verbose=False)
+        rates.append(n_scenes / (time.perf_counter() - t0))
+    if len(report.scenes) != n_scenes or not math.isfinite(report.voxel_miou):
+        raise RuntimeError(f"eval over {n_scenes} scenes: {len(report.scenes)} results, voxel mIoU "
+                           f"{report.voxel_miou}")
+    return sorted(rates)
+
+
 def card_line() -> str:
     """The first card's `name, power.limit` line from nvidia-smi."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -289,6 +327,10 @@ def run(device: str = "cuda") -> dict:
     for kind in ("ssg", "msg"):
         ws = wholescene_time(kind, device, size["ws_batch"], n, size["ws_columns"], size["ws_repeats"], warm)
         row[f"wholescene_ms_{kind}"] = ws["times"][len(ws["times"]) // 2]
+    n_scenes, n_points, eval_batch, eval_repeats = size["eval"]
+    rates = eval_rates(device, n_scenes, n_points, n, eval_batch, eval_repeats)
+    row.update({"eval_scenes_per_sec": rates[len(rates) // 2], "eval_sps_min": rates[0], "eval_sps_max": rates[-1],
+                "eval_repeats": eval_repeats})
     p3 = train_ms("ssg", device, *size["p3"], steps, warm)
     row.update({"p3_step_ms": p3[TRAIN_REPEATS // 2], "p3_step_ms_min": p3[0], "p3_step_ms_max": p3[-1],
                 "device": name, "power_limit": limit, "unported": UNPORTED})

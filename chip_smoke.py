@@ -102,20 +102,30 @@
     bounds; the steady 8 x 32768 train step, timed.
 19. bench_torch.py's cells (bench_torch.run("cuda")), its JSON line printed:
     the SSG and MSG train steps, serving batches and whole-scene updates,
-    and P3's step; every number finite and positive, and the default route's
-    kernels launched (FPS, both ball queries, the gather, 3-NN, the
-    scatter-add) and no other.
+    P3's step and the eval scenes/s; every number finite and positive, and
+    the default route's kernels launched (FPS, both ball queries, the
+    gather, 3-NN, the scatter-add) and no other.
 20. A short SSG run of scripts/train_torch.py (phase 10's) under --trace:
     one trace file, whose kernel events name FPS and the other hand-written
     kernels of the step.
-21. Print one JSON line of kernel results (time, plain time, the card's bound
+21. Whole-scene evaluation, SSG then MSG, at full width with weights drawn
+    from a seeded generator: scripts/eval_torch.py and
+    scripts/visualize_torch.py on 4 synthetic scenes at batch 32, each
+    launching every forward kernel of the model's path (the ring gathers
+    included) and no other; the report finite with every metric in [0, 1],
+    eval_report.txt and one PLY a scene written; the steady evaluation timed
+    (scenes/s, and per scene the tiling ms, the forward's device ms from
+    CUDA events and the metrics ms); each scene's labels equal bit for bit
+    to the argmax of Predictor's batches of 32 over the same column stacks,
+    and scene 0's equal to the CPU evaluator's at >= 0.999 of the points.
+22. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one), the card line, and last {"ok": true, "device": {...}}.
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19 and 20 starts with every launch counter at 0 and must
+13, 14, 15, 16, 18, 19, 20 and 21 starts with every launch counter at 0 and must
 launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -181,6 +191,10 @@ FUSED_C, FUSED_F = 9, 32  # bench_fused_sa's layer 0
 # card-vs-CPU scene (columns, micro-batch)
 WS_SCENES, WS_BATCH, WS_EPOCHS = 4, 16, 2
 WS_CHECK_COLUMNS, WS_CHECK_BATCH = 3, 2
+# phase 21: synthetic scenes of the eval and visualize runs; the share of
+# points at which the card's and the CPU's labels must agree (f32 matmuls sum
+# in another order on each: a near-tie may flip)
+EVAL_SCENES, EVAL_AGREE = 4, 0.999
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
@@ -786,20 +800,14 @@ def load_script(name: str):
     return mod
 
 
-def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
-          batch_size: int = BATCH) -> dict:
-    """Phases 9, 12 and 13: the serving path end to end, through the
-    kernels."""
-    import numpy as np
-
+def make_run(torch, run: pathlib.Path, kind: str, npoints: int = NPOINTS) -> pathlib.Path:
+    """A run dir of the SSG or MSG model at full width (xyz + colour +
+    normal, 20 classes) with weights drawn from a seeded generator: the
+    config.json and model_best.pt that train_torch.py writes."""
     from pointnet2_scannet_tpu_torch.config import DataConfig, ModelConfig, RunConfig
     from pointnet2_scannet_tpu_torch.engine.checkpoint import save_state_dict
-    from pointnet2_scannet_tpu_torch.engine.export import Predictor
     from pointnet2_scannet_tpu_torch.models import get_model
-    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config, {npoints}-point columns, batch {batch_size})"
-    run = tmp / f"run_{kind}_{config}_{npoints}"
     run.mkdir()
     RunConfig(
         tag="chip_smoke",
@@ -809,6 +817,20 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
     model = get_model(20, is_msg=kind == "msg", input_channels=6,
                       generator=torch.Generator().manual_seed(0))
     save_state_dict(run, "model_best", model.state_dict())
+    return run
+
+
+def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
+          batch_size: int = BATCH) -> dict:
+    """Phases 9, 12 and 13: the serving path end to end, through the
+    kernels."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.engine.export import Predictor
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    name = f"{kind.upper()} ({config} config, {npoints}-point columns, batch {batch_size})"
+    run = make_run(torch, tmp / f"run_{kind}_{config}_{npoints}", kind, npoints)
 
     infer_torch = load_script("infer_torch")
     out_dir = tmp / f"out_{kind}"
@@ -930,6 +952,95 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
     if trace:
         check_trace(trace_dir)
     return {"launches": launches, "peak_gib": peak}
+
+
+def eval_cli(torch, tmp: pathlib.Path, kind: str) -> dict:
+    """Phase 21: whole-scene evaluation through scripts/eval_torch.py and
+    scripts/visualize_torch.py, through the kernels; the evaluator's
+    predictions against the card's Predictor and the CPU evaluator."""
+    import math
+
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.engine.export import Predictor
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    name = f"{kind.upper()} ({EVAL_SCENES} synthetic scenes, {NPOINTS}-point columns, batch {BATCH})"
+    run = make_run(torch, tmp / f"run_{kind}_eval", kind)
+    eval_torch, visualize_torch = load_script("eval_torch"), load_script("visualize_torch")
+    argv = ["--folder", str(run), "--device", "cuda", "--synthetic", "--synthetic_scenes", str(EVAL_SCENES),
+            "--batch_size", str(BATCH)]
+    launches, outs = {}, {}
+    for what, entry, args in (("eval_torch.py", eval_torch.evaluate, eval_torch.parse_args(argv)),
+                              ("visualize_torch.py", visualize_torch.visualize, visualize_torch.parse_args(argv))):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[what] = entry(args)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        run_launches = kernels.launch_counts()
+        print(f"{what} {name}: {took:.3f} s (model load and first calls included); launches {run_launches}, "
+              f"FPS variants {kernels.fps_kernel.variant_launches}", flush=True)
+        check_launches(run_launches, kind, False, f"{name} {what}")
+        for k, n in run_launches.items():
+            launches[k] = launches.get(k, 0) + n
+    report = outs["eval_torch.py"]
+
+    values = [report.point_acc, report.point_acc_per_class, report.voxel_acc, report.voxel_acc_per_class,
+              report.voxel_cali_acc, report.point_miou, report.voxel_miou]
+    tables = np.concatenate([report.per_class_point_acc, report.per_class_voxel_acc,
+                             report.per_class_point_miou, report.per_class_voxel_miou])
+    if len(report.scenes) != EVAL_SCENES or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values) \
+            or not (np.isfinite(tables).all() and tables.min() >= 0.0 and tables.max() <= 1.0):
+        raise RuntimeError(f"eval {name}: {len(report.scenes)} scenes, metrics {values} not all in [0, 1]")
+    if (run / "eval_report.txt").read_text() != report.format_table():
+        raise RuntimeError("eval_torch.py wrote no eval_report.txt, or another report")
+    plys = sorted((run / "preds").glob("*.ply"))
+    if len(plys) != EVAL_SCENES:
+        raise RuntimeError(f"visualize_torch.py wrote {len(plys)} PLY files for {EVAL_SCENES} scenes")
+    for ply in plys:
+        lines = ply.read_text().splitlines()
+        n = int(lines[2].split()[-1])
+        if lines[2] != f"element vertex {n}" or len(lines) != lines.index("end_header") + 1 + n or n == 0:
+            raise RuntimeError(f"{ply.name}: not an ascii PLY of its vertex count")
+    print(f"eval {name}: point acc {report.point_acc:.4f}, voxel mIoU {report.voxel_miou:.4f}; "
+          f"{len(plys)} PLY files", flush=True)
+
+    # the steady evaluation, the CLI's evaluator and dataset
+    _, dataset, evaluator = eval_torch.load(eval_torch.parse_args(argv))
+    evaluator.evaluate(dataset, verbose=False)
+    t0 = time.perf_counter()
+    evaluator.evaluate(dataset, verbose=False)
+    took = time.perf_counter() - t0
+    forward_ms = sum(t["forward_ms"] for t in evaluator.last_timings)
+    print(f"eval {name} steady: {EVAL_SCENES} scenes in {took:.3f} s, {EVAL_SCENES / took:.3f} scenes/s; "
+          f"forwards {forward_ms:.2f} device ms ({forward_ms / (took * 1e3):.3f} of the wall time); "
+          f"ring of {evaluator.last_ring_slots} slots", flush=True)
+    for t in evaluator.last_timings:
+        print(f"  {t['scene_id']}: tiling {t['tile_ms']:.2f} ms, forward {t['forward_ms']:.2f} ms (device), "
+              f"metrics {t['metrics_ms']:.2f} ms", flush=True)
+
+    # each scene's predictions: the evaluator's ring gathers and packing
+    # against the Predictor's batches of the same column stacks (eval rows
+    # are independent and the shapes the same: equal bit for bit), and
+    # scene 0 against the CPU evaluator
+    preds = evaluator.map_scenes(dataset, lambda sid, c, l, w, p: p)
+    predictor = Predictor.from_run(run, batch_size=BATCH, device="cuda")
+    for i, got in enumerate(preds):
+        want = predictor.predict(dataset.get_scene(i)[0]).astype(np.int64)
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"eval {name}, scene {i}: the evaluator's labels differ from the Predictor's at "
+                               f"{int(np.sum(got != want))} of {got.size} points")
+    _, cpu_dataset, cpu_evaluator = eval_torch.load(eval_torch.parse_args(
+        [*argv[:2], "--device", "cpu", "--synthetic", "--synthetic_scenes", "1", "--batch_size", str(BATCH)]))
+    [cpu] = cpu_evaluator.map_scenes(cpu_dataset, lambda sid, c, l, w, p: p)
+    agree = float(np.mean(cpu == preds[0]))
+    print(f"eval {name}: labels equal to the card Predictor's at every point of {len(preds)} scenes; "
+          f"scene 0 card vs CPU evaluator: {agree:.6f} of {cpu.size} points agree", flush=True)
+    if agree < EVAL_AGREE:
+        raise RuntimeError(f"eval {name}: card and CPU evaluators agree at {agree} of the points")
+    return {"launches": launches}
 
 
 # the hand-written kernels (csrc/, each in an anonymous namespace) of an SSG
@@ -1362,6 +1473,9 @@ def main() -> int:
     tally({"launches": bench(torch)})  # phase 19
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 20
         tally(train_cli(torch, pathlib.Path(tmp), "ssg", trace=True))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 21
+        for model_kind in KINDS:
+            tally(eval_cli(torch, pathlib.Path(tmp), model_kind))
 
     print(json.dumps({"kernels": [t.row(launches[name]) for name, t in tallies.items()]}))
     print(bench_torch.card_line())

@@ -37,6 +37,27 @@ class WholeSceneDataset:
     def __len__(self) -> int:
         return len(self.store)
 
+    @property
+    def input_channels(self) -> int:
+        return self.cfg.input_channels
+
+    def max_points(self) -> int:
+        """Largest point count of a scene (the evaluator's ring slot rows)."""
+        return max(len(self.store.scenes[sid]) for sid in self.store.scene_ids)
+
+    def estimate_columns(self) -> list[int]:
+        """Per scene, an upper bound on its non-empty columns (nx * ny from
+        the xy bounds, no tiling pass): the evaluator sizes its ring by it."""
+        out = []
+        L = self.cfg.chunk_size_xy
+        for sid in self.store.scene_ids:
+            xyz = self.store.scenes[sid][:, :3]
+            lo, hi = xyz.min(axis=0), xyz.max(axis=0)
+            nx = max(int(np.ceil((hi[0] - lo[0]) / L)), 1)
+            ny = max(int(np.ceil((hi[1] - lo[1]) / L)), 1)
+            out.append(nx * ny)
+        return out
+
     def _tile_indices(self, index: int):
         """(feats_all (N, 3 + C) f32, sel (S, npoints) int64): the resample
         indices of every non-empty column."""
@@ -80,11 +101,20 @@ class WholeSceneDataset:
     def get_scene(self, index: int):
         """feats (S, npoints, 3 + C) f32, labels (S, npoints) int32,
         weights (S, npoints) f32 — S = number of non-empty columns."""
+        feats_all, col_idx, labels, weights = self.get_scene_indexed(index)
+        return feats_all[col_idx], labels, weights
+
+    def get_scene_indexed(self, index: int):
+        """The scene without per-column copies: feats_all (N, 3 + C) f32,
+        col_idx (S, npoints) int32, labels (S, npoints) int32, weights (S,
+        npoints) f32. The same draws as get_scene, so feats_all[col_idx]
+        equals get_scene(index)[0]."""
         sid = self.store.scene_ids[index]
         feats_all, sel = self._tile_indices(index)
         lab = self.store.scenes[sid][:, 10].astype(np.int32)[sel]
         return (
-            feats_all[sel].astype(np.float32),
+            feats_all.astype(np.float32, copy=False),
+            sel.astype(np.int32),
             lab,
             self.store.label_weights[lab].astype(np.float32),
         )
@@ -92,3 +122,7 @@ class WholeSceneDataset:
     def iter_scenes(self):
         for i in range(len(self)):
             yield self.store.scene_ids[i], self.get_scene(i)
+
+    def iter_scenes_indexed(self):
+        for i in range(len(self)):
+            yield self.store.scene_ids[i], self.get_scene_indexed(i)

@@ -104,6 +104,18 @@ def _miou_from(preds, targets, seen_classes, uvlabel, num_classes):
     return iou(preds, targets), iou(uvlabel[:, 1], uvlabel[:, 0]), mask
 
 
+def compute_acc(coords, preds, targets, weights, num_classes: int = NUM_CLASSES):
+    """(pointacc, pointacc_per_class, voxacc, voxacc_per_class, voxcaliacc,
+    seen_mask); per-class arrays are 0 for classes absent from targets."""
+    return _acc_from(*_dedup_and_voxelize(coords, preds, targets, weights, num_classes), num_classes)
+
+
+def compute_miou(coords, preds, targets, weights, num_classes: int = NUM_CLASSES):
+    """(pointmiou, voxmiou, seen_mask): point and voxel per-class IoU, 0 for
+    classes absent from targets."""
+    return _miou_from(*_dedup_and_voxelize(coords, preds, targets, weights, num_classes), num_classes)
+
+
 def compute_scene_metrics(coords, preds, targets, weights, num_classes: int = NUM_CLASSES):
     """From one dedup + voxelization: ((pointacc, pointacc_per_class, voxacc,
     voxacc_per_class, voxcaliacc, seen_mask), (pointmiou, voxmiou,

@@ -189,7 +189,7 @@ class Solver:
         (self.output_dir / "best.txt").write_text(
             "\n".join(f"{k}: {v}" for k, v in self.best.items())
         )
-        self.logger.export()
+        self.logger.close()
         return self.best
 
     def _run_train_epoch(self, epoch, epochs, verbose, t_start):

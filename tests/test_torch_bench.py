@@ -4,9 +4,9 @@
   bench.py's number exactly on the JAX package's SSG and MSG specs (and on
   the port's, which are the same architecture), at B 32 x 8192 and small.
 - bench_torch.run("cpu") (the plain versions at B 2 x 1024) returns every
-  field of its JSON row, rates positive, with the map of bench.py's fields
-  that are not ported yet; run in a process where importing jax or the JAX
-  package fails.
+  field of its JSON row, rates positive, the eval cell's too, with the map
+  of bench.py's fields that are not ported yet (bf16's alone); run in a
+  process where importing jax or the JAX package fails.
 - train_torch.py --trace DIR over 2 tiny epochs writes one trace file, of the
   second epoch, prints the capture line once and trains exactly as the same
   run without --trace.
@@ -33,7 +33,8 @@ FIELDS = (
     "metric", "value", "unit", "step_ms", "step_ms_min", "step_ms_max", "msg_points_per_sec", "msg_step_ms",
     "msg_step_ms_min", "msg_step_ms_max", "train_repeats", "fused_steps", "model_tflops_fwd", "mfu_f32",
     "serve_columns_per_sec_ssg", "serve_columns_per_sec_msg", "wholescene_ms_ssg", "wholescene_ms_msg",
-    "p3_step_ms", "p3_step_ms_min", "p3_step_ms_max", "device", "power_limit", "unported",
+    "p3_step_ms", "p3_step_ms_min", "p3_step_ms_max", "eval_scenes_per_sec", "eval_sps_min", "eval_sps_max",
+    "eval_repeats", "device", "power_limit", "unported",
 )
 
 
@@ -67,9 +68,10 @@ def test_bench_torch_runs_on_the_cpu_without_jax():
     assert row["step_ms_min"] <= row["step_ms"] <= row["step_ms_max"]
     assert row["value"] == pytest.approx(2 * 1024 / row["step_ms"] * 1e3)
     assert row["model_tflops_fwd"] == bench.fwd_matmul_flops(jax_models.ssg_spec(20, 6), 2, 1024) / 1e12
-    # bench.py's fields that are not ported: bf16 (item 10) and eval (item 7)
+    assert row["eval_sps_min"] <= row["eval_scenes_per_sec"] <= row["eval_sps_max"] and row["eval_repeats"] == 1
+    # bench.py's fields that are not ported: bf16's (item 10) alone
     assert row["unported"]["mfu_bf16"] == row["unported"]["ssg_bf16_points_per_sec"] == 10
-    assert row["unported"]["eval_scenes_per_sec"] == 7
+    assert set(row["unported"].values()) == {10} and len(row["unported"]) == 9
     assert not set(row["unported"]) & set(row) and "vs_baseline" not in row
 
 

@@ -127,7 +127,8 @@ def test_port_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import runpy\n"
-        "for s in ('scripts/infer_torch.py', 'scripts/train_torch.py', 'chip_smoke.py', 'bench_torch.py'):\n"
+        "for s in ('scripts/infer_torch.py', 'scripts/train_torch.py', 'scripts/eval_torch.py',\n"
+        "          'scripts/visualize_torch.py', 'chip_smoke.py', 'bench_torch.py'):\n"
         "    runpy.run_path(s, run_name='probe')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pointnet2_scannet_tpu')]\n"
         "assert not bad, bad\n"

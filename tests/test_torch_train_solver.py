@@ -4,7 +4,9 @@ cut, batch 4, so one optimizer step per epoch and one padded val batch.
 
 The run prints the JAX package's ITER / EPOCH / BEST reports, writes the run
 dir's artifacts, resumes from model_last with its full train state, and
-its checkpoints are served by scripts/infer_torch.py.
+its checkpoints are served by scripts/infer_torch.py. Its ScalarLogger
+writes TensorBoard events where tensorboardX (or torch.utils.tensorboard)
+imports, and all_scalars.json alone where neither does.
 """
 
 import contextlib
@@ -13,12 +15,14 @@ import io
 import json
 import pathlib
 import re
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from pointnet2_scannet_tpu_torch.engine import checkpoint
+from pointnet2_scannet_tpu_torch.engine.logging import ScalarLogger
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BASE = ["--device", "cpu", "--synthetic", "--synthetic_scenes", "4", "--npoints", "256",
@@ -171,3 +175,22 @@ def test_device_cuda_without_a_gpu_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_torch.train(args)
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("writer", ["tensorboardX", None])
+def test_scalar_logger_writes_events_where_a_writer_imports(tmp_path, monkeypatch, writer):
+    if writer is None:  # neither writer imports
+        monkeypatch.setitem(sys.modules, "tensorboardX", None)
+        monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    else:
+        pytest.importorskip(writer)
+    logger = ScalarLogger(tmp_path)
+    logger.add_scalars("val", {"loss": 0.5, "point_miou": 0.25}, 0)
+    logger.add_scalars("val", {"loss": 0.25, "point_miou": 0.5}, 1)
+    logger.close()
+    scalars = json.loads((tmp_path / "tensorboard" / "all_scalars.json").read_text())
+    assert scalars == {"val/loss": [[0, 0.5], [1, 0.25]], "val/point_miou": [[0, 0.25], [1, 0.5]]}
+    events = list((tmp_path / "tensorboard").glob("events.out.tfevents.*"))
+    assert len(events) == (0 if writer is None else 1)
+    if events:  # the event file names each tag
+        assert b"val/loss" in events[0].read_bytes() and b"val/point_miou" in events[0].read_bytes()
