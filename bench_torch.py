@@ -36,6 +36,24 @@ model's weights from torch.Generator().manual_seed(0). Other fields:
                                   columns, batch 16), wall clock with tiling
                                   and metrics, median of 3 after one
                                   evaluation of a one-scene dataset
+  solver_points_per_sec_host      the chunked SSG Solver over 256 synthetic
+  solver_points_per_sec_resident  scenes of 100 000 points (fast_scene), batch
+                                  32 x 8192 x 9, no validation, 3 epochs of 8
+                                  steps, on the host path and with
+                                  device_store: an epoch's points over the
+                                  median wall of epochs 2 and 3 (epoch 1 is
+                                  warm-up)
+  solver_epoch_s_host|resident    every epoch's wall, from its chunk draw to
+                                  the next epoch's
+  solver_fetch_ms_host|resident   the ITER report's fetch (one report an
+                                  epoch, the mean of its steps), median of
+                                  epochs 2 and 3
+  solver_regen_join_s_host|resident  each epoch's wait for its chunks at its
+                                  start (epoch 1 draws them; later epochs
+                                  join the background regeneration)
+  solver_regen_s_host|resident    each chunk regeneration's own wall
+  solver_store_flatten_s,         the resident run's store, flattened on the
+  solver_store_upload_s           host and uploaded once (1.0 GB)
   device, power_limit             nvidia-smi's name and power limit
   unported                        bench.py's fields not ported yet, each with
                                   its ROADMAP queue 1 item
@@ -43,8 +61,9 @@ model's weights from torch.Generator().manual_seed(0). Other fields:
 No vs_baseline (its divisor estimates another card) and no TPU figure.
 --device cpu runs every cell at B 2 x 1024 (P3: 1 x 2048; the scene cut to
 3 columns at micro-batch 2, the second padded; eval: 1 scene of 8000 points
-at batch 2), one step a window and one timed serving batch, update and
-evaluation: its rates are the host's.
+at batch 2; the Solver cells: 8 scenes of 4000 points, batch 4 x 256, 3
+epochs of 2 steps), one step a window and one timed serving batch, update
+and evaluation: its rates are the host's.
 """
 
 from __future__ import annotations
@@ -61,13 +80,18 @@ METRIC = "train_points_per_sec_ssg_b32_n8192"
 TRAIN_REPEATS = 3
 # per device: batch x points of the train and serving cells, P3's, steps a
 # train window, warm-up calls, timed serving batches, the whole-scene cell's
-# micro-batch, columns (None: the whole scene) and timed updates, and the
-# eval cell's scenes, points a scene, batch and timed evaluations
+# micro-batch, columns (None: the whole scene) and timed updates, the eval
+# cell's scenes, points a scene, batch and timed evaluations, and the Solver
+# cells' scenes, points a scene, batch, points a chunk and epochs. 256
+# scenes keep ScanNet's 1201 scenes' ratio of chunk regeneration to steps
+# (both scale with the scene count) at a fifth of the time
 SIZES = {
     "cuda": {"batch": 32, "npoints": 8192, "p3": (8, 32768), "steps": 20, "warm": 3, "serve_repeats": 9,
-             "ws_batch": 32, "ws_columns": None, "ws_repeats": 10, "eval": (4, 100_000, 16, 3)},
+             "ws_batch": 32, "ws_columns": None, "ws_repeats": 10, "eval": (4, 100_000, 16, 3),
+             "solver": (256, 100_000, 32, 8192, 3)},
     "cpu": {"batch": 2, "npoints": 1024, "p3": (1, 2048), "steps": 1, "warm": 1, "serve_repeats": 1,
-            "ws_batch": 2, "ws_columns": 3, "ws_repeats": 1, "eval": (1, 8_000, 2, 1)},
+            "ws_batch": 2, "ws_columns": 3, "ws_repeats": 1, "eval": (1, 8_000, 2, 1),
+            "solver": (8, 4_000, 4, 256, 3)},
 }
 # float32 FLOP/s outside the tensor cores, by torch.cuda.get_device_name
 # (NVIDIA's data sheet: H100 SXM at 700 W)
@@ -286,6 +310,141 @@ def eval_rates(device, n_scenes: int, n_points: int, npoints: int, batch: int, r
     return sorted(rates)
 
 
+def fast_scene(seed: int, n_points: int):
+    """A synthetic scene in the (N, 11) preprocessed layout, vectorised: a
+    floor plane and furniture boxes with class-correlated colours
+    (scripts/bench_hostpipe.py's fast_scene; make_synthetic_scene costs
+    seconds a scene at 100 000 points, and the Solver needs only the
+    structure)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_floor = n_points // 3
+    n_rest = n_points - n_floor
+    xyz_floor = np.column_stack(
+        [rng.uniform(0, 8, n_floor), rng.uniform(0, 8, n_floor), rng.normal(0, 0.01, n_floor)]
+    )
+    lab_floor = np.zeros(n_floor, np.float32)
+    n_obj = 12
+    centers = rng.uniform(0.5, 7.5, (n_obj, 3)) * [1, 1, 0.2]
+    obj_of = rng.integers(0, n_obj, n_rest)
+    xyz_rest = centers[obj_of] + rng.uniform(-0.5, 0.5, (n_rest, 3))
+    lab_rest = ((obj_of * 7) % 18 + 2).astype(np.float32)
+    xyz = np.vstack([xyz_floor, xyz_rest]).astype(np.float32)
+    labels = np.concatenate([lab_floor, lab_rest])
+    colors = (labels[:, None] * [53.0, 101.0, 181.0] % 256 + rng.normal(0, 8, (n_points, 3))).clip(0, 255)
+    normals = np.zeros((n_points, 3), np.float32)
+    normals[:, 2] = 1.0
+    inst = np.concatenate([np.zeros(n_floor), obj_of + 1]).astype(np.float32)
+    scene = np.column_stack([xyz, colors, normals, inst, labels]).astype(np.float32)
+    return scene[rng.permutation(n_points)]
+
+
+def solver_store(n_scenes: int, n_points: int):
+    """A SceneStore of n_scenes fast_scene scenes, seeded by their index."""
+    from pointnet2_scannet_tpu_torch.data.scene_store import SceneStore
+
+    return SceneStore.from_scenes({f"hp{i:04d}_00": fast_scene(i, n_points) for i in range(n_scenes)})
+
+
+def solver_run(device, store, batch: int, npoints: int, epochs: int, device_store: bool) -> dict:
+    """One run of the chunked Solver (SSG at full width, seeded weights, no
+    validation, one ITER report an epoch) over `store`, on the host path or
+    with device_store. Returns the epochs' walls (from one epoch's chunk draw
+    to the next's, the last to the run's end), each epoch's wait for its
+    chunks, each regeneration's wall, the ITER reports' fetch seconds, the
+    epoch losses, the points of an epoch and, with device_store, the store's
+    flatten and upload seconds. Raises where device_store fell back."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    import torch
+
+    from pointnet2_scannet_tpu_torch.config import DataConfig, RunConfig, TrainConfig
+    from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
+    from pointnet2_scannet_tpu_torch.engine.solver import Solver
+    from pointnet2_scannet_tpu_torch.models import get_model
+
+    class TimedChunks(ChunkedSceneDataset):
+        """Records when each epoch draws its chunks, how long it waits for
+        them, and each regeneration's wall (on whichever thread runs it)."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.starts, self.joins, self.regens = [], [], []
+
+        def generate_chunks(self):
+            t0 = time.perf_counter()
+            self.starts.append(t0)
+            super().generate_chunks()
+            self.joins.append(time.perf_counter() - t0)
+
+        def _generate(self):
+            t0 = time.perf_counter()
+            out = super()._generate()
+            self.regens.append(time.perf_counter() - t0)
+            return out
+
+    fetches = []
+
+    class TimedSolver(Solver):
+        def _report(self, *args, fetch, **kwargs):
+            fetches.append(fetch)
+            super()._report(*args, fetch=fetch, **kwargs)
+
+    steps = len(store) // batch
+    cfg = RunConfig(tag="bench", data=DataConfig(npoints=npoints, use_color=True, use_normal=True),
+                    train=TrainConfig(batch_size=batch, epochs=epochs, verbose=steps, seed=0,
+                                      device_store=device_store))
+    ds = TimedChunks(store, cfg.data, phase="train", seed=0)
+    model = get_model(20, is_msg=False, input_channels=6, generator=torch.Generator().manual_seed(0))
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="bench_solver_") as out, contextlib.redirect_stdout(log):
+        solver = TimedSolver(model, ds, None, cfg, out, device=device)
+        solver()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        end = time.perf_counter()
+        losses = [v for _, v in solver.logger.scalars["train/loss"]]
+    if solver.device_store != device_store or "device_store disabled" in log.getvalue():
+        raise RuntimeError(f"the Solver ran with device_store {solver.device_store}: {log.getvalue()[-500:]}")
+    if len(losses) != epochs or not all(map(math.isfinite, losses)) or len(fetches) != epochs:
+        raise RuntimeError(f"the Solver's {epochs} epochs gave losses {losses} and {len(fetches)} reports")
+    run = {"epoch_s": [b - a for a, b in zip(ds.starts, ds.starts[1:] + [end])], "regen_join_s": ds.joins,
+           "regen_s": ds.regens, "fetch_s": fetches, "losses": losses, "points": steps * batch * npoints}
+    if device_store:
+        run.update(flatten_s=solver.store_flatten_s, upload_s=solver.store_upload_s)
+    del solver
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return run
+
+
+def solver_fields(device, n_scenes: int, n_points: int, batch: int, npoints: int, epochs: int) -> dict:
+    """The Solver cells' fields: one run on the host path, then one with
+    device_store, over the same store; epoch 1 of each is warm-up."""
+    import statistics
+
+    store = solver_store(n_scenes, n_points)
+    runs = {path: solver_run(device, store, batch, npoints, epochs, path == "resident")
+            for path in ("host", "resident")}
+    row = {}
+    for path, run in runs.items():
+        row.update({
+            f"solver_points_per_sec_{path}": run["points"] / statistics.median(run["epoch_s"][1:]),
+            f"solver_epoch_s_{path}": run["epoch_s"],
+            f"solver_fetch_ms_{path}": statistics.median(run["fetch_s"][1:]) * 1e3,
+            f"solver_regen_join_s_{path}": run["regen_join_s"],
+            f"solver_regen_s_{path}": run["regen_s"],
+        })
+    row.update(solver_store_flatten_s=runs["resident"]["flatten_s"],
+               solver_store_upload_s=runs["resident"]["upload_s"],
+               solver_scenes=n_scenes, solver_steps_per_epoch=n_scenes // batch)
+    return row
+
+
 def card_line() -> str:
     """The first card's `name, power.limit` line from nvidia-smi."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -332,6 +491,7 @@ def run(device: str = "cuda") -> dict:
     row.update({"eval_scenes_per_sec": rates[len(rates) // 2], "eval_sps_min": rates[0], "eval_sps_max": rates[-1],
                 "eval_repeats": eval_repeats})
     p3 = train_ms("ssg", device, *size["p3"], steps, warm)
+    row.update(solver_fields(device, *size["solver"]))
     row.update({"p3_step_ms": p3[TRAIN_REPEATS // 2], "p3_step_ms_min": p3[0], "p3_step_ms_max": p3[-1],
                 "device": name, "power_limit": limit, "unported": UNPORTED})
     return row

@@ -102,7 +102,8 @@
     bounds; the steady 8 x 32768 train step, timed.
 19. bench_torch.py's cells (bench_torch.run("cuda")), its JSON line printed:
     the SSG and MSG train steps, serving batches and whole-scene updates,
-    P3's step and the eval scenes/s; every number finite and positive, and
+    P3's step, the eval scenes/s and the Solver cells (host path and device
+    store); every number finite and positive, and
     the default route's kernels launched (FPS, both ball queries, the
     gather, 3-NN, the scatter-add) and no other.
 20. A short SSG run of scripts/train_torch.py (phase 10's) under --trace:
@@ -118,14 +119,25 @@
     CUDA events and the metrics ms); each scene's labels equal bit for bit
     to the argmax of Predictor's batches of 32 over the same column stacks,
     and scene 0's equal to the CPU evaluator's at >= 0.999 of the points.
-22. Print one JSON line of kernel results (time, plain time, the card's bound
+22. The device-resident scene store: scripts/train_torch.py --device_store
+    (phase 10's SSG run: 32 scenes, batch 32, 3 epochs) with no "device_store
+    disabled" line, its losses finite, launching every kernel of phase 10's
+    run as often and d (the store gather) twice more a step; the chunked
+    Solver from one seed on the host path and with device_store (64
+    fast_scene scenes of 100 000 points, batch 32 x 8192, 2 epochs,
+    augmentation off): per-step losses equal bit for bit, d twice more a
+    step; and d's store gather (two launches: points, labels) at the
+    bench_torch.py Solver cell's store (256 scenes, T = 25.6 M rows) on one
+    resident batch's rows, bit for bit against gather_plain, timed beside
+    torch.index_select and the bound.
+23. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one), the card line, and last {"ok": true, "device": {...}}.
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20 and 21 starts with every launch counter at 0 and must
+13, 14, 15, 16, 18, 19, 20, 21 and 22 starts with every launch counter at 0 and must
 launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -195,6 +207,8 @@ WS_CHECK_COLUMNS, WS_CHECK_BATCH = 3, 2
 # points at which the card's and the CPU's labels must agree (f32 matmuls sum
 # in another order on each: a near-tie may flip)
 EVAL_SCENES, EVAL_AGREE = 4, 0.999
+# phase 22: scenes of the host-vs-resident Solver runs (2 steps an epoch)
+RESIDENT_SCENES = 64
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
@@ -898,19 +912,23 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
 
 
 def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
-              wholescene: bool = False, batch_size: int = BATCH, trace: bool = False) -> dict:
-    """Phases 10, 12, 13, 16 and 20: training through scripts/train_torch.py,
-    through the kernels; chunked (3 steps of 32 chunks) or whole-scene
-    (WS_EPOCHS epochs of one update per scene); with trace, under --trace
-    (check_trace)."""
+              wholescene: bool = False, batch_size: int = BATCH, trace: bool = False,
+              device_store: bool = False) -> dict:
+    """Phases 10, 12, 13, 16, 20 and 22: training through
+    scripts/train_torch.py, through the kernels; chunked (3 steps of 32
+    chunks) or whole-scene (WS_EPOCHS epochs of one update per scene); with
+    trace, under --trace (check_trace); with device_store, from the
+    device-resident store (its output must hold no fallback line)."""
+    import contextlib
+    import io
     import math
 
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
     name = (f"{kind.upper()} ({config} config, {npoints}-point columns{', whole scenes' * wholescene}"
-            f"{', --trace' * trace})")
+            f"{', --trace' * trace}{', --device_store' * device_store})")
     scenes, batch, epochs = (WS_SCENES, WS_BATCH, WS_EPOCHS) if wholescene else (batch_size, batch_size, 3)
-    mode = f"{'ws' if wholescene else 'chunks'}{'_trace' * trace}"
+    mode = f"{'ws' if wholescene else 'chunks'}{'_trace' * trace}{'_store' * device_store}"
     trace_dir = tmp / f"trace_{kind}_{config}_{npoints}_{mode}"
     train_torch = load_script("train_torch")
     args = train_torch.parse_args([
@@ -919,16 +937,23 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
         "--verbose", "1", "--device", "cuda", "--tag", "chip_smoke",
         "--output_root", str(tmp / f"train_{kind}_{config}_{npoints}_{mode}"),
         *(["--use_msg"] if kind == "msg" else []), *(["--use_wholescene"] if wholescene else []),
-        *(["--trace", str(trace_dir)] if trace else []),
+        *(["--trace", str(trace_dir)] if trace else []), *(["--device_store"] if device_store else []),
     ])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    run_dir, best = train_torch.train(args)
+    try:
+        with contextlib.redirect_stdout(log):
+            run_dir, best = train_torch.train(args)
+    finally:
+        print(log.getvalue(), end="", flush=True)
     torch.cuda.synchronize()
     took = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    if device_store and ("device_store disabled" in log.getvalue() or "device_store: " not in log.getvalue()):
+        raise RuntimeError(f"train {name} did not train from the device-resident store")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}",
           flush=True)
@@ -938,7 +963,8 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
         if not (run_dir / f).is_file():
             raise RuntimeError(f"the training run wrote no {f}")
     saved = json.loads((run_dir / "config.json").read_text())
-    if saved["model"]["is_msg"] != (kind == "msg") or saved["train"]["wholescene"] != wholescene:
+    if (saved["model"]["is_msg"] != (kind == "msg") or saved["train"]["wholescene"] != wholescene
+            or saved["train"]["device_store"] != device_store):
         raise RuntimeError("the run dir's config.json records another model or mode")
     scalars = json.loads((run_dir / "tensorboard" / "all_scalars.json").read_text())
     losses = [v for _, v in scalars["train/loss"]] + [v for _, v in scalars["val/loss"]]
@@ -1041,6 +1067,105 @@ def eval_cli(torch, tmp: pathlib.Path, kind: str) -> dict:
     if agree < EVAL_AGREE:
         raise RuntimeError(f"eval {name}: card and CPU evaluators agree at {agree} of the points")
     return {"launches": launches}
+
+
+def check_store_launches(launches: dict, host: dict, steps: int, what: str) -> None:
+    """Phase 22: a resident run launched every kernel as often as the host
+    run of the same work, and d (the store gather) twice more a step."""
+    want = dict(host, gather=host["gather"] + 2 * steps)
+    if launches != want:
+        raise RuntimeError(f"the {what} run launched {launches}, not the host run's {host} with "
+                           f"2 x {steps} more gathers")
+
+
+def resident_vs_host(torch) -> dict:
+    """Phase 22: the chunked Solver from one seed, on the host path and with
+    device_store, 2 epochs over RESIDENT_SCENES fast_scene scenes at batch 32
+    x 8192, augmentation off, no validation: every step's loss equal bit for
+    bit, and the resident run's launches the host run's with 2 more gathers a
+    step. Returns both runs' launches."""
+    from pointnet2_scannet_tpu_torch.config import DataConfig, RunConfig, TrainConfig
+    from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.engine.solver import Solver
+    from pointnet2_scannet_tpu_torch.models import get_model
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    store = bench_torch.solver_store(RESIDENT_SCENES, 100_000)
+    step = ts.train_step
+    losses, launches = {}, {}
+    for path in ("host", "resident"):
+        def recorded(state, batch, _path=path, **kwargs):  # resident_train_step calls it too
+            out = step(state, batch, **kwargs)
+            losses.setdefault(_path, []).append(out["loss"])
+            return out
+
+        cfg = RunConfig(tag="chip_smoke",
+                        data=DataConfig(npoints=NPOINTS, use_color=True, use_normal=True, augment=False),
+                        train=TrainConfig(batch_size=BATCH, epochs=2, verbose=0, seed=0,
+                                          device_store=path == "resident"))
+        ds = ChunkedSceneDataset(store, cfg.data, phase="train", seed=0)
+        model = get_model(20, is_msg=False, input_channels=6, generator=torch.Generator().manual_seed(0))
+        ts.train_step = recorded
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out:
+                solver = Solver(model, ds, None, cfg, out, device="cuda")
+                if solver.device_store != (path == "resident"):
+                    raise RuntimeError(f"the {path} Solver ran with device_store {solver.device_store}")
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                solver()
+                torch.cuda.synchronize()
+                launches[path] = kernels.launch_counts()
+                check_launches(launches[path], "ssg", True, f"{path} Solver")
+        finally:
+            ts.train_step = step
+        del solver
+    host, res = (torch.stack(losses[p]).cpu() for p in ("host", "resident"))
+    steps = len(host)
+    print(f"Solver host path vs device store (SSG, {RESIDENT_SCENES} scenes, 2 epochs of "
+          f"{steps // 2} steps, augmentation off): losses {host.tolist()} vs {res.tolist()}; "
+          f"launches {launches['host']} vs {launches['resident']}", flush=True)
+    if len(res) != steps or steps != 2 * (RESIDENT_SCENES // BATCH) or not torch.equal(host, res):
+        raise RuntimeError("the resident Solver's per-step losses differ from the host path's")
+    if not bool(torch.isfinite(host).all()):
+        raise RuntimeError(f"non-finite losses {host.tolist()}")
+    check_store_launches(launches["resident"], launches["host"], steps, "resident Solver")
+    return {"launches": {k: launches["host"][k] + launches["resident"][k] for k in launches["host"]}}
+
+
+def check_store_gather(torch, tally) -> None:
+    """Phase 22: d's store gather (data/resident.materialize_batch's two
+    launches, points and labels) at the bench_torch.py Solver cell's store,
+    on the rows of one resident batch: bit for bit against gather_plain,
+    timed beside torch.index_select on an int64 index made beforehand. Bytes:
+    the distinct store rows read (40 bytes each), the rows, the output."""
+    from pointnet2_scannet_tpu_torch.config import DataConfig
+    from pointnet2_scannet_tpu_torch.data import ResidentBatchLoader, flatten_store
+    from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+
+    n_scenes, n_points, batch, npoints, _ = bench_torch.SIZES["cuda"]["solver"]
+    store = bench_torch.solver_store(n_scenes, n_points)
+    cfg = DataConfig(npoints=npoints, use_color=True, use_normal=True)
+    ds = ChunkedSceneDataset(store, cfg, phase="train", seed=0, resident=True)
+    ds.generate_chunks()
+    idx = next(iter(ResidentBatchLoader(ds, batch)))["idx"]
+    pts, labels = flatten_store(store, cfg)
+    del store, ds
+    src = torch.from_numpy(pts).to("cuda").unsqueeze(0)
+    lab = torch.from_numpy(labels).to("cuda").view(1, -1, 1)
+    del pts, labels
+    rows = torch.from_numpy(idx).to("cuda").view(1, -1)
+    index = rows.view(-1).long()
+    (_, t, c), j = src.shape, rows.shape[1]
+    check(torch, tally, "store", f"gather store ({t} rows x {c} f32 + labels i32) x {batch} x {npoints} rows",
+          lambda: (ga.gather_cuda(src, rows), ga.gather_cuda(lab, rows)),
+          lambda: (ga.gather_plain(src, rows), ga.gather_plain(lab, rows)),
+          4 * (distinct_rows(rows) * (c + 1) + j + j * (c + 1)), 0,
+          library_fn=lambda: (torch.index_select(src[0], 0, index), torch.index_select(lab.view(-1), 0, index)))
+    del src, lab
+    torch.cuda.empty_cache()
 
 
 # the hand-written kernels (csrc/, each in an anonymous namespace) of an SSG
@@ -1378,8 +1503,11 @@ def bench(torch) -> dict:
     if missing or stray:
         raise RuntimeError(f"bench_torch launched no {missing} kernel, or launched {stray}")
     numbers = {k: v for k, v in row.items() if isinstance(v, float)}
+    epochs = [v for k, vs in row.items() if k.startswith("solver_") and isinstance(vs, list) for v in vs]
     bad = sorted(k for k, v in numbers.items() if not (math.isfinite(v) and v > 0))
-    if bad or row["metric"] != bench_torch.METRIC or len(numbers) < 16:
+    solver = {f"solver_points_per_sec_{p}" for p in ("host", "resident")} | {"solver_store_upload_s"}
+    if (bad or row["metric"] != bench_torch.METRIC or len(numbers) < 16 or not solver <= set(numbers)
+            or not all(math.isfinite(v) and v > 0 for v in epochs)):
         raise RuntimeError(f"bench_torch's row has no finite positive {bad}: {row}")
     return launches
 
@@ -1441,9 +1569,11 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = pathlib.Path(tmp)
+        host_train = {}
         for model_kind in KINDS:
             tally(serve(torch, tmp, model_kind))
-            tally(train_cli(torch, tmp, model_kind))
+            host_train[model_kind] = train_cli(torch, tmp, model_kind)
+            tally(host_train[model_kind])
         with switches(**MXU_CONFIG):  # phase 12: P1
             tally(serve(torch, tmp, "ssg", "mxu"))
             tally(train_cli(torch, tmp, "ssg", "mxu"))
@@ -1476,6 +1606,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 21
         for model_kind in KINDS:
             tally(eval_cli(torch, pathlib.Path(tmp), model_kind))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 22
+        run = train_cli(torch, pathlib.Path(tmp), "ssg", device_store=True)
+        check_store_launches(run["launches"], host_train["ssg"]["launches"], 3, "--device_store")
+        tally(run)
+    tally(resident_vs_host(torch))
+    check_store_gather(torch, tallies["gather"])
+    print("kernel gather over the STORE shape: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tallies["gather"].paths["store"].items() if v is not None), flush=True)
 
     print(json.dumps({"kernels": [t.row(launches[name]) for name, t in tallies.items()]}))
     print(bench_torch.card_line())

@@ -1,6 +1,13 @@
-"""Host-side data of the serving path: scene store, synthetic scenes and the
-whole-scene column tiler (numpy only)."""
+"""Host-side data: scene store, synthetic scenes, the whole-scene column
+tiler (numpy only), and the device-resident scene store (data/resident.py)."""
 
+from pointnet2_scannet_tpu_torch.data.resident import (
+    ResidentBatchLoader,
+    flatten_store,
+    materialize_batch,
+    pad_store_rows,
+    store_nbytes,
+)
 from pointnet2_scannet_tpu_torch.data.scene_store import (
     SceneStore,
     assemble_features,
@@ -10,6 +17,11 @@ from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_scene, mak
 from pointnet2_scannet_tpu_torch.data.wholescene import WholeSceneDataset
 
 __all__ = [
+    "ResidentBatchLoader",
+    "flatten_store",
+    "materialize_batch",
+    "pad_store_rows",
+    "store_nbytes",
     "SceneStore",
     "assemble_features",
     "compute_label_weights",

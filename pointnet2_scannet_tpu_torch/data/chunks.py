@@ -14,8 +14,11 @@ gives the same chunks, augmentations and weights.
   - per-point weights: the class weight of the point's label times an
     in-bbox mask that is always true (the bbox is the chunk's own).
 
-The device-resident mode of the JAX package (resident=True) is ROADMAP
-queue 1, item 13.
+In resident mode (resident=True, the Solver's device_store) a chunk is kept
+as its rows in the scene, not as a copy of its points: get_item_resident
+gives global rows of data/resident.flatten_store's flat store and the
+augmentation parameters, from the same rng streams at the same call sites,
+so both modes cut the same chunks and draw the same augmentations.
 """
 
 from __future__ import annotations
@@ -73,7 +76,15 @@ def augment_coords(coords: np.ndarray, rng: np.random.Generator) -> np.ndarray:
 class ChunkedSceneDataset:
     """One training chunk per scene per epoch, resampled each epoch."""
 
-    def __init__(self, store: SceneStore, cfg: DataConfig, *, phase: str = "train", seed: int = 0):
+    def __init__(
+        self,
+        store: SceneStore,
+        cfg: DataConfig,
+        *,
+        phase: str = "train",
+        seed: int = 0,
+        resident: bool = False,
+    ):
         if phase not in ("train", "val", "test"):
             raise ValueError(f"phase must be train, val or test, got {phase!r}")
         self.store = store
@@ -83,7 +94,10 @@ class ChunkedSceneDataset:
         # a stream of its own for chunk generation, so the async regeneration
         # thread never races the main thread's augmentation draws
         self.chunk_rng = np.random.default_rng(seed + 0x5EED)
-        # scene_id -> (chunk (npoints, 11), multiview (npoints, 128) | None)
+        self.resident = resident
+        self._offsets: dict[str, int] | None = None
+        # scene_id -> (chunk (npoints, 11), multiview (npoints, 128) | None),
+        # or in resident mode scene_id -> the chunk's scene rows (npoints,)
         self.chunks: dict[str, tuple[np.ndarray, np.ndarray | None]] = {}
         self._next: dict[str, tuple[np.ndarray, np.ndarray | None]] | None = None
         self._regen_thread: threading.Thread | None = None
@@ -125,7 +139,7 @@ class ChunkedSceneDataset:
             coordmin = scene[:, :3].min(axis=0)
             coordmax = scene[:, :3].max(axis=0)
             xyz32 = np.ascontiguousarray(scene[:, :3], np.float32)
-            cur = None
+            cur = cur_rows = None
             for _ in range(cfg.chunk_retries):
                 center = scene[self.chunk_rng.integers(len(scene)), :3]
                 curmin = (center - [half_xy, half_xy, 1.5]).astype(np.float32)
@@ -134,18 +148,58 @@ class ChunkedSceneDataset:
                 inside, n_annotated, n_occupied = native.chunk_scan(
                     xyz32, semantic, curmin, curmax, cfg.chunk_margin
                 )
-                cur = (scene[inside], mv[inside] if mv is not None else None)
-                n_inside = len(cur[0])
+                if self.resident:
+                    # rows only: flatnonzero keeps scene[inside]'s order, so
+                    # the resample below picks the host path's points
+                    cur_rows = np.flatnonzero(inside)
+                    n_inside = len(cur_rows)
+                else:
+                    cur = (scene[inside], mv[inside] if mv is not None else None)
+                    n_inside = len(cur[0])
                 if n_inside == 0:
                     continue
                 annotated = n_annotated / n_inside
                 occupancy = n_occupied / (31.0 * 31.0 * 62.0)
                 if annotated >= cfg.min_annotated_frac and occupancy >= cfg.min_voxel_occupancy:
                     break
+            if self.resident:
+                out[sid] = cur_rows[self.chunk_rng.integers(0, len(cur_rows), size=cfg.npoints)]
+                continue
             chunk, chunk_mv = cur
             choice = self.chunk_rng.integers(0, len(chunk), size=cfg.npoints)
             out[sid] = (chunk[choice], chunk_mv[choice] if chunk_mv is not None else None)
         return out
+
+    def scene_offsets(self) -> dict[str, int]:
+        """Each scene's first row in the flat store (scene_ids order), the
+        row space of data/resident.flatten_store."""
+        if self._offsets is None:
+            offsets, o = {}, 0
+            for sid in self.store.scene_ids:
+                offsets[sid] = o
+                o += len(self.store.scenes[sid])
+            self._offsets = offsets
+        return self._offsets
+
+    @property
+    def augmenting(self) -> bool:
+        return self.phase == "train" and self.cfg.augment
+
+    def get_item_resident(self, index: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.float32]:
+        """(global store rows (npoints,) int32, rotation (3, 3) float32,
+        translation (3,) float32, scale float32), drawn from get_item's rng
+        stream at its call site; identity parameters (R = I, t = 0, s = 1)
+        stand in for the transforms a case leaves out."""
+        sid = self.store.scene_ids[index]
+        if sid not in self.chunks:
+            raise RuntimeError("call generate_chunks() before sampling items")
+        rot, t, s = draw_augment_params(self.rng) if self.augmenting else (None, None, None)
+        return (
+            (self.scene_offsets()[sid] + self.chunks[sid]).astype(np.int32),
+            np.eye(3, dtype=np.float32) if rot is None else rot.astype(np.float32),
+            np.zeros(3, np.float32) if t is None else t.astype(np.float32),
+            np.float32(1.0) if s is None else np.float32(s),
+        )
 
     def get_item(self, index: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(features (npoints, 3 + C) float32, labels (npoints,) int32,
@@ -153,6 +207,11 @@ class ChunkedSceneDataset:
         sid = self.store.scene_ids[index]
         if sid not in self.chunks:
             raise RuntimeError("call generate_chunks() before sampling items")
+        if self.resident:
+            raise RuntimeError(
+                "dataset is in resident mode (row indices, no materialized chunks): "
+                "use get_item_resident"
+            )
         chunk, mv = self.chunks[sid]
         cfg = self.cfg
         feats = assemble_features(

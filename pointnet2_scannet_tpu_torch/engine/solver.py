@@ -18,14 +18,24 @@ carries the allocator's and cuBLAS's warm-up) runs under torch.profiler,
 host activity and, on a GPU, the card's kernels, and is written into
 trace_dir as a Chrome / TensorBoard trace file (JAX: jax.profiler.trace).
 
-The JAX package's meshes (dp, dp x tp), multi-process runs and resident
-scene store are not ported (ROADMAP queue 1, items 12 and 13). The train
-step runs once per batch: --fused_steps K is recorded in the config and
-gives the same math per step as K steps fused (CUDA graphs are item 12).
+With config.train.device_store the Solver trains from the device-resident
+scene store (data/resident.py): the train scenes are flattened and uploaded
+to the device once, each epoch's chunks are kept as store rows, a step sends
+the device only those rows and the augmentation parameters, and
+resident_train_step gathers its batch there. Where the store cannot serve
+(a dataset without a resident mode, as whole-scene training's; a store over
+the budget of _device_store_budget) it prints a WARNING and trains on the
+host path, with the same math.
+
+The JAX package's meshes (dp, dp x tp), multi-process runs and row-sharded
+store are not ported (ROADMAP queue 1, item 12). The train step runs once
+per batch: --fused_steps K is recorded in the config and gives the same
+math per step as K steps fused (CUDA graphs are item 12).
 """
 
 from __future__ import annotations
 
+import os
 import pathlib
 import time
 
@@ -35,6 +45,7 @@ import torch
 from pointnet2_scannet_tpu_torch.config import RunConfig
 from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
 from pointnet2_scannet_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
+from pointnet2_scannet_tpu_torch.data.resident import ResidentBatchLoader, flatten_store, store_nbytes
 from pointnet2_scannet_tpu_torch.data.wholescene import WholeSceneDataset
 from pointnet2_scannet_tpu_torch.engine import metrics as M
 from pointnet2_scannet_tpu_torch.engine import train_state as ts
@@ -58,6 +69,18 @@ BEST_REPORT = "best voxel_miou {voxel_miou:.4f} at epoch {epoch}"
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _device_store_budget(device: torch.device) -> int:
+    """Bytes the device-resident scene store may take: half the card's
+    memory, the other half left to activations, parameters and the
+    optimizer (8 GiB on a CPU device); PN2_DEVICE_STORE_BUDGET_GB overrides."""
+    gb = os.environ.get("PN2_DEVICE_STORE_BUDGET_GB")
+    if gb is not None:
+        return int(float(gb) * 2**30)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 2
+    return 8 * 2**30
 
 
 def _trace(trace_dir: str | pathlib.Path, device: torch.device):
@@ -94,23 +117,66 @@ class Solver:
         self.num_classes = config.model.num_classes
 
         tc = config.train
+        self.device_store = self._device_store_gate(tc.device_store, train_dataset)
         self._make_loaders(train_dataset, val_dataset, tc)
         schedule = ts.make_lr_schedule(tc.lr, tc.decay_step, tc.decay_factor, len(self.train_loader))
         self.state = ts.create_train_state(
             self.model, schedule, weight_decay=tc.weight_decay, seed=tc.seed
         )
+        self.store = self._upload_store(train_dataset) if self.device_store else None
         self.logger = ScalarLogger(self.output_dir)
         self.best = {"epoch": -1, "voxel_miou": -1.0}
         self._global_iter = 0
         config.save(self.output_dir / "config.json")
+
+    def _device_store_gate(self, wanted: bool, train_dataset) -> bool:
+        """Whether this run trains from the device-resident store: only
+        where it was asked for and can serve; otherwise a WARNING line says
+        why and the host path trains (the same math)."""
+        if not wanted:
+            return False
+        if not hasattr(train_dataset, "get_item_resident"):
+            reason = "the train dataset has no resident mode (chunked training only)"
+        else:
+            nbytes = store_nbytes(train_dataset.store, self.config.data)
+            budget = _device_store_budget(self.device)
+            reason = None if nbytes <= budget else (
+                f"flat store needs {nbytes / 2**30:.2f} GiB > budget {budget / 2**30:.1f} GiB "
+                "(set PN2_DEVICE_STORE_BUDGET_GB to raise)"
+            )
+        if reason is not None:
+            print(f"WARNING: device_store disabled: {reason}", flush=True)
+            return False
+        train_dataset.resident = True
+        return True
+
+    def _upload_store(self, train_dataset) -> dict:
+        """The train scenes' flat store on the device, uploaded once; no host
+        copy outlives the upload. store_flatten_s and store_upload_s record
+        the two halves' wall times."""
+        t0 = time.perf_counter()
+        pts, labels = flatten_store(train_dataset.store, self.config.data)
+        t1 = time.perf_counter()
+        store = {
+            "points": torch.from_numpy(pts).to(self.device),
+            "labels": torch.from_numpy(labels).to(self.device),
+            "wtable": torch.from_numpy(train_dataset.store.label_weights.astype(np.float32)).to(self.device),
+        }
+        del pts, labels
+        _sync(self.device)
+        self.store_flatten_s, self.store_upload_s = t1 - t0, time.perf_counter() - t1
+        return store
 
     def _make_loaders(self, train_dataset, val_dataset, tc) -> None:
         """train_loader and val_loader; len(train_loader) is the optimizer
         steps of an epoch."""
         # train: drop the ragged last batch (zero rows would enter the
         # BatchNorm statistics); val: pad it and mask the pad rows out
-        self.train_loader = BatchLoader(
-            train_dataset, tc.batch_size, seed=tc.seed, drop_last=True, shuffle=tc.shuffle
+        self.train_loader = (
+            ResidentBatchLoader(train_dataset, tc.batch_size, seed=tc.seed, shuffle=tc.shuffle)
+            if self.device_store
+            else BatchLoader(train_dataset, tc.batch_size, seed=tc.seed, drop_last=True,
+                             shuffle=tc.shuffle)
         )
         if len(self.train_loader) == 0:
             raise ValueError(
@@ -205,7 +271,11 @@ class Solver:
             if timed:  # one settled step per report window, not the queue
                 _sync(self.device)
                 t_step = time.time()
-            stats = ts.train_step(self.state, batch, num_classes=self.num_classes)
+            stats = (
+                ts.resident_train_step(self.state, self.store, batch, num_classes=self.num_classes)
+                if self.device_store
+                else ts.train_step(self.state, batch, num_classes=self.num_classes)
+            )
             losses.append(stats["loss"])
             cms.append(stats["confusion"])
             if timed:

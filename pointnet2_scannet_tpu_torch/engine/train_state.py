@@ -10,7 +10,9 @@ eagerly; there is no compiled step to build, so TrainState holds the model
 and optimizer themselves.
 
 Whole-scene training takes one optimizer step per scene: grad_accum_step per
-micro-batch of the scene's columns, then apply_accumulated.
+micro-batch of the scene's columns, then apply_accumulated. With the
+device-resident scene store, resident_train_step assembles its batch on the
+device first.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from collections.abc import Callable
 
 import torch
 
+from pointnet2_scannet_tpu_torch.data.resident import materialize_batch
 from pointnet2_scannet_tpu_torch.engine.loss import softmax_ce_integer, weighted_cross_entropy
 from pointnet2_scannet_tpu_torch.engine.metrics import confusion_matrix
 
@@ -87,6 +90,14 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes
     with torch.no_grad():
         cm = confusion_matrix(logits.argmax(dim=-1), batch["labels"], num_classes, row_mask)
     return {"loss": loss.detach(), "confusion": cm}
+
+
+def resident_train_step(state: TrainState, store: dict, batch: dict[str, torch.Tensor], *,
+                        num_classes: int) -> dict:
+    """train_step on the batch that data/resident.materialize_batch gathers
+    from the device-resident store (the JAX package's
+    make_resident_train_step); the store is only read."""
+    return train_step(state, materialize_batch(store, batch), num_classes=num_classes)
 
 
 def grad_accum_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes: int) -> dict:

@@ -5,7 +5,9 @@ semantic-segmentation training of the SSG model, or of the MSG model with
 --use_msg, or whole-scene training with --use_wholescene (one optimizer
 update per scene, gradients accumulated over micro-batches of --batch_size
 columns), on --device (the hand-written CUDA kernels on a GPU, their plain
-PyTorch versions on the CPU). Writes
+PyTorch versions on the CPU). --device_store trains chunks from a scene
+store uploaded to the device once (each step gathers its batch there).
+Writes
 <output_root>/<timestamp>_<TAG>/ with config.json, info.json, model_best.pt
 and model_last.pt (state_dicts that scripts/infer_torch.py serves), their
 .train.pt / .meta.json resume state, tensorboard/all_scalars.json and
@@ -14,6 +16,7 @@ best.txt.
   python scripts/train_torch.py --synthetic --use_color --use_normal --device cuda
   python scripts/train_torch.py --synthetic --use_color --use_normal --use_msg
   python scripts/train_torch.py --synthetic --use_color --use_normal --use_wholescene
+  python scripts/train_torch.py --synthetic --use_color --use_normal --device_store
   python scripts/train_torch.py --synthetic --synthetic_scenes 4 --npoints 256 \\
       --batch_size 4 --epoch 2 --device cpu
   python scripts/train_torch.py --resume outputs/<run> --epoch 4
@@ -42,7 +45,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 # flag -> (is it set?, what it asks for, ROADMAP queue 1 item)
 _UNPORTED = (
     ("bf16", lambda v: v, "bfloat16 compute", 10),
-    ("device_store", lambda v: v, "the device-resident scene store", 13),
     ("num_devices", lambda v: v is not None and v > 1, "data parallelism over several devices", 12),
     ("tp", lambda v: v is not None and v > 1, "tensor parallelism", 12),
     ("dist_coordinator", lambda v: v is not None, "multi-host training", 12),
@@ -145,6 +147,8 @@ def _device(name: str):
 def train(args) -> tuple[pathlib.Path, dict]:
     """Train (or resume) a run; returns (run dir, best val metrics)."""
     check_ported(args)
+    if args.device_store and args.no_device_store:
+        raise SystemExit("--device_store and --no_device_store conflict")
     device = _device(args.device)
     import torch
 
@@ -172,6 +176,10 @@ def train(args) -> tuple[pathlib.Path, dict]:
         overrides = {}
         if args.verbose is not None:
             overrides["verbose"] = args.verbose
+        if args.device_store:  # the same math as the host path
+            overrides["device_store"] = True
+        elif args.no_device_store:
+            overrides["device_store"] = False
         if args.epoch is not None:
             overrides["epochs"] = max(args.epoch, cfg.train.epochs)
         if overrides:
@@ -207,6 +215,10 @@ def train(args) -> tuple[pathlib.Path, dict]:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
     print(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}",
           flush=True)
+    if solver.device_store:
+        rows, width = solver.store["points"].shape
+        print(f"device_store: {rows} rows x {width} on {device}, flattened in "
+              f"{solver.store_flatten_s:.2f} s, uploaded in {solver.store_upload_s:.2f} s", flush=True)
     info = {
         **vars(args),
         "num_train_scenes": len(train_store),
@@ -257,9 +269,14 @@ def parse_args(argv=None):
                    "warm-up stays out of the steady-state timeline")
     p.add_argument("--shuffle", action="store_true",
                    help="shuffle scene order across train batches each epoch")
-    p.add_argument("--device_store", action="store_true", help="not ported yet (ROADMAP item 13)")
+    p.add_argument("--device_store", action="store_true",
+                   help="chunked training from a scene store uploaded to the device once: each "
+                   "step sends only store rows and augmentation parameters (falls back to the "
+                   "host path with a WARNING where the store cannot serve); at --resume, "
+                   "overrides the saved setting")
     p.add_argument("--no_device_store", action="store_true",
-                   help="the host collate path, which is the port's only path")
+                   help="at --resume: train on the host path although the saved run used "
+                   "--device_store")
     p.add_argument("--fused_steps", type=int, default=8,
                    help="recorded in config.json; the port runs one step per batch "
                    "(the same math per step)")

@@ -4,9 +4,13 @@
   bench.py's number exactly on the JAX package's SSG and MSG specs (and on
   the port's, which are the same architecture), at B 32 x 8192 and small.
 - bench_torch.run("cpu") (the plain versions at B 2 x 1024) returns every
-  field of its JSON row, rates positive, the eval cell's too, with the map
-  of bench.py's fields that are not ported yet (bf16's alone); run in a
+  field of its JSON row, rates positive, the eval cell's and the Solver
+  cells' too (host path and device store, 3 epochs each), with the map of
+  bench.py's fields that are not ported yet (bf16's alone); run in a
   process where importing jax or the JAX package fails.
+- scripts/bench_hostpipe_torch.py at 8 scenes on the CPU prints its probes'
+  JSON lines (the Solver's with --device_store), and with --host_only over
+  cached scenes only probes 1 and 3.
 - train_torch.py --trace DIR over 2 tiny epochs writes one trace file, of the
   second epoch, prints the capture line once and trains exactly as the same
   run without --trace.
@@ -34,8 +38,13 @@ FIELDS = (
     "msg_step_ms_min", "msg_step_ms_max", "train_repeats", "fused_steps", "model_tflops_fwd", "mfu_f32",
     "serve_columns_per_sec_ssg", "serve_columns_per_sec_msg", "wholescene_ms_ssg", "wholescene_ms_msg",
     "p3_step_ms", "p3_step_ms_min", "p3_step_ms_max", "eval_scenes_per_sec", "eval_sps_min", "eval_sps_max",
-    "eval_repeats", "device", "power_limit", "unported",
+    "eval_repeats", "solver_points_per_sec_host", "solver_points_per_sec_resident", "solver_fetch_ms_host",
+    "solver_fetch_ms_resident", "solver_store_flatten_s", "solver_store_upload_s", "solver_scenes",
+    "solver_steps_per_epoch", "device", "power_limit", "unported",
 )
+# the Solver cells' per-epoch lists (3 epochs)
+EPOCH_FIELDS = tuple(f"solver_{k}_{path}" for k in ("epoch_s", "regen_join_s", "regen_s")
+                     for path in ("host", "resident"))
 
 
 @pytest.mark.parametrize("b,n", [(32, 8192), (2, 1024)])
@@ -69,6 +78,11 @@ def test_bench_torch_runs_on_the_cpu_without_jax():
     assert row["value"] == pytest.approx(2 * 1024 / row["step_ms"] * 1e3)
     assert row["model_tflops_fwd"] == bench.fwd_matmul_flops(jax_models.ssg_spec(20, 6), 2, 1024) / 1e12
     assert row["eval_sps_min"] <= row["eval_scenes_per_sec"] <= row["eval_sps_max"] and row["eval_repeats"] == 1
+    assert all(len(row[k]) == 3 and min(row[k]) > 0 for k in EPOCH_FIELDS), {k: row[k] for k in EPOCH_FIELDS}
+    assert (row["solver_scenes"], row["solver_steps_per_epoch"]) == (8, 2)
+    for path in ("host", "resident"):  # an epoch's points over the median of epochs 2 and 3
+        steady = sorted(row[f"solver_epoch_s_{path}"][1:])
+        assert row[f"solver_points_per_sec_{path}"] == pytest.approx(2 * 4 * 256 / (sum(steady) / 2))
     # bench.py's fields that are not ported: bf16's (item 10) alone
     assert row["unported"]["mfu_bf16"] == row["unported"]["ssg_bf16_points_per_sec"] == 10
     assert set(row["unported"].values()) == {10} and len(row["unported"]) == 9
@@ -100,3 +114,30 @@ def test_train_torch_trace_writes_one_trace_of_the_second_epoch(tmp_path):
     assert any(e.get("name", "").startswith("aten::") for e in events)
     losses = [re.findall(r"^epoch \[\d/2\] .*loss (\S+)", log, re.M) for log in (plain, traced)]
     assert len(losses[0]) == 4 and losses[0] == losses[1]
+
+
+def test_bench_hostpipe_torch_runs_its_probes_on_the_cpu(tmp_path):
+    spec = importlib.util.spec_from_file_location("bench_hostpipe_torch",
+                                                  ROOT / "scripts" / "bench_hostpipe_torch.py")
+    hostpipe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hostpipe)
+    out = io.StringIO()
+    argv = ["--device", "cpu", "--scenes", "8", "--points", "4000", "--npoints", "256", "--batch_size", "4",
+            "--store", str(tmp_path / "scenes"), "--device_store"]
+    with contextlib.redirect_stdout(out):
+        hostpipe.main(argv)
+    rows = {r["metric"]: r for r in map(json.loads, out.getvalue().splitlines())}
+    assert list(rows) == ["hostpipe_scene_gen_wall", "hostpipe_store_load_wall", "hostpipe_chunk_regen_wall",
+                          "hostpipe_collate_epoch_wall", "hostpipe_train_points_per_sec"]
+    assert all((r["device"], r["power_limit"]) == ("cpu", None) and r["value"] > 0 for r in rows.values())
+    assert len(list((tmp_path / "scenes").glob("*.npy"))) == 8
+    train = rows["hostpipe_train_points_per_sec"]
+    assert train["device_store"] is True and train["steps_per_epoch"] == 2 and train["upload_s"] >= 0
+    assert len(train["epoch_walls"]) == len(train["regen_join_wait_s"]) == 3
+    assert len(train["regen_background_wall_s"]) == 2  # epochs 2 and 3 regenerate behind the steps
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):  # the scenes are cached: no generation, no Solver
+        hostpipe.main([*argv[:-1], "--host_only"])
+    metrics = [json.loads(line)["metric"] for line in out.getvalue().splitlines()]
+    assert metrics == ["hostpipe_store_load_wall", "hostpipe_chunk_regen_wall", "hostpipe_collate_epoch_wall",
+                       "hostpipe_peak_rss"]

@@ -1015,3 +1015,69 @@ def test_wholescene_update_on_the_card_matches_the_cpu(dev, kind):
     assert card[-1] <= 4 * cpu[-1], (card[-1], cpu[-1])
     for n, b in cpu_b.items():
         torch.testing.assert_close(gpu_b[n], b, rtol=1e-4, atol=1e-4)
+
+
+# --- the device-resident scene store (data/resident.py)
+
+
+def _resident(augment):
+    """A flat store of 4 synthetic scenes and one resident batch of 2 x 2048
+    rows from it, on the CPU."""
+    from pointnet2_scannet_tpu_torch.config import DataConfig
+    from pointnet2_scannet_tpu_torch.data import ResidentBatchLoader, flatten_store, make_synthetic_store
+    from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
+
+    cfg = DataConfig(npoints=2048, use_color=True, use_normal=True, augment=augment)
+    scenes = make_synthetic_store(4, seed=0, n_points=20000)
+    ds = ChunkedSceneDataset(scenes, cfg, phase="train", seed=0, resident=True)
+    ds.generate_chunks()
+    pts, labels = flatten_store(scenes, cfg)
+    store = {"points": torch.from_numpy(pts), "labels": torch.from_numpy(labels),
+             "wtable": torch.from_numpy(scenes.label_weights.astype(np.float32))}
+    return store, {k: torch.from_numpy(v) for k, v in next(iter(ResidentBatchLoader(ds, 2))).items()}
+
+
+def _on(d, dev):
+    return {k: v.to(dev) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("augment", [False, True], ids=["plain", "augmented"])
+def test_materialize_batch_on_the_card_matches_gather_plain_and_the_cpu(dev, augment):
+    from pointnet2_scannet_tpu_torch.data import materialize_batch
+
+    store, batch = _resident(augment)
+    want = materialize_batch(store, batch)
+    kernels.reset_launch_counts()
+    got = materialize_batch(_on(store, dev), _on(batch, dev))
+    assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0) | {"gather": 2}
+    rows = batch["idx"].to(dev).view(1, -1)
+    plain = ga.gather_plain(store["points"].to(dev).unsqueeze(0), rows).view(2, 2048, 9)
+    _equal(got["labels"], ga.gather_plain(store["labels"].to(dev).view(1, -1, 1), rows).view(2, 2048))
+    if augment:  # the transform's float32 sums run in another order on the card
+        _equal(got["points"][..., 3:], plain[..., 3:])
+        torch.testing.assert_close(got["points"][..., :3].cpu(), want["points"][..., :3], rtol=0, atol=1e-5)
+    else:
+        _equal(got["points"], plain)
+        _equal(got["points"].cpu(), want["points"])
+    for k in ("labels", "weights", "row_mask"):
+        _equal(got[k].cpu(), want[k])
+
+
+def test_resident_train_steps_launch_two_store_gathers_each(dev):
+    # the same batch as a host batch and through the store: the same losses
+    # bit for bit, and d launched twice more a step
+    from pointnet2_scannet_tpu_torch.data import materialize_batch
+
+    ts, model, _, schedule = _train_setup(0.5)
+    store, batch = _resident(False)
+    store, batch = _on(store, dev), _on(batch, dev)
+    dense = materialize_batch(store, batch)
+    counts, losses = [], []
+    for resident in (False, True):
+        state = ts.create_train_state(copy.deepcopy(model).to(dev), schedule, seed=0)
+        kernels.reset_launch_counts()
+        losses.append([float((ts.resident_train_step(state, store, batch, num_classes=20) if resident
+                              else ts.train_step(state, dense, num_classes=20))["loss"]) for _ in range(2)])
+        counts.append(kernels.launch_counts())
+    assert counts[1] == counts[0] | {"gather": counts[0]["gather"] + 4}
+    assert losses[1] == losses[0]

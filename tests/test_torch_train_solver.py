@@ -154,7 +154,7 @@ def test_msg_run_trains_and_infer_torch_serves_it(tmp_path):
 @pytest.mark.parametrize(
     "flag",
     # whole-scene training is ported; over several devices it is not
-    [["--bf16"], ["--use_wholescene", "--num_devices", "2"], ["--device_store"], ["--num_devices", "2"],
+    [["--bf16"], ["--use_wholescene", "--num_devices", "2"], ["--num_devices", "2"],
      ["--tp", "2"], ["--dist_coordinator", "localhost:1234"], ["--dist_nprocs", "2"],
      ["--dist_auto"]],
     ids=lambda f: f[0].lstrip("-"),
