@@ -14,6 +14,13 @@ over xyz + 6 feature channels, labels uniform in [0, 20), weights 1; the
 model's weights from torch.Generator().manual_seed(0). Other fields:
 
   msg_points_per_sec, msg_step_ms[_min|_max]   the MSG model, the same way
+  step_ms_bf16[_min|_max],        the bfloat16 compute dtype (get_model(...,
+  ssg_bf16_points_per_sec,        dtype=torch.bfloat16): float32 parameters,
+  msg_bf16_points_per_sec,        Adam state and loss), SSG and MSG, the
+  msg_bf16_step_ms[_min|_max]     same way on the same inputs
+  step_ms_bf16_per_dispatch       step_ms_bf16 itself: the port runs one step
+                                  a dispatch (bench.py's K-step fusion has no
+                                  counterpart here)
   train_repeats, fused_steps      3; 1 (the port runs one step a dispatch)
   model_tflops_fwd                bench.py's analytic forward matmul FLOPs of
                                   the SSG model at B 32 x 8192 (TF)
@@ -21,6 +28,10 @@ model's weights from torch.Generator().manual_seed(0). Other fields:
                                   float32 peak outside the tensor cores (TF32
                                   is off): F32_PEAK by device name, null for a
                                   card not listed
+  mfu_bf16                        3 x those FLOPs / the bfloat16 SSG step /
+                                  the card's dense bfloat16 tensor-core peak
+                                  (BF16_PEAK by device name, null for a card
+                                  not listed)
   serve_columns_per_sec_ssg|msg   one warm Predictor.predict batch of 32
                                   columns (labels to the host included),
                                   median of 9
@@ -56,7 +67,7 @@ model's weights from torch.Generator().manual_seed(0). Other fields:
   solver_store_upload_s           host and uploaded once (1.0 GB)
   device, power_limit             nvidia-smi's name and power limit
   unported                        bench.py's fields not ported yet, each with
-                                  its ROADMAP queue 1 item
+                                  its ROADMAP queue 1 item (none left)
 
 No vs_baseline (its divisor estimates another card) and no TPU figure.
 --device cpu runs every cell at B 2 x 1024 (P3: 1 x 2048; the scene cut to
@@ -96,11 +107,10 @@ SIZES = {
 # float32 FLOP/s outside the tensor cores, by torch.cuda.get_device_name
 # (NVIDIA's data sheet: H100 SXM at 700 W)
 F32_PEAK = {"NVIDIA H100 80GB HBM3": 67e12}
-UNPORTED = {  # bench.py's fields -> ROADMAP queue 1 item
-    k: 10 for k in ("step_ms_bf16", "step_ms_bf16_min", "step_ms_bf16_max", "step_ms_bf16_per_dispatch",
-                    "ssg_bf16_points_per_sec", "msg_bf16_points_per_sec", "msg_bf16_step_ms_min",
-                    "msg_bf16_step_ms_max", "mfu_bf16")
-}
+# dense bfloat16 FLOP/s of the tensor cores, sparsity off, by device name
+# (NVIDIA's data sheet: H100 SXM at 700 W)
+BF16_PEAK = {"NVIDIA H100 80GB HBM3": 989e12}
+UNPORTED: dict[str, int] = {}  # bench.py's fields -> ROADMAP queue 1 item
 
 
 def fwd_matmul_flops(spec, B: int, N: int) -> float:
@@ -165,9 +175,9 @@ def timed_windows(fn, device, steps: int, repeats: int, warm: int) -> list[float
     return sorted(s.elapsed_time(e) / steps for s, e in events)
 
 
-def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0):
+def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0, dtype=None):
     """A train state over a seeded SSG or MSG model at full width (xyz + 6
-    feature channels, 20 classes)."""
+    feature channels, 20 classes), of compute dtype dtype (None: float32)."""
     import dataclasses
 
     import torch
@@ -176,7 +186,7 @@ def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0):
     from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
 
     spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=dropout)
-    model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(seed), device=device)
+    model = PointNet2SemSeg(spec, dtype=dtype, generator=torch.Generator().manual_seed(seed), device=device)
     return ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=seed)
 
 
@@ -195,13 +205,15 @@ def train_inputs(batch: int, npoints: int, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
 
 
-def train_ms(kind: str, device, batch: int, npoints: int, steps: int, warm: int) -> list[float]:
-    """Sorted ms a train step over TRAIN_REPEATS windows of `steps` steps."""
+def train_ms(kind: str, device, batch: int, npoints: int, steps: int, warm: int,
+             dtype=None) -> list[float]:
+    """Sorted ms a train step over TRAIN_REPEATS windows of `steps` steps,
+    in compute dtype dtype (None: float32)."""
     import torch
 
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
-    state = fresh_state(kind, device)
+    state = fresh_state(kind, device, dtype=dtype)
     data = train_inputs(batch, npoints, device)
     losses = []
     times = timed_windows(lambda: losses.append(ts.train_step(state, data, num_classes=20)["loss"]),
@@ -466,10 +478,12 @@ def run(device: str = "cuda") -> dict:
     b, n, steps, warm = size["batch"], size["npoints"], size["steps"], size["warm"]
     row = {"metric": METRIC, "unit": "points/sec", "batch": b, "npoints": n}
     train = {kind: train_ms(kind, device, b, n, steps, warm) for kind in ("ssg", "msg")}
+    bf16 = {kind: train_ms(kind, device, b, n, steps, warm, torch.bfloat16) for kind in ("ssg", "msg")}
     ssg_ms = train["ssg"][TRAIN_REPEATS // 2]
+    bf16_ms = bf16["ssg"][TRAIN_REPEATS // 2]
     flops = fwd_matmul_flops(ssg_spec(20, 6), b, n)
     name, limit = (part.strip() for part in card_line().rsplit(",", 1)) if device == "cuda" else ("cpu", None)
-    peak = F32_PEAK.get(name)
+    peak, bf16_peak = F32_PEAK.get(name), BF16_PEAK.get(name)
     row.update({
         "value": b * n / ssg_ms * 1e3,
         "step_ms": ssg_ms, "step_ms_min": train["ssg"][0], "step_ms_max": train["ssg"][-1],
@@ -479,6 +493,13 @@ def run(device: str = "cuda") -> dict:
         "train_repeats": TRAIN_REPEATS, "fused_steps": 1,
         "model_tflops_fwd": flops / 1e12,
         "mfu_f32": 3.0 * flops / (ssg_ms / 1e3) / peak if peak else None,
+        "step_ms_bf16": bf16_ms, "step_ms_bf16_min": bf16["ssg"][0], "step_ms_bf16_max": bf16["ssg"][-1],
+        "step_ms_bf16_per_dispatch": bf16_ms,
+        "ssg_bf16_points_per_sec": b * n / bf16_ms * 1e3,
+        "msg_bf16_points_per_sec": b * n / bf16["msg"][TRAIN_REPEATS // 2] * 1e3,
+        "msg_bf16_step_ms": bf16["msg"][TRAIN_REPEATS // 2], "msg_bf16_step_ms_min": bf16["msg"][0],
+        "msg_bf16_step_ms_max": bf16["msg"][-1],
+        "mfu_bf16": 3.0 * flops / (bf16_ms / 1e3) / bf16_peak if bf16_peak else None,
     })
     for kind in ("ssg", "msg"):
         times = serve_ms(kind, device, b, n, size["serve_repeats"])

@@ -101,7 +101,8 @@
     forward (SA1); one train step card vs CPU at 2 x 32768 under phase 11's
     bounds; the steady 8 x 32768 train step, timed.
 19. bench_torch.py's cells (bench_torch.run("cuda")), its JSON line printed:
-    the SSG and MSG train steps, serving batches and whole-scene updates,
+    the SSG and MSG train steps (float32 and bfloat16), serving batches and
+    whole-scene updates,
     P3's step, the eval scenes/s and the Solver cells (host path and device
     store); every number finite and positive, and
     the default route's kernels launched (FPS, both ball queries, the
@@ -130,15 +131,37 @@
     bench_torch.py Solver cell's store (256 scenes, T = 25.6 M rows) on one
     resident batch's rows, bit for bit against gather_plain, timed beside
     torch.index_select and the bound.
-23. Print one JSON line of kernel results (time, plain time, the card's bound
+23. The bfloat16 compute dtype. d on bfloat16 rows at every gather of the
+    SSG and MSG bfloat16 train steps (the packed [xyz_hi | xyz_lo |
+    features] payloads, 6 + C wide, and the FP interpolations) and at SA1's
+    odd payload of a 3-channel input (6 + 3), bit for bit against
+    gather_plain; h on bfloat16 cotangents at those train steps' gather
+    gradients and at phase 4's skewed row, bit for bit against the plain
+    version (float32 sums rounded once) on CPU copies; both timed beside
+    the library call (torch.gather; scatter_add_ on float32 copies) and the
+    bound (these run with phases 3-8). Then for SSG and MSG: a bfloat16 run
+    dir served through scripts/infer_torch.py (logits within 4% of the
+    largest, labels equal at 99% of the points counting bfloat16 ties,
+    card against CPU); scripts/train_torch.py --bf16 (phase 10's run) and
+    scripts/eval_torch.py on its run dir, each launching the kernels of its
+    path (a, b or c, d, h in training, i) and no other, d and h on
+    bfloat16 rows; one bfloat16 train step card vs CPU (loss within 2e-3,
+    gradients at most 1.25 times as far from a float64 CPU step as the
+    CPU's bfloat16 ones, and at the median tensor no further from the CPU's
+    bfloat16 gradients than those are from the float64 step; the same
+    gates refuse the card's step with h's output halved and zeroed); two
+    bfloat16 steps on the card bit-identical, and the
+    steady step timed. Phase 19's bench_torch.py row carries the bfloat16
+    fields.
+24. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one), the card line, and last {"ok": true, "device": {...}}.
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21 and 22 starts with every launch counter at 0 and must
-launch every kernel of its path and no other. Any
+13, 14, 15, 16, 18, 19, 20, 21, 22 and 23 starts with every launch counter at 0 and
+must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
 """
@@ -209,6 +232,21 @@ WS_CHECK_COLUMNS, WS_CHECK_BATCH = 3, 2
 EVAL_SCENES, EVAL_AGREE = 4, 0.999
 # phase 22: scenes of the host-vs-resident Solver runs (2 steps an epoch)
 RESIDENT_SCENES = 64
+# phase 23, bfloat16: the payload widths beyond the features (xyz_hi, xyz_lo),
+# the odd payload of a 3-channel input (6 + 3), and the gates of the card
+# against the CPU, the CPU tests' bounds against the JAX package
+# (tests/test_torch_bf16_model.py): logits within 4% of the largest |logit|,
+# labels equal at 99% of the points counting bfloat16 ties, the loss within
+# 2e-3 relative; the card's bfloat16 gradients (relative L2 over all
+# parameters, and the median tensor's) at most 1.25 times as far from a
+# float64 CPU step as the CPU's bfloat16 gradients are (measured at most
+# 1.06; h's output halved: 1.40), and at the median tensor no further from
+# the CPU's bfloat16 gradients than those are from the float64 step over
+# all parameters (the CPU test's third gradient bound; measured 0.21 and
+# 0.25 against 0.68 and 0.55 for SSG and MSG; h's output halved: 0.94)
+BF16_XYZ, BF16_ODD_C = 6, 3
+BF16_LOGIT_SCALE_TOL, BF16_LABEL_AGREE = 0.04, 0.99
+BF16_LOSS_RTOL, BF16_GRAD_VS_CPU = 2e-3, 1.25
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
@@ -319,10 +357,10 @@ def gather_check(torch, tally, path, label, src, idx):
     made beforehand as the library call."""
     from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
 
-    (b, _, c), j = src.shape, idx.shape[1]
+    (b, _, c), j, e = src.shape, idx.shape[1], src.element_size()
     index = idx.long().unsqueeze(-1).expand(-1, -1, c)
     check(torch, tally, path, label, lambda: ga.gather_cuda(src, idx),
-          lambda: ga.gather_plain(src, idx), 4 * (distinct_rows(idx) * c + b * j + b * j * c), 0,
+          lambda: ga.gather_plain(src, idx), e * (distinct_rows(idx) * c + b * j * c) + 4 * b * j, 0,
           library_fn=lambda: torch.gather(src, 1, index))
 
 
@@ -418,13 +456,16 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
     return backward
 
 
-def check_scatter(torch, tally, path, backward) -> None:
-    """Phases 4, 6 and 8: a scatter-add kernel (the tally's: scatter_add.cu,
-    or scatter_smem.cu with scatter_add.cu as its counterpart) against the
-    plain version on CPU copies (which adds in ascending j, as the kernels
-    do) and against a second launch, bit for bit; times against the plain
+def check_scatter(torch, tally, path, backward, dtype=None) -> None:
+    """Phases 4, 6, 8 and 23: a scatter-add kernel (the tally's:
+    scatter_add.cu, or scatter_smem.cu with scatter_add.cu as its
+    counterpart) against the plain version on CPU copies (which adds in
+    ascending j, as the kernels do; bfloat16 cotangents in float32, rounded
+    once) and against a second launch, bit for bit; times against the plain
     version on the card (unordered atomics) and against scatter_add_ on an
-    int64 index made beforehand, beside the route its plan() takes."""
+    int64 index made beforehand (on float32 copies of bfloat16 cotangents),
+    beside the route its plan() takes. dtype: the cotangents' (float32 by
+    default)."""
     from pointnet2_scannet_tpu_torch.ops.cuda import build
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
 
@@ -436,6 +477,10 @@ def check_scatter(torch, tally, path, backward) -> None:
         b, j = idx.shape
         g = torch.randn((b, j, c), generator=gen, device="cuda")
         g *= 10.0 ** (torch.rand((b, j, 1), generator=gen, device="cuda") * 6 - 3)
+        g32 = g
+        if dtype is not None:
+            g = g.to(dtype)
+            g32 = g.float()
         got = kernel(idx, g, n)
         again = kernel(idx, g, n)
         want = sc.scatter_add_plain(idx.cpu(), g.cpu(), n)
@@ -447,13 +492,14 @@ def check_scatter(torch, tally, path, backward) -> None:
         ms = cuda_ms(lambda: kernel(idx, g, n), torch)
         plain_ms = cuda_ms(lambda: sc.scatter_add_plain(idx, g, n), torch)
         library_ms = cuda_ms(lambda: torch.zeros((b, n, c), device="cuda").scatter_add_(
-            1, index, g), torch)
+            1, index, g32), torch)
         more = {k: cuda_ms(lambda: fn(idx, g, n), torch) for k, fn in extra.items()}
-        nbytes, nops = 4 * b * (j + j * c + n * c), b * j * c
+        nbytes, nops = 4 * b * j + g.element_size() * (b * j * c + b * n * c), b * j * c
         tally.add(path, ms, plain_ms, err, nbytes, nops, library_ms, **more)
         bound, by = bound_ms(nbytes, nops)
-        route = mod.plan(b, n, j, c, build.sm_count(g))
-        print(f"kernel {mod.NAME} {path.upper()} {label} (B={b}, J={j}, N={n}, C={c}): "
+        sms = build.sm_count(g)
+        route = sc.plan(b, n, j, c, sms, g.element_size()) if mod is sc else mod.plan(b, n, j, c, sms)
+        print(f"kernel {mod.NAME} {path.upper()} {label} (B={b}, J={j}, N={n}, C={c}, {g.dtype}): "
               f"{ms:.4f} ms, route {type(route).__name__}{tuple(route)}, plain on the card "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms"
               + "".join(f", {k} {v:.4f} ms" for k, v in more.items())
@@ -814,7 +860,8 @@ def load_script(name: str):
     return mod
 
 
-def make_run(torch, run: pathlib.Path, kind: str, npoints: int = NPOINTS) -> pathlib.Path:
+def make_run(torch, run: pathlib.Path, kind: str, npoints: int = NPOINTS,
+             compute_dtype: str = "float32") -> pathlib.Path:
     """A run dir of the SSG or MSG model at full width (xyz + colour +
     normal, 20 classes) with weights drawn from a seeded generator: the
     config.json and model_best.pt that train_torch.py writes."""
@@ -826,7 +873,7 @@ def make_run(torch, run: pathlib.Path, kind: str, npoints: int = NPOINTS) -> pat
     RunConfig(
         tag="chip_smoke",
         data=DataConfig(npoints=npoints, use_color=True, use_normal=True),
-        model=ModelConfig(is_msg=kind == "msg"),
+        model=ModelConfig(is_msg=kind == "msg", compute_dtype=compute_dtype),
     ).save(run / "config.json")
     model = get_model(20, is_msg=kind == "msg", input_channels=6,
                       generator=torch.Generator().manual_seed(0))
@@ -835,19 +882,21 @@ def make_run(torch, run: pathlib.Path, kind: str, npoints: int = NPOINTS) -> pat
 
 
 def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
-          batch_size: int = BATCH) -> dict:
-    """Phases 9, 12 and 13: the serving path end to end, through the
-    kernels."""
+          batch_size: int = BATCH, bf16: bool = False) -> dict:
+    """Phases 9, 12, 13 and 23: the serving path end to end, through the
+    kernels; with bf16, a bfloat16 run dir, its gathers on bfloat16 rows and
+    its logits under the bfloat16 gates (bf16_logits_agree)."""
     import numpy as np
 
     from pointnet2_scannet_tpu_torch.engine.export import Predictor
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config, {npoints}-point columns, batch {batch_size})"
-    run = make_run(torch, tmp / f"run_{kind}_{config}_{npoints}", kind, npoints)
+    dtype = "bfloat16" if bf16 else "float32"
+    name = f"{kind.upper()} ({config} config, {npoints}-point columns, batch {batch_size}, {dtype})"
+    run = make_run(torch, tmp / f"run_{kind}_{config}_{npoints}_{dtype}", kind, npoints, dtype)
 
     infer_torch = load_script("infer_torch")
-    out_dir = tmp / f"out_{kind}"
+    out_dir = tmp / f"out_{kind}_{dtype}"
     args = infer_torch.parse_args([
         "--folder", str(run), "--device", "cuda", "--synthetic",
         "--synthetic_scenes", "4", "--batch_size", str(batch_size), "--out", str(out_dir),
@@ -857,11 +906,12 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
     kernels.reset_launch_counts()
     stats = infer_torch.infer(args)
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    print(f"serve {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}",
-          flush=True)
+    launches, bf16_launches = kernels.launch_counts(), kernels.bf16_launch_counts()
+    print(f"serve {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}, "
+          f"bfloat16 launches {bf16_launches}", flush=True)
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     check_launches(launches, kind, False, f"{name} serving", config, npoints)
+    check_bf16_launches(bf16_launches, bf16, False, f"{name} serving")
 
     files = sorted(out_dir.glob("*_pred.npy"))
     if len(files) != 4:
@@ -887,7 +937,10 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
           f"(max |logit| {float(np.abs(want).max())})", flush=True)
     if got.shape != (len(batch), npoints, 20) or not np.isfinite(got).all():
         raise RuntimeError(f"logits of shape {got.shape} or not finite")
-    np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    if bf16:
+        bf16_logits_agree(np, got, want, name)
+    else:
+        np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
 
     labels = Predictor.from_run(run, batch_size=batch_size, device="cuda")
     labels.predict(batch)  # warm-up
@@ -907,18 +960,20 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
           f"{stats['columns'] / stats['predict_s']:.1f} columns/s "
           f"{stats['points'] / stats['predict_s']:.0f} points/s in predict, "
           f"{stats['columns'] / stats['total_s']:.1f} columns/s end to end", flush=True)
-    stats["launches"] = launches
+    stats["launches"], stats["bf16_launches"] = launches, bf16_launches
     return stats
 
 
 def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
               wholescene: bool = False, batch_size: int = BATCH, trace: bool = False,
-              device_store: bool = False) -> dict:
-    """Phases 10, 12, 13, 16, 20 and 22: training through
+              device_store: bool = False, bf16: bool = False) -> dict:
+    """Phases 10, 12, 13, 16, 20, 22 and 23: training through
     scripts/train_torch.py, through the kernels; chunked (3 steps of 32
     chunks) or whole-scene (WS_EPOCHS epochs of one update per scene); with
     trace, under --trace (check_trace); with device_store, from the
-    device-resident store (its output must hold no fallback line)."""
+    device-resident store (its output must hold no fallback line); with
+    bf16, under --bf16, its gathers and scatter-adds on bfloat16 rows.
+    Returns the run's launches, peak memory and run dir."""
     import contextlib
     import io
     import math
@@ -926,9 +981,9 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
     name = (f"{kind.upper()} ({config} config, {npoints}-point columns{', whole scenes' * wholescene}"
-            f"{', --trace' * trace}{', --device_store' * device_store})")
+            f"{', --trace' * trace}{', --device_store' * device_store}{', --bf16' * bf16})")
     scenes, batch, epochs = (WS_SCENES, WS_BATCH, WS_EPOCHS) if wholescene else (batch_size, batch_size, 3)
-    mode = f"{'ws' if wholescene else 'chunks'}{'_trace' * trace}{'_store' * device_store}"
+    mode = f"{'ws' if wholescene else 'chunks'}{'_trace' * trace}{'_store' * device_store}{'_bf16' * bf16}"
     trace_dir = tmp / f"trace_{kind}_{config}_{npoints}_{mode}"
     train_torch = load_script("train_torch")
     args = train_torch.parse_args([
@@ -938,6 +993,7 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
         "--output_root", str(tmp / f"train_{kind}_{config}_{npoints}_{mode}"),
         *(["--use_msg"] if kind == "msg" else []), *(["--use_wholescene"] if wholescene else []),
         *(["--trace", str(trace_dir)] if trace else []), *(["--device_store"] if device_store else []),
+        *(["--bf16"] if bf16 else []),
     ])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -951,20 +1007,22 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
         print(log.getvalue(), end="", flush=True)
     torch.cuda.synchronize()
     took = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches, bf16_launches = kernels.launch_counts(), kernels.bf16_launch_counts()
     if device_store and ("device_store disabled" in log.getvalue() or "device_store: " not in log.getvalue()):
         raise RuntimeError(f"train {name} did not train from the device-resident store")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}",
-          flush=True)
+    print(f"train {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}, "
+          f"bfloat16 launches {bf16_launches}", flush=True)
     check_launches(launches, kind, True, f"{name} training", config, npoints)
+    check_bf16_launches(bf16_launches, bf16, True, f"{name} training")
     for f in ("model_best.pt", "model_last.pt", "config.json", "best.txt",
               "model_last.train.pt", "tensorboard/all_scalars.json"):
         if not (run_dir / f).is_file():
             raise RuntimeError(f"the training run wrote no {f}")
     saved = json.loads((run_dir / "config.json").read_text())
     if (saved["model"]["is_msg"] != (kind == "msg") or saved["train"]["wholescene"] != wholescene
-            or saved["train"]["device_store"] != device_store):
+            or saved["train"]["device_store"] != device_store
+            or saved["model"]["compute_dtype"] != ("bfloat16" if bf16 else "float32")):
         raise RuntimeError("the run dir's config.json records another model or mode")
     scalars = json.loads((run_dir / "tensorboard" / "all_scalars.json").read_text())
     losses = [v for _, v in scalars["train/loss"]] + [v for _, v in scalars["val/loss"]]
@@ -977,7 +1035,7 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
           f"{best['voxel_miou']:.4f}; peak device memory {peak:.2f} GiB", flush=True)
     if trace:
         check_trace(trace_dir)
-    return {"launches": launches, "peak_gib": peak}
+    return {"launches": launches, "bf16_launches": bf16_launches, "peak_gib": peak, "run_dir": run_dir}
 
 
 def eval_cli(torch, tmp: pathlib.Path, kind: str) -> dict:
@@ -1368,22 +1426,24 @@ def wholescene_time(kind: str) -> dict:
 
 
 def train_step_repeat_and_time(torch, kind: str, config: str = "default", batch_size: int = BATCH,
-                               npoints: int = NPOINTS) -> dict:
-    """Phases 11 and 12: two identical steps on the card give the same bits
-    and launch the kernels of the configuration's path; then the warm step
-    at batch 32, timed with CUDA events."""
+                               npoints: int = NPOINTS, dtype=None) -> dict:
+    """Phases 11, 12 and 23: two identical steps on the card give the same
+    bits and launch the kernels of the configuration's path (in compute
+    dtype dtype; None: float32); then the warm step at batch 32, timed with
+    CUDA events."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config, {batch_size} x {npoints})"
+    name = f"{kind.upper()} ({config} config, {batch_size} x {npoints}{', bfloat16' * (dtype is not None)})"
     batch = train_batch(torch, batch_size, "cuda", npoints)
     states = []
     kernels.reset_launch_counts()
     for _ in range(2):
-        state = bench_torch.fresh_state(kind, "cuda", 0.5)
+        state = bench_torch.fresh_state(kind, "cuda", 0.5, dtype=dtype)
         ts.train_step(state, batch, num_classes=20)
         states.append(state.model.state_dict())
     check_launches(kernels.launch_counts(), kind, True, f"{name} determinism", config, npoints)
+    check_bf16_launches(kernels.bf16_launch_counts(), dtype is not None, True, f"{name} determinism")
     differ = [k for k, v in states[0].items() if not torch.equal(states[1][k], v)]
     print(f"train step {name} determinism (Dropout 0.5): {len(states[0])} tensors, "
           f"{len(differ)} differ", flush=True)
@@ -1480,6 +1540,10 @@ def bench_fused(torch) -> dict:
 
 
 BENCH_KERNELS = {"furthest_point_sample", "ball_query", "ball_query_multi", "gather", "three_nn", "scatter_add"}
+# bench.py's bfloat16 fields (bench.py:219-270) in bench_torch.py's row
+BENCH_BF16 = ("step_ms_bf16", "step_ms_bf16_min", "step_ms_bf16_max", "step_ms_bf16_per_dispatch",
+              "ssg_bf16_points_per_sec", "msg_bf16_points_per_sec", "msg_bf16_step_ms_min",
+              "msg_bf16_step_ms_max", "mfu_bf16")
 
 
 def bench(torch) -> dict:
@@ -1503,6 +1567,9 @@ def bench(torch) -> dict:
     if missing or stray:
         raise RuntimeError(f"bench_torch launched no {missing} kernel, or launched {stray}")
     numbers = {k: v for k, v in row.items() if isinstance(v, float)}
+    if row["unported"] or not set(BENCH_BF16) <= set(numbers):
+        raise RuntimeError(f"bench_torch's row lacks bfloat16 fields {sorted(set(BENCH_BF16) - set(numbers))} "
+                           f"or leaves {row['unported']} unported")
     epochs = [v for k, vs in row.items() if k.startswith("solver_") and isinstance(vs, list) for v in vs]
     bad = sorted(k for k, v in numbers.items() if not (math.isfinite(v) and v > 0))
     solver = {f"solver_points_per_sec_{p}" for p in ("host", "resident")} | {"solver_store_upload_s"}
@@ -1510,6 +1577,190 @@ def bench(torch) -> dict:
             or not all(math.isfinite(v) and v > 0 for v in epochs)):
         raise RuntimeError(f"bench_torch's row has no finite positive {bad}: {row}")
     return launches
+
+
+def check_bf16_launches(bf16_launches: dict, bf16: bool, training: bool, what: str) -> None:
+    """Phase 23: a bfloat16 run launched the gather (and, training, the
+    scatter-add) on bfloat16 rows; a float32 run never did."""
+    want = {"gather": bf16, "scatter_add": bf16 and training}
+    got = {k: n > 0 for k, n in bf16_launches.items()}
+    if got != want:
+        raise RuntimeError(f"the {what} run launched {bf16_launches} on bfloat16 rows")
+
+
+def bf16_logits_agree(np, got, want, what: str) -> None:
+    """Phase 23's serving gate: logits within BF16_LOGIT_SCALE_TOL of the
+    largest |logit| and labels equal at BF16_LABEL_AGREE of the points, a
+    point counting where either label is a maximum of the other side's
+    logits (bfloat16 ties)."""
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    gl, wl = got.argmax(-1), want.argmax(-1)
+    tie = (np.take_along_axis(want, gl[..., None], -1)[..., 0] == want.max(-1)) | \
+          (np.take_along_axis(got, wl[..., None], -1)[..., 0] == got.max(-1))
+    agree, equal = float(np.mean((gl == wl) | tie)), float(np.mean(gl == wl))
+    print(f"logits {what}: card vs CPU bfloat16, max |diff| / max |logit| {err:.4f} (bound "
+          f"{BF16_LOGIT_SCALE_TOL}); labels equal at {equal:.6f} of the points, {agree:.6f} counting ties "
+          f"(bound {BF16_LABEL_AGREE})", flush=True)
+    if not (err <= BF16_LOGIT_SCALE_TOL and agree >= BF16_LABEL_AGREE):
+        raise RuntimeError(f"{what}: the card's bfloat16 logits or labels disagree with the CPU's")
+
+
+def check_bf16_kernels(torch, tallies, xyz, multi_idx) -> None:
+    """Phase 23: d on bfloat16 rows at every gather of the SSG and MSG
+    bfloat16 models in training (the packed grouping payloads, 6 + C wide,
+    at each level, and the FP interpolations) and at SA1's odd payload of a
+    3-channel input (6 + 3, the 2-byte route), bit for bit against
+    gather_plain; h on bfloat16 cotangents at every gather gradient of
+    those train steps and at phase 4's N = 65535 skewed row, bit for bit
+    against the plain version on CPU copies; each timed beside its library
+    call and bound."""
+    from pointnet2_scannet_tpu_torch.models import msg_spec
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel as nn3
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def rows(n, c):
+        return torch.randn((BATCH, n, c), generator=gen, device="cuda").to(bf16)
+
+    tally = tallies[ga.NAME]
+    spec = msg_spec(20, 6)
+    backward = {"ssg": [], "msg": []}
+    for k, (n_in, n_out, radius, c) in enumerate(LEVELS):
+        x, q = xyz[k], xyz[k + 1]
+        nidx = bq.ball_query_cuda(radius, NSAMPLE, x, q).reshape(BATCH, -1)
+        gather_check(torch, tally, "ssg bf16", f"gather bf16 packed grouping ({BATCH},{n_in},{BF16_XYZ + c})"
+                     f"x{nidx.shape[1]}", rows(n_in, BF16_XYZ + c), nidx)
+        if k == 0:
+            gather_check(torch, tally, "odd bf16", f"gather bf16 packed grouping, 3-channel input "
+                         f"({BATCH},{n_in},{BF16_XYZ + BF16_ODD_C})x{nidx.shape[1]}",
+                         rows(n_in, BF16_XYZ + BF16_ODD_C), nidx)
+        else:
+            backward["ssg"].append((f"SA{k + 1} packed grouping", nidx, n_in, BF16_XYZ + c))
+        nn_idx = nn3.three_nn_cuda(x, q)[1].reshape(BATCH, -1)
+        gather_check(torch, tally, "ssg bf16", f"gather bf16 FP{k} interpolation ({BATCH},{n_out},"
+                     f"{FP_CHANNELS[k]})x{nn_idx.shape[1]}", rows(n_out, FP_CHANNELS[k]), nn_idx)
+        backward["ssg"].append((f"FP{k} interpolation", nn_idx, n_out, FP_CHANNELS[k]))
+        c_msg = spec.skip_channels[k]
+        for s in range(2):
+            idx = multi_idx[k][s].reshape(BATCH, -1)
+            gather_check(torch, tally, "msg bf16", f"gather bf16 MSG SA{k + 1} scale {s} packed grouping "
+                         f"({BATCH},{n_in},{BF16_XYZ + c_msg})x{idx.shape[1]}", rows(n_in, BF16_XYZ + c_msg), idx)
+            if k > 0:
+                backward["msg"].append((f"SA{k + 1} scale {s} packed grouping", idx, n_in, BF16_XYZ + c_msg))
+        c_fp = spec.sa_out_channels[-1] if k == len(spec.fp_mlps) - 1 else spec.fp_mlps[k + 1][-1]
+        gather_check(torch, tally, "msg bf16", f"gather bf16 MSG FP{k} interpolation ({BATCH},{n_out},{c_fp})"
+                     f"x{nn_idx.shape[1]}", rows(n_out, c_fp), nn_idx)
+        backward["msg"].append((f"FP{k} interpolation", nn_idx, n_out, c_fp))
+    for kind, shapes in backward.items():
+        check_scatter(torch, tallies["scatter_add"], f"{kind} bf16", shapes, bf16)
+    check_scatter(torch, tallies["scatter_add"], "skew bf16", skewed_row(torch), bf16)
+
+
+@contextlib.contextmanager
+def scaled_h(scale: float):
+    """Phase 23's negative controls: h's wrapper returns its output times
+    scale (0.5: halved, 0.0: zeroed) for the duration."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
+
+    wrapper = sc.scatter_add_cuda
+    sc.scatter_add_cuda = lambda idx, g, n: wrapper(idx, g, n) * scale
+    try:
+        yield
+    finally:
+        sc.scatter_add_cuda = wrapper
+
+
+def train_step_card_vs_cpu_bf16(torch, kind: str) -> None:
+    """Phase 23: one bfloat16 train step from the same weights on the card
+    and on the CPU (2 full-width columns, Dropout off), and a float64 CPU
+    step of those weights as the reference: the loss within BF16_LOSS_RTOL
+    of the CPU's; the card's gradients (over all parameters and at the
+    median tensor) at most BF16_GRAD_VS_CPU times as far from the float64
+    ones as the CPU's bfloat16 gradients are, and at the median tensor no
+    further from the CPU's bfloat16 gradients than those are from the
+    float64 ones over all parameters; the parameters stay float32. The
+    same gates must refuse the card's step with h's output halved and
+    zeroed."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    def step(device, dtype):
+        state = bench_torch.fresh_state(kind, device, 0.0, dtype=None if dtype == torch.float64 else dtype)
+        if dtype == torch.float64:
+            state.model.to(dtype)
+        elif any(p.dtype != torch.float32 for p in state.model.parameters()):
+            raise RuntimeError("a bfloat16 model holds parameters other than float32")
+        batch = {k: v.to(torch.float64) if v.is_floating_point() and dtype == torch.float64 else v
+                 for k, v in train_batch(torch, 2, device).items()}
+        res = ts.train_step(state, batch, num_classes=20)
+        return float(res["loss"]), {k: p.grad.cpu().double() for k, p in state.model.named_parameters()}
+
+    (_, ref), (cpu_loss, cpu_g) = step("cpu", torch.float64), step("cpu", torch.bfloat16)
+
+    def all_l2(g, want):
+        return float(sum(((g[k] - w) ** 2).sum() for k, w in want.items()).sqrt()
+                     / sum((w ** 2).sum() for w in want.values()).sqrt())
+
+    def median(g, want):
+        errs = grad_errors(g, want)
+        return errs[len(errs) // 2][0]
+
+    cpu_all, cpu_med = all_l2(cpu_g, ref), median(cpu_g, ref)
+
+    def gate(what, g) -> bool:
+        card_all, card_med, direct = all_l2(g, ref), median(g, ref), median(g, cpu_g)
+        ok = (card_all <= BF16_GRAD_VS_CPU * cpu_all and card_med <= BF16_GRAD_VS_CPU * cpu_med
+              and direct <= cpu_all)
+        print(f"train step {kind.upper()} bfloat16 gradients, {what}: vs a float64 CPU step, over all "
+              f"parameters {card_all:.3e} (CPU bfloat16 {cpu_all:.3e}, ratio {card_all / cpu_all:.3f}, bound "
+              f"{BF16_GRAD_VS_CPU}), median tensor {card_med:.3e} (CPU {cpu_med:.3e}, ratio "
+              f"{card_med / cpu_med:.3f}); vs the CPU's bfloat16 step, median tensor {direct:.3e} (bound "
+              f"{cpu_all:.3e}): {'pass' if ok else 'fail'}", flush=True)
+        return ok
+
+    gpu_loss, gpu_g = step("cuda", torch.bfloat16)
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    print(f"train step {kind.upper()} bfloat16 card vs CPU (2 x {NPOINTS}): loss {gpu_loss} vs {cpu_loss} "
+          f"(rel {loss_err:.2e}, bound {BF16_LOSS_RTOL})", flush=True)
+    if not loss_err <= BF16_LOSS_RTOL:
+        raise RuntimeError("bfloat16 train step: the card's loss disagrees with the CPU's")
+    if not gate("the card", gpu_g):
+        raise RuntimeError("bfloat16 train step: the card's gradients are further from the float64 "
+                           "and the CPU's bfloat16 gradients than the gates allow")
+    for scale, what in ((0.5, "h halved"), (0.0, "h zeroed")):
+        with scaled_h(scale):
+            broken = step("cuda", torch.bfloat16)[1]
+        if gate(f"the card with {what} (must fail)", broken):
+            raise RuntimeError(f"bfloat16 train step: the gradient gates pass the card's step with {what}")
+
+
+def eval_run(torch, run: pathlib.Path, kind: str) -> dict:
+    """Phase 23: scripts/eval_torch.py on a run dir that train_torch.py
+    --bf16 wrote (2 synthetic scenes, batch 32): the model's forward kernels
+    launched on bfloat16 rows, every metric finite and in [0, 1]."""
+    import math
+
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    eval_torch = load_script("eval_torch")
+    args = eval_torch.parse_args(["--folder", str(run), "--device", "cuda", "--synthetic", "--synthetic_scenes",
+                                  "2", "--batch_size", str(BATCH)])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    report = eval_torch.evaluate(args)
+    torch.cuda.synchronize()
+    launches, bf16_launches = kernels.launch_counts(), kernels.bf16_launch_counts()
+    what = f"eval_torch.py {kind.upper()} bfloat16 run dir"
+    print(f"{what}: launches {launches}, bfloat16 launches {bf16_launches}; point acc "
+          f"{report.point_acc:.4f}, voxel mIoU {report.voxel_miou:.4f}", flush=True)
+    check_launches(launches, kind, False, what)
+    check_bf16_launches(bf16_launches, True, False, what)
+    values = [report.point_acc, report.voxel_acc, report.voxel_cali_acc, report.point_miou, report.voxel_miou]
+    if len(report.scenes) != 2 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+        raise RuntimeError(f"{what}: {len(report.scenes)} scenes, metrics {values}")
+    return {"launches": launches, "bf16_launches": bf16_launches}
 
 
 def main() -> int:
@@ -1549,6 +1800,7 @@ def main() -> int:
     check_fused(torch, tallies)
     check_p3_fps(torch, tallies["furthest_point_sample"])
     check_p3_queries(torch, tallies)
+    check_bf16_kernels(torch, tallies, xyz, multi_idx)  # phase 23's kernel checks
     del backward, multi_idx, xyz, fps_idx, input_feats
     for name, t in tallies.items():
         for path, p in t.paths.items():
@@ -1556,16 +1808,21 @@ def main() -> int:
                 f"{k} {v:.4f}" for k, v in p.items() if v is not None), flush=True)
     gathers = tallies["gather"].paths
     for what, paths in (("SSG's 8 (centroids, groupings)", ("ssg",)),
-                        ("SSG's 12 (and FP0-FP3)", ("ssg", "ssg fp")), ("MSG's 16", ("msg",))):
+                        ("SSG's 12 (and FP0-FP3)", ("ssg", "ssg fp")), ("MSG's 16", ("msg",)),
+                        ("SSG's 8 bfloat16 (groupings, FP0-FP3)", ("ssg bf16",)),
+                        ("MSG's 12 bfloat16 (groupings, FP0-FP3)", ("msg bf16",))):
         print(f"kernel gather over {what}: " + ", ".join(
             f"{k} {sum(gathers[p][k] for p in paths):.4f}" for k in ("ms", "library_ms", "bytes")),
             flush=True)
 
     launches = {name: 0 for name in tallies}
+    bf16_launches = dict.fromkeys(kernels.bf16_launch_counts(), 0)
 
     def tally(run: dict) -> None:
         for name, n in run["launches"].items():
             launches[name] += n
+        for name, n in run.get("bf16_launches", {}).items():
+            bf16_launches[name] += n
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = pathlib.Path(tmp)
@@ -1614,8 +1871,23 @@ def main() -> int:
     check_store_gather(torch, tallies["gather"])
     print("kernel gather over the STORE shape: " + ", ".join(
         f"{k} {v:.4f}" for k, v in tallies["gather"].paths["store"].items() if v is not None), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 23: bfloat16
+        tmp = pathlib.Path(tmp)
+        for model_kind in KINDS:
+            tally(serve(torch, tmp, model_kind, bf16=True))
+            run = train_cli(torch, tmp, model_kind, bf16=True)
+            tally(run)
+            tally(eval_run(torch, run["run_dir"], model_kind))
+    for model_kind in KINDS:
+        train_step_card_vs_cpu_bf16(torch, model_kind)
+        train_step_repeat_and_time(torch, model_kind, dtype=torch.bfloat16)
 
-    print(json.dumps({"kernels": [t.row(launches[name]) for name, t in tallies.items()]}))
+    print(f"bfloat16 launches on the main path (phase 23's runs): {bf16_launches}", flush=True)
+    rows = [t.row(launches[name]) for name, t in tallies.items()]
+    for row in rows:
+        if row["name"] in bf16_launches:
+            row["bf16_launches"] = bf16_launches[row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(bench_torch.card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

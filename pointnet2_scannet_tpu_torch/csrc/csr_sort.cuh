@@ -1,9 +1,11 @@
 // A stable counting sort of each index row over the whole card, and the
 // ordered sum over its segments: the scatter-add
 //   out[b, n, :] = sum over j with idx[b, j] == n of g[b, j, :]
-// summed in ascending j from +0.0f, rows that no j references 0, with no
-// float atomics. scatter_smem.cu's sort route and scatter_add.cu's sort
-// route both run it through csr_scatter_add() below.
+// summed in float32 in ascending j from +0.0f, rows that no j references
+// 0, with no float atomics; g and out are float32, or bfloat16 (each
+// element widened before it is added, each output rounded once to nearest
+// even). scatter_smem.cu's sort route and scatter_add.cu's sort route both
+// run it through csr_scatter_add() below.
 //
 // Bound on the card: bytes of g (each word read once) and of out (written
 // once). Each index row is sorted once, in parallel over the card, and
@@ -41,11 +43,21 @@
 //      own warps.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "smem_limit.cuh"
 
 namespace {
+
+// the element types of a scatter-add's g and out, and their float32 sums
+__device__ __forceinline__ float p2_widen(float v) { return v; }
+__device__ __forceinline__ float p2_widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T p2_narrow(float v);
+template <> __device__ __forceinline__ float p2_narrow<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 p2_narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int kCountThreads = 256;
 constexpr int kScanThreads = 1024;  // 32 full warps: the scan below needs it
@@ -229,12 +241,13 @@ __global__ void __launch_bounds__(kPlaceThreads)
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-    segment_sum_kernel(const float* __restrict__ g,
+    segment_sum_kernel(const T* __restrict__ g,
                        const int* __restrict__ offsets,
                        const int* __restrict__ order, int N, int J, int C,
                        int rows, int groups, int chunks, long long warps,
-                       float* __restrict__ out) {
+                       T* __restrict__ out) {
   const long long w =
       (static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x) >> 5;
   if (w >= warps) return;  // whole warps leave together
@@ -253,14 +266,14 @@ __global__ void __launch_bounds__(kSumThreads)
   const int start = __shfl_sync(0xffffffffu, bound, 0);
   const int end = __shfl_sync(0xffffffffu, bound, nr);
   const int* ord = order + b * J;
-  const float* gb = g + b * J * C + (live ? c : 0);
-  float* ob = out + (b * N + n0) * C + c;
+  const T* gb = g + b * J * C + (live ? c : 0);
+  T* ob = out + (b * N + n0) * C + c;
 
   // rows no entry names are 0
   const int next = __shfl_down_sync(0xffffffffu, bound, 1);
   for (unsigned empty = __ballot_sync(0xffffffffu, lane < nr && next == bound); empty;
        empty &= empty - 1) {
-    if (live) ob[static_cast<long long>(__ffs(empty) - 1) * C] = 0.0f;
+    if (live) ob[static_cast<long long>(__ffs(empty) - 1) * C] = p2_narrow<T>(0.0f);
   }
 
   int r = -1;  // the row being summed; warp-uniform
@@ -272,7 +285,7 @@ __global__ void __launch_bounds__(kSumThreads)
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const long long j = __shfl_sync(0xffffffffu, mine, u);
-      v[u] = (live && u < cnt) ? gb[j * C] : 0.0f;
+      v[u] = (live && u < cnt) ? p2_widen(gb[j * C]) : 0.0f;
     }
     const int e = k0 + lane;
     mine = lane < kBatch && e + kBatch < end ? ord[e + kBatch] : 0;  // the next batch, in flight
@@ -283,7 +296,7 @@ __global__ void __launch_bounds__(kSumThreads)
       const int ru = __shfl_sync(0xffffffffu, row, u);
       if (u < cnt) {
         if (ru != r) {  // entry u starts row ru: row r is done
-          if (live && r >= 0) ob[static_cast<long long>(r) * C] = acc;
+          if (live && r >= 0) ob[static_cast<long long>(r) * C] = p2_narrow<T>(acc);
           acc = 0.0f;
           r = ru;
         }
@@ -291,18 +304,19 @@ __global__ void __launch_bounds__(kSumThreads)
       }
     }
   }
-  if (live && r >= 0) ob[static_cast<long long>(r) * C] = acc;
+  if (live && r >= 0) ob[static_cast<long long>(r) * C] = p2_narrow<T>(acc);
 }
 
-// idx (B, J) int32 in [0, N), trusted; g (B, J, C) float32; out (B, N, C)
-// float32, every word written. tile: the indices a sort block takes (a
-// multiple of 32 * walkers, at most 8192); walkers: the warps that rank a
-// tile (1 to 8); rows: the output rows a sum warp takes (1 to 31); all from
-// scatter_smem_kernel.sort_plan(). scratch: int32 words for
-// counts (B, ceil(J / tile), N), offsets (B, N + 1) and order (B, J), in
-// that order, which the caller allocates.
-inline int csr_scatter_add(const int* idx, const float* g, int B, int N, int J, int C, int tile,
-                           int walkers, int rows, int* scratch, float* out, void* stream) {
+// idx (B, J) int32 in [0, N), trusted; g (B, J, C) and out (B, N, C) of
+// T (float or __nv_bfloat16), every word of out written. tile: the indices
+// a sort block takes (a multiple of 32 * walkers, at most 8192); walkers:
+// the warps that rank a tile (1 to 8); rows: the output rows a sum warp
+// takes (1 to 31); all from scatter_smem_kernel.sort_plan(). scratch:
+// int32 words for counts (B, ceil(J / tile), N), offsets (B, N + 1) and
+// order (B, J), in that order, which the caller allocates.
+template <typename T>
+int csr_scatter_add(const int* idx, const T* g, int B, int N, int J, int C, int tile,
+                    int walkers, int rows, int* scratch, T* out, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   if (J < 0 || N > kMaxN || B > 65535 || tile > kMaxTile || walkers < 1 ||
       walkers > kMaxWalkers || tile < 32 * walkers || tile % (32 * walkers) != 0 ||
@@ -345,7 +359,7 @@ inline int csr_scatter_add(const int* idx, const float* g, int B, int N, int J, 
   const int chunks = (C + 31) / 32;
   const long long warps = static_cast<long long>(B) * groups * chunks;
   const long long blocks = (warps * 32 + kSumThreads - 1) / kSumThreads;
-  segment_sum_kernel<<<static_cast<unsigned>(blocks), kSumThreads, 0, s>>>(
+  segment_sum_kernel<T><<<static_cast<unsigned>(blocks), kSumThreads, 0, s>>>(
       g, offsets, order, N, J, C, rows, groups, chunks, warps, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,13 @@
-// Row gather of 4-byte words: out[b, j, :] = src[b, idx[b, j], :].
+// Row gather of raw words: out[b, j, :] = src[b, idx[b, j], :].
 //
 // Replaces pointnet2_scannet_tpu/ops/pallas/vmem_gather_kernel.py
 // (_vmem_gather_fwd_only, reached through vmem_gather / vmem_gather_any).
 // float32 and int32 rows move as raw 32-bit words, so the copy is bit-exact
-// for both (-0.0, inf and NaN patterns included). The backward is
-// scatter_add.cu.
+// for both (-0.0, inf and NaN patterns included). bfloat16 rows of even C
+// come as int32 lane pairs (the wrapper's view of the same bytes, as the
+// TPU kernel's _pack_bf16 bitcast); odd C (a 3-channel input's SA1 payload
+// of 9), or a row start off 4-byte alignment, moves 2-byte words through
+// the same kernel. The backward is scatter_add.cu.
 //
 // Bound on the card: bytes, reached only with many independent loads in
 // flight. The TPU kernel rebuilt a gather out of 128-lane selects because
@@ -115,15 +118,17 @@ cudaError_t dispatch(const void* src, const int* idx, int B, int N, int J, int w
 
 }  // namespace
 
-// src (B, N, C) and out (B, J, C) are 4-byte words (float32 or int32); idx
-// holds int32 indices that the caller guarantees lie in [0, N). vec 4 moves
+// src (B, N, C) and out (B, J, C) are words of esize bytes: 4 (float32,
+// int32, or bfloat16 lane pairs) or 2 (bfloat16); idx holds int32 indices
+// that the caller guarantees lie in [0, N). With esize 4, vec 4 moves
 // 16-byte words (C % 4 == 0, src and out 16-byte aligned), vec 1 4-byte
-// ones; per_thread (1, 2, 4 or 8) words a thread: gather_kernel.plan().
-// device: the card that holds the tensors.
+// ones; esize 2 takes vec 1. per_thread (1, 2, 4 or 8) words a thread:
+// gather_kernel.plan(). device: the card that holds the tensors.
 extern "C" int p2_gather(const void* src, const int* idx, int B, int N, int J, int C, int vec,
-                         int per_thread, void* out, int device, void* stream) {
+                         int per_thread, int esize, void* out, int device, void* stream) {
   if (static_cast<long long>(B) * J * C <= 0) return static_cast<int>(cudaSuccess);
-  if (N <= 0 || (vec != 1 && vec != 4) || C % vec != 0 ||
+  if (N <= 0 || (esize != 4 && esize != 2) || (vec != 1 && (vec != 4 || esize != 4)) ||
+      C % vec != 0 ||
       static_cast<long long>(J) * (C / vec) > kMaxWords ||
       (vec == 4 && (reinterpret_cast<std::uintptr_t>(src) % 16 != 0 ||
                     reinterpret_cast<std::uintptr_t>(out) % 16 != 0))) {
@@ -131,6 +136,7 @@ extern "C" int p2_gather(const void* src, const int* idx, int B, int N, int J, i
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(p2_on_device(device, [&] {
+    if (esize == 2) return dispatch<unsigned short>(src, idx, B, N, J, C, per_thread, out, s);
     return vec == 4 ? dispatch<uint4>(src, idx, B, N, J, C / 4, per_thread, out, s)
                     : dispatch<unsigned>(src, idx, B, N, J, C, per_thread, out, s);
   }));

@@ -1,6 +1,11 @@
 // Deterministic scatter-add, the backward of the row gather:
 //   out[b, n, :] = sum over j with idx[b, j] == n of g[b, j, :]
-// summed in ascending j from +0.0f; rows that no j references are 0.
+// summed in float32 in ascending j from +0.0f; rows that no j references
+// are 0. g and out are float32, or bfloat16: each bfloat16 element is
+// widened to float32 before it is added and each output is rounded once to
+// bfloat16 (to nearest even), as the TPU kernel's split bf16 backward sums
+// bfloat16 cotangents in float32 and casts once (_mxu_gather_split_bwd's
+// g.astype(float32) ... out.astype(g.dtype)).
 //
 // Replaces pointnet2_scannet_tpu/ops/pallas/gather_kernel.py
 // (_mxu_gather_split_bwd, reached through mxu_scatter_add from the row
@@ -44,6 +49,11 @@
 //   2. csr_sort.cuh's card-wide sort and ordered sum (scatter_smem.cu's sort
 //      route), where the row does not fit: J above 65535 (P3's FP0, J =
 //      98304) or more than shared memory holds.
+// bfloat16 g halves the bytes both routes read: the block route's page
+// holds bfloat16 entries (a 16-byte copy moves 8 of them where C % 8 == 0,
+// a 4-byte one 2 where C is even, and an odd C copies 2-byte elements
+// without cp.async, which moves 4, 8 or 16 bytes), so a page of the same
+// shared memory holds twice the entries.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -71,7 +81,7 @@ __device__ __forceinline__ int last_at_most(const int* off, int n, int k) {
 }
 
 // Copies 16 bytes from device memory to shared memory, past L1 (cp.async.cg).
-__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
@@ -80,16 +90,23 @@ __device__ __forceinline__ void copy16_async(float* dst, const float* src) {
 // up to 16 bytes for the region's 16-byte copies.
 __host__ __device__ inline int head_words(int rows) { return (rows + 4) / 4 * 4; }
 
+// 4-byte words of the page's two stages: 2 x page x kWidth elements of T
+template <typename T>
+__host__ __device__ inline long long stage_words(long long page, int width) {
+  return 2 * page * width * static_cast<long long>(sizeof(T)) / 4;
+}
+
 // grid (slices of kChunks x 32 channels, groups, B). Dynamic shared memory:
 // off (head_words(rows) ints), then one region of 4-byte words that holds
 // first the walkers' packed 16-bit counters (walkers x ceil(rows / 2)) and
-// then the page's two stages (2 x page x kChunks x 32 floats), then order (J
-// 16-bit j's). kVec: floats a copy of the page moves (4 where C % 4 == 0,
-// else 1).
-template <int kChunks, int kVec>
+// then the page's two stages (stage_words), then order (J 16-bit j's). T:
+// the element of g and out (float or __nv_bfloat16); kVec: elements a copy
+// of the page moves (float: 4 where C % 4 == 0, else 1; bfloat16: 8 where
+// C % 8 == 0, 2 where C is even, else 1).
+template <typename T, int kChunks, int kVec>
 __global__ void __launch_bounds__(kBlockThreads)
-    block_kernel(const int* __restrict__ idx, const float* __restrict__ g, int N, int J, int C,
-                 int rows_per_group, int walkers, int page, float* __restrict__ out) {
+    block_kernel(const int* __restrict__ idx, const T* __restrict__ g, int N, int J, int C,
+                 int rows_per_group, int walkers, int page, T* __restrict__ out) {
   constexpr int kWidth = kChunks * 32;  // channels of the block's slice
   extern __shared__ __align__(16) int block_smem[];
   __shared__ int warp_total[kBlockWarps];
@@ -100,10 +117,10 @@ __global__ void __launch_bounds__(kBlockThreads)
   const int rows = min(rows_per_group, N - n0);
   const long long b = blockIdx.z;
   const int words = (rows + 1) / 2;
-  const int region = max(walkers * words, 2 * page * kWidth);
+  const int region = max(walkers * words, static_cast<int>(stage_words<T>(page, kWidth)));
   int* off = block_smem;
   unsigned* cursor = reinterpret_cast<unsigned*>(off + head_words(rows));
-  float* stages = reinterpret_cast<float*>(off + head_words(rows));
+  T* stages = reinterpret_cast<T*>(off + head_words(rows));
   unsigned short* order = reinterpret_cast<unsigned short*>(off + head_words(rows) + region);
   const int* ib = idx + b * J;
   const int stretch = max(32, (J + walkers * 32 - 1) / (walkers * 32) * 32);
@@ -189,33 +206,36 @@ __global__ void __launch_bounds__(kBlockThreads)
   bool live[kChunks];  // lane's channel of each 32-channel chunk lies below C
 #pragma unroll
   for (int q = 0; q < kChunks; ++q) live[q] = c0 + q * 32 + lane < C;
-  float* ob = out + (b * N + n0) * C + c0 + lane;
+  T* ob = out + (b * N + n0) * C + c0 + lane;
   for (int r = warp; r < rows; r += kBlockWarps) {  // rows no entry names are 0
     if (off[r] == off[r + 1]) {
 #pragma unroll
       for (int q = 0; q < kChunks; ++q) {
-        if (live[q]) ob[static_cast<long long>(r) * C + q * 32] = 0.0f;
+        if (live[q]) ob[static_cast<long long>(r) * C + q * 32] = p2_narrow<T>(0.0f);
       }
     }
   }
   const int total = off[rows];
-  const float* gb = g + b * J * C + c0;
+  const T* gb = g + b * J * C + c0;
   // the page of entries p0 .. p0 + page into one stage while the other is
-  // summed: each entry's slice is a run of kWidth floats of one g row, kPer
-  // copies of kVec floats, which consecutive threads take (a warp moves 128
-  // coalesced bytes, or 512 with kVec = 4)
-  auto issue = [&](int p0, float* stage) {
+  // summed: each entry's slice is a run of kWidth elements of one g row,
+  // kPer copies of kVec elements, which consecutive threads take (a warp
+  // moves 32 coalesced copies of kBytes)
+  auto issue = [&](int p0, T* stage) {
     constexpr int kPer = kWidth / kVec;
+    constexpr int kBytes = kVec * static_cast<int>(sizeof(T));
     const int n = min(page, total - p0);
     for (int it = threadIdx.x; it < n * kPer; it += kBlockThreads) {
       const int e = it / kPer;
       const int f = (it - e * kPer) * kVec;
       if (c0 + f < C) {
-        const float* src = gb + static_cast<long long>(order[p0 + e]) * C + f;
-        if constexpr (kVec == 4) {
+        const T* src = gb + static_cast<long long>(order[p0 + e]) * C + f;
+        if constexpr (kBytes == 16) {
           copy16_async(stage + e * kWidth + f, src);
-        } else {
-          __pipeline_memcpy_async(stage + e * kWidth + f, src, sizeof(float));
+        } else if constexpr (kBytes == 4) {
+          __pipeline_memcpy_async(stage + e * kWidth + f, src, kBytes);
+        } else {  // one 2-byte element: below cp.async's smallest copy
+          stage[e * kWidth + f] = *src;
         }
       }
     }
@@ -226,7 +246,7 @@ __global__ void __launch_bounds__(kBlockThreads)
 #pragma unroll
   for (int q = 0; q < kChunks; ++q) acc[q] = 0.0f;
   for (int p0 = 0, i = 0; p0 < total; p0 += page, i ^= 1) {
-    const float* stage = stages + i * page * kWidth + lane;
+    const T* stage = stages + i * page * kWidth + lane;
     if (p0 + page < total) {
       issue(p0 + page, stages + (i ^ 1) * page * kWidth);
     } else {
@@ -250,14 +270,14 @@ __global__ void __launch_bounds__(kBlockThreads)
       const int k1 = min(end, pend);
 #pragma unroll 4
       for (int k = max(start, p0); k < k1; ++k) {
-        const float* x = stage + (k - p0) * kWidth;
+        const T* x = stage + (k - p0) * kWidth;
 #pragma unroll
-        for (int q = 0; q < kChunks; ++q) acc[q] = __fadd_rn(acc[q], x[q * 32]);
+        for (int q = 0; q < kChunks; ++q) acc[q] = __fadd_rn(acc[q], p2_widen(x[q * 32]));
       }
       if (end <= pend) {
 #pragma unroll
         for (int q = 0; q < kChunks; ++q) {
-          if (live[q]) ob[static_cast<long long>(r) * C + q * 32] = acc[q];
+          if (live[q]) ob[static_cast<long long>(r) * C + q * 32] = p2_narrow<T>(acc[q]);
         }
       }
     }
@@ -265,54 +285,59 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-template <int kChunks, int kVec>
-cudaError_t launch_block(const int* idx, const float* g, int B, int N, int J, int C,
-                         int rows_per_group, int walkers, int page, float* out,
+template <typename T, int kChunks, int kVec>
+cudaError_t launch_block(const int* idx, const void* g, int B, int N, int J, int C,
+                         int rows_per_group, int walkers, int page, void* out,
                          cudaStream_t stream) {
   const long long words = (rows_per_group + 1) / 2;
-  const long long stages = 2LL * page * kChunks * 32;
+  const long long stages = stage_words<T>(page, kChunks * 32);
   const long long region = walkers * words > stages ? walkers * words : stages;
   const size_t smem = static_cast<size_t>(head_words(rows_per_group) + region) * sizeof(int) +
                       static_cast<size_t>(J) * sizeof(unsigned short);
   static int allowed[kP2MaxDevices] = {};
-  cudaError_t err = p2_allow_smem(block_kernel<kChunks, kVec>, smem, allowed);
+  cudaError_t err = p2_allow_smem(block_kernel<T, kChunks, kVec>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((C + kChunks * 32 - 1) / (kChunks * 32), (N + rows_per_group - 1) / rows_per_group,
                   B);
-  block_kernel<kChunks, kVec><<<grid, kBlockThreads, smem, stream>>>(idx, g, N, J, C,
-                                                                     rows_per_group, walkers,
-                                                                     page, out);
+  block_kernel<T, kChunks, kVec><<<grid, kBlockThreads, smem, stream>>>(
+      idx, static_cast<const T*>(g), N, J, C, rows_per_group, walkers, page, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// idx (B, J) int32 in [0, N), trusted; g (B, J, C) float32; out (B, N, C)
-// float32, every word written. The block route, one launch: chunks (a
-// block's slice of channels in 32-channel chunks, 1 to 4), vec (floats a
-// copy moves: 4, where C % 4 == 0, or 1), rows_per_group
+// idx (B, J) int32 in [0, N), trusted; g (B, J, C) and out (B, N, C) of
+// esize-byte elements (4: float32; 2: bfloat16), every word of out written.
+// The block route, one launch: chunks (a block's slice of channels in
+// 32-channel chunks, 1 to 4), vec (elements a copy moves: float32 4, where
+// C % 4 == 0, or 1; bfloat16 8, where C % 8 == 0, 2, where C is even, or
+// 1; 16- and 4-byte copies need g aligned to their size), rows_per_group
 // (the output rows a block takes, 1 to N), walkers (the warps that sort, 1
 // to 32) and page (entries a stage of the page holds, 1 to 1024), all from
 // scatter_kernel.plan(), which keeps J <= 65535 and the block's shared
 // memory (scatter_kernel.block_bytes) within the card's. device: the card
 // that holds the tensors.
-extern "C" int p2_scatter_add(const int* idx, const float* g, int B, int N, int J, int C,
+extern "C" int p2_scatter_add(const int* idx, const void* g, int B, int N, int J, int C,
                               int chunks, int vec, int rows_per_group, int walkers, int page,
-                              float* out, int device, void* stream) {
+                              int esize, void* out, int device, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   if (J < 0 || J > kMaxBlockJ || B > 65535 || rows_per_group < 1 || rows_per_group > N ||
       (N + rows_per_group - 1) / rows_per_group > 65535 || walkers < 1 ||
-      walkers > kBlockWarps || page < 1 || page > kMaxPage || (vec == 4 && C % 4 != 0)) {
+      walkers > kBlockWarps || page < 1 || page > kMaxPage || vec < 1 || C % vec != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(p2_on_device(device, [&] {
-    switch (chunks * 10 + vec) {
-#define P2_BLOCK_CASE(c, v) \
-  case c * 10 + v:          \
-    return launch_block<c, v>(idx, g, B, N, J, C, rows_per_group, walkers, page, out, s);
-      P2_BLOCK_CASE(1, 1) P2_BLOCK_CASE(2, 1) P2_BLOCK_CASE(3, 1) P2_BLOCK_CASE(4, 1)
-      P2_BLOCK_CASE(1, 4) P2_BLOCK_CASE(2, 4) P2_BLOCK_CASE(3, 4) P2_BLOCK_CASE(4, 4)
+    switch (esize * 1000 + chunks * 10 + vec) {
+#define P2_BLOCK_CASE(T, e, c, v) \
+  case e * 1000 + c * 10 + v:    \
+    return launch_block<T, c, v>(idx, g, B, N, J, C, rows_per_group, walkers, page, out, s);
+#define P2_BLOCK_CASES(T, e, v) \
+  P2_BLOCK_CASE(T, e, 1, v) P2_BLOCK_CASE(T, e, 2, v) P2_BLOCK_CASE(T, e, 3, v) P2_BLOCK_CASE(T, e, 4, v)
+      P2_BLOCK_CASES(float, 4, 1) P2_BLOCK_CASES(float, 4, 4)
+      P2_BLOCK_CASES(__nv_bfloat16, 2, 1) P2_BLOCK_CASES(__nv_bfloat16, 2, 2)
+      P2_BLOCK_CASES(__nv_bfloat16, 2, 8)
+#undef P2_BLOCK_CASES
 #undef P2_BLOCK_CASE
       default: return cudaErrorInvalidValue;
     }
@@ -320,13 +345,18 @@ extern "C" int p2_scatter_add(const int* idx, const float* g, int B, int N, int 
 }
 
 // The sort route: csr_scatter_add (csr_sort.cuh) with scatter_kernel.plan()'s
-// tile, walkers and rows; scratch as csr_scatter_add takes it; device as
-// above.
-extern "C" int p2_scatter_add_sort(const int* idx, const float* g, int B, int N, int J, int C,
-                                   int tile, int walkers, int rows, int* scratch, float* out,
-                                   int device, void* stream) {
+// tile, walkers and rows; esize, scratch as csr_scatter_add takes it and
+// device as above.
+extern "C" int p2_scatter_add_sort(const int* idx, const void* g, int B, int N, int J, int C,
+                                   int tile, int walkers, int rows, int esize, int* scratch,
+                                   void* out, int device, void* stream) {
+  if (esize != 4 && esize != 2) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(p2_on_device(device, [&] {
     return static_cast<cudaError_t>(
-        csr_scatter_add(idx, g, B, N, J, C, tile, walkers, rows, scratch, out, stream));
+        esize == 4 ? csr_scatter_add(idx, static_cast<const float*>(g), B, N, J, C, tile, walkers,
+                                     rows, scratch, static_cast<float*>(out), stream)
+                   : csr_scatter_add(idx, static_cast<const __nv_bfloat16*>(g), B, N, J, C, tile,
+                                     walkers, rows, scratch, static_cast<__nv_bfloat16*>(out),
+                                     stream));
   }));
 }

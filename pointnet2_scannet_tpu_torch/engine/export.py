@@ -45,28 +45,18 @@ def run_kind(raw_config: dict) -> str:
 
 def load_run_model(run_dir: str | pathlib.Path, checkpoint: str = "model_best"):
     """(model on the CPU, RunConfig) of a semantic-segmentation run dir:
-    config.json names the model, <checkpoint>.pt holds its state_dict, which
-    must fit it exactly."""
+    config.json names the model and its compute dtype, <checkpoint>.pt
+    holds its state_dict (float32 in either dtype), which must fit it
+    exactly."""
     from pointnet2_scannet_tpu_torch.engine.checkpoint import load_state_dict
-    from pointnet2_scannet_tpu_torch.models.pointnet2 import get_model
+    from pointnet2_scannet_tpu_torch.models.pointnet2 import model_from_config
 
     run_dir = pathlib.Path(run_dir)
     kind = run_kind(json.loads((run_dir / "config.json").read_text()))
     if kind != "semseg":
         raise ValueError(f"{run_dir} holds a {kind} run; only semseg serves here")
     cfg = RunConfig.load(run_dir / "config.json")
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.model.compute_dtype} is not ported yet "
-            "(ROADMAP queue 1, item 10)"
-        )
-    model = get_model(
-        num_classes=cfg.model.num_classes,
-        is_msg=cfg.model.is_msg,
-        input_channels=cfg.data.input_channels,
-        use_xyz=cfg.model.use_xyz,
-        bn=cfg.model.bn,
-    )
+    model = model_from_config(cfg)
     model.load_state_dict(load_state_dict(run_dir, checkpoint), strict=True)
     return model, cfg
 

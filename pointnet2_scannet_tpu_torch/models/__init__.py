@@ -7,6 +7,7 @@ from pointnet2_scannet_tpu_torch.models.pointnet2 import (
     PointNet2SemSeg,
     PointNet2Spec,
     get_model,
+    model_from_config,
     msg_spec,
     ssg_spec,
 )
@@ -20,5 +21,6 @@ __all__ = [
     "ssg_spec",
     "msg_spec",
     "get_model",
+    "model_from_config",
     "state_dict_from_jax",
 ]

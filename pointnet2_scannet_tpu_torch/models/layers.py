@@ -18,6 +18,13 @@ Train mode with a row_mask (the whole-scene step's padded micro-batches)
 runs the JAX package's MaskedBatchNorm instead (layers.py:27-91): batch
 statistics over the real rows only, with the two-pass variance, normalised
 in that module's own order.
+
+A compute dtype (dtype=torch.bfloat16) follows flax's dtype semantics, not
+torch.autocast: the parameters stay float32; each Linear casts its input,
+weight and bias to the compute dtype (flax's promote_dtype) and returns it;
+BatchNorm takes its statistics in float32, normalises in float32 (x - mean
+promotes) and casts its result to the compute dtype at the end (flax's
+_normalize).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import math
 from collections.abc import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pointnet2_scannet_tpu_torch import ops
@@ -50,6 +58,8 @@ class PointwiseMLP(nn.Module):
 
     Parameters are named dense_{i} and bn_{i}, after the JAX package's tree.
     last_act=False leaves the final layer without ReLU (a head's logits).
+    dtype: the compute dtype, the JAX module's dtype field (None: compute
+    in the input's dtype).
     """
 
     def __init__(
@@ -59,12 +69,14 @@ class PointwiseMLP(nn.Module):
         *,
         bn: bool = True,
         last_act: bool = True,
+        dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
         self.widths = tuple(widths)
         self.bn = bn
         self.last_act = last_act
+        self.dtype = dtype
         c = in_channels
         for i, w in enumerate(self.widths):
             self.add_module(f"dense_{i}", nn.Linear(c, w, bias=not bn, device=device))
@@ -86,8 +98,18 @@ class PointwiseMLP(nn.Module):
         """row_mask: optional (B,) 0/1 marks of the real rows; in train mode
         the BatchNorm statistics then leave the padding rows out."""
         for i in range(len(self.widths)):
-            x = self._bn_act(getattr(self, f"dense_{i}")(x), i, row_mask)
+            x = self._bn_act(self._dense(i, x), i, row_mask)
         return x
+
+    def _dense(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Layer i's Linear; with a compute dtype, its input, weight and
+        bias cast to it first (flax's Dense, dtype=...)."""
+        dense = getattr(self, f"dense_{i}")
+        dt = self.dtype
+        if dt is None:
+            return dense(x)
+        bias = dense.bias.to(dt) if dense.bias is not None else None
+        return F.linear(x.to(dt), dense.weight.to(dt), bias)
 
     def pregather(
         self,
@@ -107,22 +129,27 @@ class PointwiseMLP(nn.Module):
             dense_0([gxyz - c | gather(f)]) == gather(f @ W_f^T) + (gxyz - c) @ W_x^T (+ bias)
 
         and the gather moves widths[0] channels instead of C; it differs
-        from forward(grouped) in float summation order only.
+        from forward(grouped) in float summation order only. With a compute
+        dtype, the features, the centred xyz (cast after centring) and the
+        weight's columns are cast to it before their products, as the JAX
+        module casts them (layers.py:254-267).
 
         xyz (B, N, 3) and new_xyz (B, M, 3) for the use_xyz form (both None
         otherwise), features (B, N, C) source rows, idx (B, M, K) ->
         (B, M, K, widths[-1])."""
         dense = self.dense_0
+        dt = self.dtype if self.dtype is not None else features.dtype
         w_f = dense.weight if xyz is None else dense.weight[:, 3:]
-        x = ops.group_points(features @ w_f.t(), idx)  # (B, M, K, widths[0])
+        x = ops.group_points(features.to(dt) @ w_f.t().to(dt), idx)  # (B, M, K, widths[0])
         if xyz is not None:
             # the centred 3-channel gather, then the xyz columns of the weight
-            x = x + ops.group_with_idx(idx, xyz, new_xyz, None) @ dense.weight[:, :3].t()
+            gxyz = ops.group_with_idx(idx, xyz, new_xyz, None)
+            x = x + gxyz.to(dt) @ dense.weight[:, :3].t().to(dt)
         if dense.bias is not None:
-            x = x + dense.bias
+            x = x + dense.bias.to(dt)
         x = self._bn_act(x, 0, row_mask)
         for i in range(1, len(self.widths)):
-            x = self._bn_act(getattr(self, f"dense_{i}")(x), i, row_mask)
+            x = self._bn_act(self._dense(i, x), i, row_mask)
         return x
 
     def _bn_act(self, x: torch.Tensor, i: int, row_mask: torch.Tensor | None) -> torch.Tensor:
@@ -131,17 +158,20 @@ class PointwiseMLP(nn.Module):
         if self.bn:
             bn = getattr(self, f"bn_{i}")
             if self.training and row_mask is not None:
-                x = masked_batch_norm(x, bn, row_mask)
+                x = masked_batch_norm(x, bn, row_mask, self.dtype)
             else:
-                x = _batch_norm(x, bn, self.training)
+                x = _batch_norm(x, bn, self.training, self.dtype)
         if self.last_act or i < len(self.widths) - 1:
             x = torch.relu(x)
         return x
 
 
-def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tensor:
+def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
     """flax nn.BatchNorm over the last axis; in train mode it also moves
-    bn's running statistics (in place, outside autograd)."""
+    bn's running statistics (in place, outside autograd). The result is
+    cast to dtype where one is given (a bfloat16 x normalises in float32,
+    x - mean promoting)."""
     if not train:
         mean, var = bn.running_mean, bn.running_var
     else:
@@ -154,10 +184,12 @@ def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tenso
             bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
             bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean) * mul + bn.bias
+    y = (x - mean) * mul + bn.bias
+    return y if dtype is None else y.to(dtype)
 
 
-def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tensor) -> torch.Tensor:
+def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tensor,
+                      dtype: torch.dtype | None = None) -> torch.Tensor:
     """The JAX package's train-mode MaskedBatchNorm over the last axis: each
     leading row weighs by its 0/1 row_mask (B,), so zero-padded rows leave
     the batch statistics exactly. The weighted mean over max(sum(mask) *
@@ -168,7 +200,8 @@ def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tenso
     + bias, which is not _batch_norm's. In at least float32, as _batch_norm:
     the JAX module casts to float32 whatever x's dtype, which leaves a
     float64 step float32-accurate; the port keeps float64 in float64 and
-    rounds like the JAX module in float32. Returns x's dtype."""
+    rounds like the JAX module in float32. Returns dtype, or x's dtype
+    where none is given (the JAX module's out_dtype)."""
     dt = torch.promote_types(x.dtype, torch.float32)
     xs = x.to(dt)
     mask = row_mask.to(dt)
@@ -183,4 +216,4 @@ def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tenso
         bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
         bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
     y = (xs - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
-    return y.to(x.dtype)
+    return y.to(dtype if dtype is not None else x.dtype)

@@ -8,6 +8,9 @@ FeaturePropagation: 3-NN inverse-distance interpolation (weights
 1/(sqrt(d2) + 1e-8), normalised) -> concat [interpolated, skip] -> MLP.
 Both follow the JAX package's models/modules.py; every level, however small,
 goes through the port's ops and so through the CUDA kernels on the card.
+With a compute dtype (bfloat16), the set abstraction casts its input
+features to it before grouping (xyz stays float32, so FPS, the ball queries
+and 3-NN see what they see in a float32 model), and every MLP computes in it.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class SetAbstraction(nn.Module):
         *,
         use_xyz: bool = True,
         bn: bool = True,
+        dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
@@ -44,10 +48,10 @@ class SetAbstraction(nn.Module):
         self.radii = tuple(float(r) for r in radii)
         self.nsamples = tuple(int(k) for k in nsamples)
         self.use_xyz = use_xyz
+        self.dtype = dtype
         for s, widths in enumerate(mlps):
-            self.add_module(
-                f"mlp_{s}", PointwiseMLP(in_channels + 3 * use_xyz, widths, bn=bn, device=device)
-            )
+            self.add_module(f"mlp_{s}", PointwiseMLP(
+                in_channels + 3 * use_xyz, widths, bn=bn, dtype=dtype, device=device))
 
     def _mlps(self) -> list[PointwiseMLP]:
         return [getattr(self, f"mlp_{s}") for s in range(len(self.radii))]
@@ -64,6 +68,10 @@ class SetAbstraction(nn.Module):
     ) -> tuple[torch.Tensor | None, torch.Tensor]:
         """(B, N, 3), (B, N, C) -> new_xyz (B, npoint, 3), (B, npoint, C');
         row_mask (B,) reaches every BatchNorm (PointwiseMLP.forward)."""
+        if self.dtype is not None and features is not None:
+            # before grouping, so that a bfloat16 model's SA1 takes the
+            # packed bfloat16 grouping too (modules.py:62-66)
+            features = features.to(self.dtype)
         if self.npoint is None:
             new_xyz = None
             grouped = ops.group_all(xyz, features, use_xyz=self.use_xyz)
@@ -87,13 +95,19 @@ class SetAbstraction(nn.Module):
 
     def _pregather(self, features: torch.Tensor | None, widths: Sequence[int]) -> bool:
         """The JAX package's gate (modules.py:111-136): layer 0 before the
-        gather for wide inputs, c_in >= 2 * widths[0], in float32; never
+        gather for wide inputs, c_in >= 2 * widths[0], in float32, and in
+        bfloat16 in eval mode only (in training the packed grouping already
+        halves the gather and the pregather's extra scatter loses); never
         without features or in float64, where the parity tests pin the
-        unfused composition. (The JAX gate's bfloat16 case is not ported.)"""
+        unfused composition."""
         if features is None:
             return False
         c_in = features.shape[-1] + 3 * self.use_xyz
-        return c_in >= 2 * widths[0] and features.dtype == torch.float32
+        if c_in < 2 * widths[0]:
+            return False
+        if features.dtype == torch.float32:
+            return True
+        return features.dtype == torch.bfloat16 and not self.training
 
     def _scale_indices(self, xyz: torch.Tensor, new_xyz: torch.Tensor) -> list[torch.Tensor]:
         """Ball-query indices per scale. A two-scale level takes the fused
@@ -114,10 +128,11 @@ class FeaturePropagation(nn.Module):
         in_channels: int,
         *,
         bn: bool = True,
+        dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
-        self.mlp = PointwiseMLP(in_channels, mlp, bn=bn, device=device)
+        self.mlp = PointwiseMLP(in_channels, mlp, bn=bn, dtype=dtype, device=device)
 
     def forward(
         self,
@@ -128,7 +143,10 @@ class FeaturePropagation(nn.Module):
         row_mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """(B, n, 3), (B, m, 3), (B, n, C1), (B, m, C2) -> (B, n, mlp[-1]);
-        row_mask as in SetAbstraction.forward."""
+        row_mask as in SetAbstraction.forward. bfloat16 known_feats
+        interpolate in float32 (the weights promote them) and the
+        concatenation with bfloat16 skip features promotes to float32, as
+        jnp does (modules.py:234-236); the MLP casts to its dtype."""
         if known is not None:
             dist2, idx = ops.three_nn(unknown, known)
             recip = 1.0 / (torch.sqrt(dist2) + 1e-8)

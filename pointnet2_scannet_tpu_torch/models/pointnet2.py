@@ -12,6 +12,13 @@ updates, or running statistics) and the head Dropout, which in train mode
 zeroes each activation with probability spec.dropout and scales the kept
 ones by 1 / (1 - p), like flax's nn.Dropout. Its mask comes from the
 torch.Generator handed to forward, so a seed fixes it.
+
+dtype=torch.bfloat16 is the JAX package's bfloat16 compute dtype
+(config.ModelConfig.compute_dtype "bfloat16", scripts/train.py --bf16):
+the parameters, BatchNorm statistics and optimizer state stay float32,
+every MLP computes in bfloat16 (models/layers.py), grouping moves packed
+bfloat16 rows (ops/neighborhood.py), and the logits come out in bfloat16
+and are returned as float32, as the JAX model returns them.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from torch import nn
 
 from pointnet2_scannet_tpu_torch.models.layers import PointwiseMLP
 from pointnet2_scannet_tpu_torch.models.modules import FeaturePropagation, SetAbstraction
+
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}  # ModelConfig.compute_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,35 +103,37 @@ class PointNet2SemSeg(nn.Module):
 
     Built on the CPU, initialised from `generator` (flax's he_normal, zero
     biases, identity BatchNorm), then moved to `device`; the module starts in
-    eval mode.
+    eval mode. dtype: the compute dtype (None, or torch.bfloat16).
     """
 
     def __init__(
         self,
         spec: PointNet2Spec,
         *,
+        dtype: torch.dtype | None = None,
         device: torch.device | str | None = None,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
         self.spec = spec
+        self.dtype = dtype
         c = spec.input_channels
         for lvl in range(len(spec.npoints)):
             sa = SetAbstraction(
                 spec.npoints[lvl], spec.radii[lvl], spec.nsamples[lvl],
-                spec.sa_mlps[lvl], c, use_xyz=spec.use_xyz, bn=spec.bn,
+                spec.sa_mlps[lvl], c, use_xyz=spec.use_xyz, bn=spec.bn, dtype=dtype,
             )
             self.add_module(f"sa_{lvl}", sa)
             c = sa.out_channels
         for lvl in reversed(range(len(spec.fp_mlps))):
             fp = FeaturePropagation(
-                spec.fp_mlps[lvl], c + spec.skip_channels[lvl], bn=spec.bn
+                spec.fp_mlps[lvl], c + spec.skip_channels[lvl], bn=spec.bn, dtype=dtype
             )
             self.add_module(f"fp_{lvl}", fp)
             c = spec.fp_mlps[lvl][-1]
-        self.cls_fc = PointwiseMLP(c, spec.cls_fc, bn=spec.bn)
+        self.cls_fc = PointwiseMLP(c, spec.cls_fc, bn=spec.bn, dtype=dtype)
         self.cls_out = PointwiseMLP(
-            spec.cls_fc[-1], (spec.num_classes,), bn=spec.bn, last_act=False
+            spec.cls_fc[-1], (spec.num_classes,), bn=spec.bn, last_act=False, dtype=dtype
         )
         for m in self.modules():
             if isinstance(m, PointwiseMLP):
@@ -177,13 +188,28 @@ def get_model(
     input_channels: int = 6,
     use_xyz: bool = True,
     bn: bool = True,
+    dtype: torch.dtype | None = None,
     *,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> PointNet2SemSeg:
     """Factory with the JAX package's get_model arguments and defaults (MSG
-    unless is_msg=False)."""
+    unless is_msg=False; dtype None, or torch.bfloat16)."""
     spec = dataclasses.replace(
         (msg_spec if is_msg else ssg_spec)(num_classes, input_channels), use_xyz=use_xyz, bn=bn
     )
-    return PointNet2SemSeg(spec, device=device, generator=generator)
+    return PointNet2SemSeg(spec, dtype=dtype, device=device, generator=generator)
+
+
+def model_from_config(cfg, **kwargs) -> PointNet2SemSeg:
+    """get_model for a RunConfig: its model fields, input channels and
+    compute dtype; kwargs (device, generator) pass through."""
+    return get_model(
+        num_classes=cfg.model.num_classes,
+        is_msg=cfg.model.is_msg,
+        input_channels=cfg.data.input_channels,
+        use_xyz=cfg.model.use_xyz,
+        bn=cfg.model.bn,
+        dtype=COMPUTE_DTYPES[cfg.model.compute_dtype],
+        **kwargs,
+    )

@@ -3,9 +3,11 @@ PyTorch version and a launch counter.
 
 Every kernel module carries `NAME`, `SOURCE` (its .cu file), `REPLACES` (the
 TPU kernel it ports, file:line), `launches` (incremented once per kernel
-launch and nowhere else), `<op>_plain` and `<op>_cuda`. The public ops in
-ops/ pick between the two by the tensor's device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises.
+launch and nowhere else), `<op>_plain` and `<op>_cuda`; the gather and the
+scatter-add also count their bfloat16 launches (`bf16_launches`). The
+public ops in ops/ pick between the two by the tensor's device: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -34,12 +36,18 @@ KERNELS = (
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    gather_kernel.bf16_launches = scatter_kernel.bf16_launches = 0
     for variant in fps_kernel.variant_launches:
         fps_kernel.variant_launches[variant] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {k.NAME: k.launches for k in KERNELS}
+
+
+def bf16_launch_counts() -> dict[str, int]:
+    """The gather's and the scatter-add's launches on bfloat16 rows."""
+    return {k.NAME: k.bf16_launches for k in (gather_kernel, scatter_kernel)}
 
 
 def on_cuda(t) -> bool:

@@ -23,5 +23,8 @@ def fused_gather_mm(src: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> to
     if torch.is_grad_enabled() and (src.requires_grad or w.requires_grad):
         raise RuntimeError("fused_gather_mm has no gradient (nor has the TPU kernel)")
     if on_cuda(src):
+        if torch.bfloat16 in (src.dtype, w.dtype):
+            raise NotImplementedError("bfloat16 operands of fused_gather_mm (kernel k) are not "
+                                      "ported yet (ROADMAP queue 2, R9)")
         return fused_gather_mm_kernel.fused_gather_mm_cuda(src, idx.to(torch.int32), w)
     return fused_gather_mm_kernel.fused_gather_mm_plain(src, idx, w)

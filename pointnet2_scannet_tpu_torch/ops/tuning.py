@@ -2,7 +2,7 @@
 
 The JAX package's ops/tuning.py holds one switch per alternative lowering of
 a hot op; its ops read them and add shape conditions of their own. The port
-keeps the three switches whose readers it has ported, with the JAX names and
+keeps the four switches whose readers it has ported, with the JAX names and
 defaults, and copies of those readers' conditions:
 
     from pointnet2_scannet_tpu_torch.ops import tuning
@@ -44,6 +44,10 @@ class OpsConfig:
     mxu_gather: bool | None = False
     # the VMEM chunk-select gather (JAX ops/tuning.py:51); None = auto
     vmem_gather: bool | None = None
+    # bfloat16 models group one packed [xyz_hi | xyz_lo | features] bfloat16
+    # payload (JAX ops/tuning.py:55; ops/neighborhood.group_with_idx); off,
+    # the [xyz | features] concatenation promotes the payload to float32
+    packed_bf16_group: bool = True
 
 
 ops_config = OpsConfig()

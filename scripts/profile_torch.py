@@ -1,7 +1,8 @@
 """Where the device time of the port goes, on one GPU (pointnet2_scannet_tpu_torch).
 
 For the SSG or MSG model at full width (32 columns x 8192 points x 9
-channels, float32, seeded random weights), time the steady serving forward
+channels, seeded random weights, float32 or with --dtype bfloat16 the
+bfloat16 compute dtype), time the steady serving forward
 and the steady train step with CUDA events, then trace a few of each with
 torch.profiler and print: the device time of the top ATen ops (their kernels
 included), device time by kernel class (the port's hand-written kernels,
@@ -11,6 +12,7 @@ unprofiled call (busy time against the CUDA-event time).
 
   python scripts/profile_torch.py --model msg
   python scripts/profile_torch.py --model ssg
+  python scripts/profile_torch.py --model ssg --dtype bfloat16
 
 Needs a CUDA device. The profiler slows the many small launches of an eager
 step, so its window is longer than the unprofiled step; both are printed.
@@ -29,10 +31,13 @@ BATCH, NPOINTS = 32, 8192
 STEPS = 3  # profiled calls of each
 TOP = 20  # ops listed
 
-# kernel-name fragments of each class, tried in this order
+# kernel-name fragments of each class, tried in this order (the hand-written
+# kernels by their names in csrc/)
 _CLASSES = (
-    ("hand-written", ("p2_", "fps_kernel", "ball_query", "gather_kernel", "three_nn_kernel",
-                      "segment_sum_kernel", "csr_kernel")),
+    ("hand-written", ("p2_", "fps_kernel", "fps_cluster_kernel", "ball_query", "gather_kernel",
+                      "three_nn_kernel", "segment_sum_kernel", "block_kernel", "tile_count_kernel",
+                      "tile_prefix_kernel", "row_scan_kernel", "place_kernel", "accumulate_kernel",
+                      "fixed_kernel", "general_kernel")),
     ("GEMM", ("gemm", "sgemm", "cutlass", "cublas", "xmma", "sm90_")),
     ("reduction", ("reduce", "Reduce", "scan", "Scan", "softmax", "norm")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "Elementwise")),
@@ -46,8 +51,9 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def inputs(torch, kind: str):
-    """A seeded model and one full-width train batch of synthetic chunks."""
+def inputs(torch, kind: str, dtype=None):
+    """A seeded model (compute dtype dtype; None: float32) and one
+    full-width train batch of synthetic chunks."""
     import dataclasses
 
     from pointnet2_scannet_tpu_torch.config import DataConfig
@@ -57,7 +63,7 @@ def inputs(torch, kind: str):
     from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
 
     spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=0.5)
-    model = PointNet2SemSeg(spec, generator=torch.Generator().manual_seed(0), device="cuda")
+    model = PointNet2SemSeg(spec, dtype=dtype, generator=torch.Generator().manual_seed(0), device="cuda")
     cfg = DataConfig(npoints=NPOINTS, use_color=True, use_normal=True)
     ds = ChunkedSceneDataset(make_synthetic_store(BATCH, seed=0), cfg, phase="train", seed=0)
     ds.generate_chunks()
@@ -132,6 +138,8 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", choices=("ssg", "msg"), default="msg")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the compute dtype (bfloat16: float32 parameters, bfloat16 MLPs and grouping)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch.py measures the card: no CUDA device here")
@@ -140,8 +148,8 @@ def main(argv=None) -> None:
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
     print(f"device: {torch.cuda.get_device_name(0)}; model {args.model.upper()}, "
-          f"{BATCH} x {NPOINTS}, float32", flush=True)
-    model, batch = inputs(torch, args.model)
+          f"{BATCH} x {NPOINTS}, compute dtype {args.dtype}", flush=True)
+    model, batch = inputs(torch, args.model, torch.bfloat16 if args.dtype == "bfloat16" else None)
 
     def forward():
         with torch.inference_mode():

@@ -7,6 +7,9 @@ update per scene, gradients accumulated over micro-batches of --batch_size
 columns), on --device (the hand-written CUDA kernels on a GPU, their plain
 PyTorch versions on the CPU). --device_store trains chunks from a scene
 store uploaded to the device once (each step gathers its batch there).
+--bf16 computes in bfloat16 (the parameters, optimizer state and
+checkpoints stay float32; the run dir's config.json records the dtype, and
+infer_torch.py, eval_torch.py and visualize_torch.py serve it in bfloat16).
 Writes
 <output_root>/<timestamp>_<TAG>/ with config.json, info.json, model_best.pt
 and model_last.pt (state_dicts that scripts/infer_torch.py serves), their
@@ -17,6 +20,7 @@ best.txt.
   python scripts/train_torch.py --synthetic --use_color --use_normal --use_msg
   python scripts/train_torch.py --synthetic --use_color --use_normal --use_wholescene
   python scripts/train_torch.py --synthetic --use_color --use_normal --device_store
+  python scripts/train_torch.py --synthetic --use_color --use_normal --bf16
   python scripts/train_torch.py --synthetic --synthetic_scenes 4 --npoints 256 \\
       --batch_size 4 --epoch 2 --device cpu
   python scripts/train_torch.py --resume outputs/<run> --epoch 4
@@ -44,7 +48,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 # flag -> (is it set?, what it asks for, ROADMAP queue 1 item)
 _UNPORTED = (
-    ("bf16", lambda v: v, "bfloat16 compute", 10),
     ("num_devices", lambda v: v is not None and v > 1, "data parallelism over several devices", 12),
     ("tp", lambda v: v is not None and v > 1, "tensor parallelism", 12),
     ("dist_coordinator", lambda v: v is not None, "multi-host training", 12),
@@ -156,7 +159,7 @@ def train(args) -> tuple[pathlib.Path, dict]:
     from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
     from pointnet2_scannet_tpu_torch.data.wholescene import WholeSceneDataset
     from pointnet2_scannet_tpu_torch.engine.solver import Solver, WholeSceneSolver
-    from pointnet2_scannet_tpu_torch.models import get_model
+    from pointnet2_scannet_tpu_torch.models import model_from_config
 
     if args.resume:
         output_dir = pathlib.Path(args.resume)
@@ -203,18 +206,11 @@ def train(args) -> tuple[pathlib.Path, dict]:
         val_ds = ChunkedSceneDataset(val_store, cfg.data, phase="val", seed=seed + 1)
         solver_cls = Solver
         step = f"one step per batch (fused_steps {cfg.train.fused_steps} recorded)"
-    model = get_model(
-        num_classes=cfg.model.num_classes,
-        is_msg=cfg.model.is_msg,
-        input_channels=cfg.data.input_channels,
-        use_xyz=cfg.model.use_xyz,
-        bn=cfg.model.bn,
-        generator=torch.Generator().manual_seed(seed),
-    )
+    model = model_from_config(cfg, generator=torch.Generator().manual_seed(seed))
     solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device, trace_dir=args.trace)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    print(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}",
-          flush=True)
+    print(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}, "
+          f"compute dtype {cfg.model.compute_dtype}", flush=True)
     if solver.device_store:
         rows, width = solver.store["points"].shape
         print(f"device_store: {rows} rows x {width} on {device}, flattened in "
@@ -251,7 +247,8 @@ def parse_args(argv=None):
     p.add_argument("--debug", action="store_true", help="train on a single scene")
     p.add_argument("--no_weighting", action="store_true")
     p.add_argument("--no_bn", action="store_true")
-    p.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP item 10)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute dtype for the pointwise MLPs and the grouping (params stay f32)")
     p.add_argument("--no_xyz", action="store_true")
     p.add_argument("--use_msg", action="store_true", help="the multi-scale-grouping model")
     p.add_argument("--use_wholescene", action="store_true",

@@ -5,9 +5,9 @@
   the port's, which are the same architecture), at B 32 x 8192 and small.
 - bench_torch.run("cpu") (the plain versions at B 2 x 1024) returns every
   field of its JSON row, rates positive, the eval cell's and the Solver
-  cells' too (host path and device store, 3 epochs each), with the map of
-  bench.py's fields that are not ported yet (bf16's alone); run in a
-  process where importing jax or the JAX package fails.
+  cells' too (host path and device store, 3 epochs each), bench.py's bf16
+  fields among them, and an empty map of bench.py's fields not ported yet;
+  run in a process where importing jax or the JAX package fails.
 - scripts/bench_hostpipe_torch.py at 8 scenes on the CPU prints its probes'
   JSON lines (the Solver's with --device_store), and with --host_only over
   cached scenes only probes 1 and 3.
@@ -41,6 +41,12 @@ FIELDS = (
     "eval_repeats", "solver_points_per_sec_host", "solver_points_per_sec_resident", "solver_fetch_ms_host",
     "solver_fetch_ms_resident", "solver_store_flatten_s", "solver_store_upload_s", "solver_scenes",
     "solver_steps_per_epoch", "device", "power_limit", "unported",
+)
+# bench.py's bf16 fields (bench.py:219-270), and the port's msg_bf16_step_ms
+BF16_FIELDS = (
+    "step_ms_bf16", "step_ms_bf16_min", "step_ms_bf16_max", "step_ms_bf16_per_dispatch",
+    "ssg_bf16_points_per_sec", "msg_bf16_points_per_sec", "msg_bf16_step_ms", "msg_bf16_step_ms_min",
+    "msg_bf16_step_ms_max", "mfu_bf16",
 )
 # the Solver cells' per-epoch lists (3 epochs)
 EPOCH_FIELDS = tuple(f"solver_{k}_{path}" for k in ("epoch_s", "regen_join_s", "regen_s")
@@ -83,10 +89,15 @@ def test_bench_torch_runs_on_the_cpu_without_jax():
     for path in ("host", "resident"):  # an epoch's points over the median of epochs 2 and 3
         steady = sorted(row[f"solver_epoch_s_{path}"][1:])
         assert row[f"solver_points_per_sec_{path}"] == pytest.approx(2 * 4 * 256 / (sum(steady) / 2))
-    # bench.py's fields that are not ported: bf16's (item 10) alone
-    assert row["unported"]["mfu_bf16"] == row["unported"]["ssg_bf16_points_per_sec"] == 10
-    assert set(row["unported"].values()) == {10} and len(row["unported"]) == 9
-    assert not set(row["unported"]) & set(row) and "vs_baseline" not in row
+    # bench.py's bf16 fields, no longer unported: the bf16 steps of both
+    # models, with mfu_bf16 null on a card with no listed peak
+    assert set(BF16_FIELDS) <= set(row), sorted(set(BF16_FIELDS) - set(row))
+    assert row["mfu_bf16"] is None and all(row[k] > 0 for k in BF16_FIELDS if k != "mfu_bf16")
+    assert row["step_ms_bf16_min"] <= row["step_ms_bf16"] == row["step_ms_bf16_per_dispatch"] \
+        <= row["step_ms_bf16_max"]
+    assert row["msg_bf16_step_ms_min"] <= row["msg_bf16_step_ms"] <= row["msg_bf16_step_ms_max"]
+    assert row["ssg_bf16_points_per_sec"] == pytest.approx(2 * 1024 / row["step_ms_bf16"] * 1e3)
+    assert row["unported"] == {} and "vs_baseline" not in row
 
 
 def _train(argv):

@@ -24,8 +24,9 @@ against the JAX package.
   2 n / T_c: n differing points (voxels) move the class's intersection and
   union by at most n each, and its union holds at least its T_c targets.
 - The CLI chain on the CPU: train_torch.py, then eval_torch.py writes
-  eval_report.txt and visualize_torch.py one PLY a scene; the item-12 flags,
-  --device cuda without a card and a bfloat16 run dir (item 10) raise.
+  eval_report.txt and visualize_torch.py one PLY a scene; the item-12 flags
+  and --device cuda without a card raise; a bfloat16 run dir evaluates and
+  visualises (its model built in bfloat16).
 """
 
 import dataclasses
@@ -379,12 +380,31 @@ def test_cuda_default_fails_without_a_card(tmp_path, script):
         (mod.evaluate if script == "eval_torch" else mod.visualize)(args)
 
 
-@pytest.mark.parametrize("script", ["eval_torch", "visualize_torch"])
-def test_bf16_run_dir_raises_naming_item_10(tmp_path, script):
-    from pointnet2_scannet_tpu_torch.config import ModelConfig, RunConfig
+@pytest.fixture(scope="module")
+def bf16_run(tmp_path_factory):
+    """A run dir that train_torch.py --bf16 wrote (SSG, 256-point columns)."""
+    root = tmp_path_factory.mktemp("bf16_runs")
+    _script("train_torch").train(_script("train_torch").parse_args([
+        "--device", "cpu", "--synthetic", "--synthetic_scenes", "4", "--npoints", "256", "--batch_size", "4",
+        "--epoch", "1", "--verbose", "1", "--use_color", "--use_normal", "--bf16", "--output_root", str(root),
+    ]))
+    [run] = list(root.iterdir())
+    return run
 
-    RunConfig(tag="bf16", model=ModelConfig(compute_dtype="bfloat16")).save(tmp_path / "config.json")
+
+@pytest.mark.parametrize("script", ["eval_torch", "visualize_torch"])
+def test_bf16_run_dir_evaluates_and_visualizes(bf16_run, script):
+    from pointnet2_scannet_tpu_torch.engine.export import load_run_model
+
+    model, cfg = load_run_model(bf16_run)
+    assert cfg.model.compute_dtype == "bfloat16" and model.dtype == torch.bfloat16
     mod = _script(script)
-    args = mod.parse_args(["--folder", str(tmp_path), "--device", "cpu", "--synthetic"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        (mod.evaluate if script == "eval_torch" else mod.visualize)(args)
+    args = mod.parse_args(["--folder", str(bf16_run), "--device", "cpu", "--synthetic", "--synthetic_scenes", "1",
+                           "--batch_size", "8"])
+    if script == "eval_torch":
+        report = mod.evaluate(args)
+        assert len(report.scenes) == 1 and 0.0 <= report.point_acc <= 1.0
+        assert (bf16_run / "eval_report.txt").read_text() == report.format_table()
+    else:
+        [(ply, n)] = mod.visualize(args)
+        assert ply.is_file() and f"element vertex {n}" in ply.read_text().splitlines()

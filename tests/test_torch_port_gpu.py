@@ -1081,3 +1081,92 @@ def test_resident_train_steps_launch_two_store_gathers_each(dev):
         counts.append(kernels.launch_counts())
     assert counts[1] == counts[0] | {"gather": counts[0]["gather"] + 4}
     assert losses[1] == losses[0]
+
+
+# --- bfloat16 rows (the bfloat16 compute dtype): d's int32-pair and 2-byte
+# routes, h's bfloat16 routes (float32 sums rounded once), the bf16 models
+
+# (B, N, J, C) of bfloat16 gathers: SSG's packed SA1 and SA2 payloads (6 + 6,
+# 6 + 64), MSG's SA2 (6 + 96), an FP row (128), an odd payload (6 + 3: the
+# 2-byte route), ragged and tiny shapes
+BF16_GATHER_SHAPES = [(2, 8192, 32768, 12), (2, 1024, 8192, 70), (2, 1024, 8192, 102), (2, 1024, 24576, 128),
+                      (2, 8192, 32768, 9), (3, 50, 1001, 3), (1, 5, 1, 256), (2, 1, 7, 2)]
+
+
+@pytest.mark.parametrize("b,n,j,c", BF16_GATHER_SHAPES)
+def test_gather_kernel_bf16_equals_plain(dev, b, n, j, c):
+    g = torch.Generator(device=dev).manual_seed(j + c)
+    src = torch.randn((b, n, c), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.randint(0, n, (b, j), generator=g, device=dev, dtype=torch.int32)
+    before, before_bf16 = ga.launches, ga.bf16_launches
+    _equal(ga.gather_cuda(src, idx), ga.gather_plain(src, idx))
+    assert (ga.launches, ga.bf16_launches) == (before + 1, before_bf16 + 1)
+
+
+def test_gather_kernel_bf16_takes_a_row_start_off_4_bytes(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    src = torch.randn(2 * 300 * 12 + 1, generator=g, device=dev).to(torch.bfloat16)[1:].view(2, 300, 12)
+    idx = torch.randint(0, 300, (2, 1000), generator=g, device=dev, dtype=torch.int32)
+    assert src.is_contiguous() and src.data_ptr() % 4 == 2
+    _equal(ga.gather_cuda(src, idx), ga.gather_plain(src, idx))
+
+
+@pytest.mark.parametrize("j,n,c", SCATTER_SHAPES + [(8192, 1024, 70), (2048, 256, 134), (4096, 256, 102)])
+def test_scatter_kernel_bf16_equals_plain_on_cpu_copies(dev, j, n, c):
+    g = torch.Generator(device=dev).manual_seed(j + c)
+    idx = torch.randint(0, max(n * 3 // 4, 1), (2, j), generator=g, device=dev, dtype=torch.int32)
+    idx[:, ::5] = idx[:, :1]
+    grad = torch.randn((2, j, c), generator=g, device=dev)
+    grad = (grad * 10.0 ** (torch.rand((2, j, 1), generator=g, device=dev) * 6 - 3)).to(torch.bfloat16)
+    want = sc.scatter_add_plain(idx.cpu(), grad.cpu(), n)
+    before = sc.bf16_launches
+    got = sc.scatter_add_cuda(idx, grad, n)
+    assert sc.bf16_launches == before + 1
+    _equal(got.cpu(), want)
+    _equal(sc.scatter_add_cuda(idx, grad, n), got)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for p in sc.candidate_plans(2, n, j, c, sms, 2):  # every route at the shape
+        _equal(sc.launch(idx, grad, n, p).cpu(), want)
+
+
+def test_scatter_kernel_bf16_takes_cotangents_off_16_bytes(dev):
+    g = torch.Generator(device=dev).manual_seed(11)
+    j, n, c = 4096, 512, 128
+    idx = torch.randint(0, n, (2, j), generator=g, device=dev, dtype=torch.int32)
+    grad = torch.randn(2 * j * c + 1, generator=g, device=dev).to(torch.bfloat16)[1:].view(2, j, c)
+    assert grad.data_ptr() % 16 != 0
+    _equal(sc.scatter_add_cuda(idx, grad, n).cpu(), sc.scatter_add_plain(idx.cpu(), grad.cpu(), n))
+
+
+@pytest.mark.parametrize("kind", ["ssg", "msg"])
+def test_bf16_small_model_on_the_card_matches_the_cpu(dev, kind):
+    # bfloat16 GEMMs round in other places in cuBLAS and the CPU's BLAS:
+    # the bound is the CPU tests' logit bound against the JAX model
+    spec = PointNet2Spec(**SMALL_SPECS[kind])
+    model = PointNet2SemSeg(spec, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    pc = torch.cat([_cloud(1, (2, 256, 3), "cpu"), _cloud(2, (2, 256, 3), "cpu", -1, 1)], -1)
+    with torch.inference_mode():
+        want = model(pc)
+        kernels.reset_launch_counts()
+        got = model.to(dev)(pc.to(dev)).cpu()
+    assert kernels.bf16_launch_counts()["gather"] > 0
+    assert float((got - want).abs().max()) <= 0.04 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["ssg", "msg"])
+def test_bf16_train_steps_on_the_card_repeat_bit_for_bit_through_d_and_h(dev, kind):
+    ts, model, batch, schedule = _train_setup(0.5, kind)
+    model = PointNet2SemSeg(model.spec, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    kernels.reset_launch_counts()
+    states = []
+    for _ in range(2):
+        state = ts.create_train_state(copy.deepcopy(model).to(dev), schedule, seed=4)
+        for _ in range(2):
+            ts.train_step(state, batch, num_classes=20)
+        states.append(state.model.state_dict())
+    bf16 = kernels.bf16_launch_counts()
+    assert bf16["gather"] > 0 and bf16["scatter_add"] > 0
+    for k, v in states[0].items():
+        assert v.dtype == torch.float32 or not v.is_floating_point(), k
+        assert torch.equal(states[1][k], v), k

@@ -4,7 +4,8 @@ cut, batch 4, so one optimizer step per epoch and one padded val batch.
 
 The run prints the JAX package's ITER / EPOCH / BEST reports, writes the run
 dir's artifacts, resumes from model_last with its full train state, and
-its checkpoints are served by scripts/infer_torch.py. Its ScalarLogger
+its checkpoints are served by scripts/infer_torch.py. (--bf16 trains:
+tests/test_torch_bf16_cli.py.) Its ScalarLogger
 writes TensorBoard events where tensorboardX (or torch.utils.tensorboard)
 imports, and all_scalars.json alone where neither does.
 """
@@ -154,7 +155,7 @@ def test_msg_run_trains_and_infer_torch_serves_it(tmp_path):
 @pytest.mark.parametrize(
     "flag",
     # whole-scene training is ported; over several devices it is not
-    [["--bf16"], ["--use_wholescene", "--num_devices", "2"], ["--num_devices", "2"],
+    [["--use_wholescene", "--num_devices", "2"], ["--num_devices", "2"],
      ["--tp", "2"], ["--dist_coordinator", "localhost:1234"], ["--dist_nprocs", "2"],
      ["--dist_auto"]],
     ids=lambda f: f[0].lstrip("-"),
