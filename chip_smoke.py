@@ -48,8 +48,8 @@
    batch 32, float32) with weights drawn from a seeded generator: the
    prediction files must hold labels in [0, 20), every forward kernel of the
    model's path must have moved its launch counter in that run (and no
-   other), one batch's logits must agree with the plain path on the CPU, and
-   the steady batch is timed.
+   other), the logits of a batch of CHECK_COLUMNS columns must agree with
+   the plain path on the CPU, and the steady batch of 32 is timed.
 10. Train through scripts/train_torch.py at the same width, SSG then MSG
     (--use_msg): 32 synthetic scenes, batch 32, 3 epochs of one step and one
     validation each. Losses must be finite, the run dir's artifacts must
@@ -124,7 +124,7 @@
     (phase 10's SSG run: 32 scenes, batch 32, 3 epochs) with no "device_store
     disabled" line, its losses finite, launching every kernel of phase 10's
     run as often and d (the store gather) twice more a step; the chunked
-    Solver from one seed on the host path and with device_store (64
+    Solver from one seed on the host path and with device_store (32
     fast_scene scenes of 100 000 points, batch 32 x 8192, 2 epochs,
     augmentation off): per-step losses equal bit for bit, d twice more a
     step; and d's store gather (two launches: points, labels) at the
@@ -153,14 +153,40 @@
     bfloat16 steps on the card bit-identical, and the
     steady step timed. Phase 19's bench_torch.py row carries the bfloat16
     fields.
-24. Print one JSON line of kernel results (time, plain time, the card's bound
+24. bfloat16 under P1 (the MXU-gather configuration). e on bfloat16 rows
+    at every gather that the SSG and MSG bfloat16 train steps route to it
+    under P1 (the packed SA1-SA3 groupings) and at bench_gather's shapes (C
+    9, the 2-byte route, 32, 64), bit for bit against gather_smem_plain; g
+    on bfloat16 rows at those shapes; f on bfloat16 cotangents at those
+    train steps' backwards, at bench_gather's shapes and at phase 4's skewed
+    row, bit for bit against its plain version's bfloat16 branch (the TPU
+    kernel's order: a float32 sum a 128-index tile, rounded, added to a
+    bfloat16 accumulator) on CPU copies and against a second launch; each
+    timed beside its counterpart (d, h, d), the library call (torch.gather;
+    scatter_add_ on float32 copies, which rounds once and so computes
+    another function) and the bound (these run with phases 3-8). Then the
+    SSG bfloat16 model under P1 through the entry points: a bfloat16 run
+    dir served through scripts/infer_torch.py (phase 23's serving gates,
+    card against CPU), scripts/train_torch.py --bf16 (phase 10's run) and
+    scripts/eval_torch.py on its run dir, each launching its path's kernels
+    (e, and f in training, on bfloat16 rows; d and h at SA4 and the FP
+    levels) and no other; one bfloat16 train step card vs CPU under phase
+    23's gates, which must refuse the card's step with f's output halved
+    and zeroed; two steps bit-identical; the steady step and serving batch
+    timed beside the default configuration's bfloat16 ones and P1's float32
+    ones, in the order default, P1, P1, default. The MSG bfloat16 model
+    under P1: one serving forward card vs CPU under phase 23's logit and
+    label gates (e launched on bfloat16 rows) and one train step card vs
+    CPU under the same gates.
+25. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
-    one), the card line, and last {"ok": true, "device": {...}}.
+    one; e, f and g on bfloat16 rows in rows of their own), the card line,
+    and last {"ok": true, "device": {...}}.
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22 and 23 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23 and 24 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -230,8 +256,11 @@ WS_CHECK_COLUMNS, WS_CHECK_BATCH = 3, 2
 # points at which the card's and the CPU's labels must agree (f32 matmuls sum
 # in another order on each: a near-tie may flip)
 EVAL_SCENES, EVAL_AGREE = 4, 0.999
-# phase 22: scenes of the host-vs-resident Solver runs (2 steps an epoch)
-RESIDENT_SCENES = 64
+# phase 22: scenes of the host-vs-resident Solver runs (1 step an epoch)
+RESIDENT_SCENES = 32
+# the columns of the serving runs' card-vs-CPU logit check, whose CPU forward
+# is the longest part of a serving run
+CHECK_COLUMNS = 8
 # phase 23, bfloat16: the payload widths beyond the features (xyz_hi, xyz_lo),
 # the odd payload of a 3-channel input (6 + 3), and the gates of the card
 # against the CPU, the CPU tests' bounds against the JAX package
@@ -247,6 +276,12 @@ RESIDENT_SCENES = 64
 BF16_XYZ, BF16_ODD_C = 6, 3
 BF16_LOGIT_SCALE_TOL, BF16_LABEL_AGREE = 0.04, 0.99
 BF16_LOSS_RTOL, BF16_GRAD_VS_CPU = 2e-3, 1.25
+# phase 24: f (P1's grouping gradients at SA2 and SA3) reaches only SA1's
+# and SA2's parameters, so its output halved moves the bfloat16 gradients
+# over all parameters less than BF16_GRAD_VS_CPU times further from the
+# float64 step (PERF.md, section 6); the card's step under P1 must also give
+# each of f's outputs bit for bit as its plain version does on CPU copies
+# of that launch's inputs
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
@@ -281,8 +316,9 @@ class Tally:
     """One kernel's row of the JSON line: times, errors and bounds summed
     over the shapes it was checked at in this run, and per model path."""
 
-    def __init__(self, module):
+    def __init__(self, module, name: str | None = None):
         self.module = module
+        self.name = name or module.NAME
         self.max_abs_err = 0.0
         self.paths: dict[str, dict] = {}
 
@@ -306,7 +342,7 @@ class Tally:
     def row(self, launches: int) -> dict:
         spent = {by: self.total(by) for by in ("bytes", "operations")}
         row = {
-            "name": self.module.NAME,
+            "name": self.name,
             "route": "cuda",
             "source": self.module.SOURCE,
             "replaces": self.module.REPLACES,
@@ -457,20 +493,21 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
 
 
 def check_scatter(torch, tally, path, backward, dtype=None) -> None:
-    """Phases 4, 6, 8 and 23: a scatter-add kernel (the tally's:
+    """Phases 4, 6, 8, 23 and 24: a scatter-add kernel (the tally's:
     scatter_add.cu, or scatter_smem.cu with scatter_add.cu as its
-    counterpart) against the plain version on CPU copies (which adds in
+    counterpart) against its plain version on CPU copies (which adds in
     ascending j, as the kernels do; bfloat16 cotangents in float32, rounded
-    once) and against a second launch, bit for bit; times against the plain
-    version on the card (unordered atomics) and against scatter_add_ on an
-    int64 index made beforehand (on float32 copies of bfloat16 cotangents),
-    beside the route its plan() takes. dtype: the cotangents' (float32 by
-    default)."""
+    once for h, a tile at a time for f) and against a second launch, bit for
+    bit; times against the plain version on the card (unordered atomics)
+    and against scatter_add_ on an int64 index made beforehand (on float32
+    copies of bfloat16 cotangents: one rounding, so another function for
+    f), beside the route its plan() takes. dtype: the cotangents' (float32
+    by default)."""
     from pointnet2_scannet_tpu_torch.ops.cuda import build
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
 
     mod = tally.module
-    kernel = getattr(mod, f"{mod.NAME}_cuda")
+    kernel, plain = getattr(mod, f"{mod.NAME}_cuda"), getattr(mod, f"{mod.NAME}_plain")
     extra = {} if mod is sc else {"counterpart_ms": sc.scatter_add_cuda}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for label, idx, n, c in sorted(backward, key=lambda b: b[0]):
@@ -483,14 +520,14 @@ def check_scatter(torch, tally, path, backward, dtype=None) -> None:
             g32 = g.float()
         got = kernel(idx, g, n)
         again = kernel(idx, g, n)
-        want = sc.scatter_add_plain(idx.cpu(), g.cpu(), n)
+        want = plain(idx.cpu(), g.cpu(), n)
         got = got.cpu()
         err = float((got.double() - want.double()).abs().max())
         equal = torch.equal(got, want)
         repeat = torch.equal(again.cpu(), got)
         index = idx.long().unsqueeze(-1).expand(b, j, c)
         ms = cuda_ms(lambda: kernel(idx, g, n), torch)
-        plain_ms = cuda_ms(lambda: sc.scatter_add_plain(idx, g, n), torch)
+        plain_ms = cuda_ms(lambda: plain(idx, g, n), torch)
         library_ms = cuda_ms(lambda: torch.zeros((b, n, c), device="cuda").scatter_add_(
             1, index, g32), torch)
         more = {k: cuda_ms(lambda: fn(idx, g, n), torch) for k, fn in extra.items()}
@@ -498,7 +535,7 @@ def check_scatter(torch, tally, path, backward, dtype=None) -> None:
         tally.add(path, ms, plain_ms, err, nbytes, nops, library_ms, **more)
         bound, by = bound_ms(nbytes, nops)
         sms = build.sm_count(g)
-        route = sc.plan(b, n, j, c, sms, g.element_size()) if mod is sc else mod.plan(b, n, j, c, sms)
+        route = mod.plan(b, n, j, c, sms, g.element_size())
         print(f"kernel {mod.NAME} {path.upper()} {label} (B={b}, J={j}, N={n}, C={c}, {g.dtype}): "
               f"{ms:.4f} ms, route {type(route).__name__}{tuple(route)}, plain on the card "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms"
@@ -671,6 +708,20 @@ def switches(**fields):
             setattr(tuning.ops_config, k, v)
 
 
+def smem_gather_check(torch, tally, path, label, src, idx, kernel, plain) -> None:
+    """Phases 8 and 24: e or g (kernel) at one shape against its plain
+    version, beside torch.gather on an int64 index made beforehand and d
+    (gather.cu), its counterpart."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+
+    (b, _, c), j, e = src.shape, idx.shape[1], src.element_size()
+    index = idx.long().unsqueeze(-1).expand(-1, -1, c)
+    check(torch, tally, path, label, lambda: kernel(src, idx), lambda: plain(src, idx),
+          e * (distinct_rows(idx) * c + b * j * c) + 4 * b * j, 0,
+          library_fn=lambda: torch.gather(src, 1, index),
+          counterpart_ms=lambda: ga.gather_cuda(src, idx))
+
+
 def check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats) -> None:
     """Phase 8: e, f, g and j bit for bit against their plain versions, timed
     beside them, their older counterparts (d, h, d, i) and the library call.
@@ -679,20 +730,11 @@ def check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats) -> None:
     from pointnet2_scannet_tpu_torch.ops import tuning
     from pointnet2_scannet_tpu_torch.ops.cuda import (
         ball_query_kernel as bq,
-        gather_kernel as ga,
         gather_smem_kernel as gs,
         gather_split_kernel as gsp,
         three_nn_kernel as nn3,
         three_nn_q_kernel as nnq,
     )
-
-    def gathers(tally, path, label, src, idx, kernel, plain):
-        (b, _, c), j = src.shape, idx.shape[1]
-        index = idx.long().unsqueeze(-1).expand(-1, -1, c)
-        check(torch, tally, path, label, lambda: kernel(src, idx), lambda: plain(src, idx),
-              4 * (distinct_rows(idx) * c + b * j + b * j * c), 0,
-              library_fn=lambda: torch.gather(src, 1, index),
-              counterpart_ms=lambda: ga.gather_cuda(src, idx))
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     backward = []
@@ -708,8 +750,9 @@ def check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats) -> None:
                 (_, n, width), j = src.shape, idx.shape[1]
                 if tuning.gather_route(n, j, width, src.dtype) != "mxu":
                     continue
-                gathers(tallies[gs.NAME], "p1", f"gather_smem P1 SA{k + 1} {what} ({BATCH},{n},{width})x{j}",
-                        src, idx, gs.gather_smem_cuda, gs.gather_smem_plain)
+                smem_gather_check(torch, tallies[gs.NAME], "p1",
+                                  f"gather_smem P1 SA{k + 1} {what} ({BATCH},{n},{width})x{j}",
+                                  src, idx, gs.gather_smem_cuda, gs.gather_smem_plain)
                 if grad:
                     backward.append((f"SA{k + 1} grouping", idx, n, width))
     check_scatter(torch, tallies["scatter_smem"], "p1", backward)
@@ -719,10 +762,10 @@ def check_switched_kernels(torch, tallies, xyz, fps_idx, input_feats) -> None:
         src = torch.randn((BATCH, BENCH_N, c), generator=gen, device="cuda")
         idx = torch.randint(0, BENCH_N, (BATCH, BENCH_J), generator=gen, device="cuda", dtype=torch.int32)
         shape = f"({BATCH},{BENCH_N},{c})x{BENCH_J}"
-        gathers(tallies[gs.NAME], "bench", f"gather_smem bench {shape}", src, idx,
-                gs.gather_smem_cuda, gs.gather_smem_plain)
-        gathers(tallies[gsp.NAME], "bench", f"gather_split bench {shape}", src, idx,
-                gsp.gather_split_cuda, gsp.gather_split_plain)
+        smem_gather_check(torch, tallies[gs.NAME], "bench", f"gather_smem bench {shape}", src, idx,
+                          gs.gather_smem_cuda, gs.gather_smem_plain)
+        smem_gather_check(torch, tallies[gsp.NAME], "bench", f"gather_split bench {shape}", src, idx,
+                          gsp.gather_split_cuda, gsp.gather_split_plain)
         backward.append((f"bench C={c:02d}", idx, BENCH_N, c))
     check_scatter(torch, tallies["scatter_smem"], "bench", backward)
 
@@ -883,9 +926,10 @@ def make_run(torch, run: pathlib.Path, kind: str, npoints: int = NPOINTS,
 
 def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints: int = NPOINTS,
           batch_size: int = BATCH, bf16: bool = False) -> dict:
-    """Phases 9, 12, 13 and 23: the serving path end to end, through the
-    kernels; with bf16, a bfloat16 run dir, its gathers on bfloat16 rows and
-    its logits under the bfloat16 gates (bf16_logits_agree)."""
+    """Phases 9, 12, 13, 23 and 24: the serving path end to end, through
+    the kernels, its logits on a batch of CHECK_COLUMNS columns against
+    the CPU's; with bf16, a bfloat16 run dir, its gathers on bfloat16 rows
+    and its logits under the bfloat16 gates (bf16_logits_agree)."""
     import numpy as np
 
     from pointnet2_scannet_tpu_torch.engine.export import Predictor
@@ -911,7 +955,7 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
           f"bfloat16 launches {bf16_launches}", flush=True)
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     check_launches(launches, kind, False, f"{name} serving", config, npoints)
-    check_bf16_launches(bf16_launches, bf16, False, f"{name} serving")
+    check_bf16_launches(bf16_launches, bf16, False, f"{name} serving", config)
 
     files = sorted(out_dir.glob("*_pred.npy"))
     if len(files) != 4:
@@ -929,13 +973,14 @@ def serve(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoints:
           f"{stats['peak_gib']:.2f} GiB", flush=True)
 
     batch = serving_columns(2, npoints)[:batch_size]
-    gpu = Predictor.from_run(run, batch_size=batch_size, emit="logits", device="cuda")
-    cpu = Predictor.from_run(run, batch_size=batch_size, emit="logits", device="cpu")
-    got, want = gpu.predict(batch), cpu.predict(batch)
+    check = batch[:CHECK_COLUMNS]
+    gpu = Predictor.from_run(run, batch_size=len(check), emit="logits", device="cuda")
+    cpu = Predictor.from_run(run, batch_size=len(check), emit="logits", device="cpu")
+    got, want = gpu.predict(check), cpu.predict(check)
     err = float(np.abs(got - want).max())
-    print(f"logits {name}: card vs CPU plain path over {batch.shape}: max_abs_err {err} "
+    print(f"logits {name}: card vs CPU plain path over {check.shape}: max_abs_err {err} "
           f"(max |logit| {float(np.abs(want).max())})", flush=True)
-    if got.shape != (len(batch), npoints, 20) or not np.isfinite(got).all():
+    if got.shape != (len(check), npoints, 20) or not np.isfinite(got).all():
         raise RuntimeError(f"logits of shape {got.shape} or not finite")
     if bf16:
         bf16_logits_agree(np, got, want, name)
@@ -1014,7 +1059,7 @@ def train_cli(torch, tmp: pathlib.Path, kind: str, config: str = "default", npoi
     print(f"train {name}: launches {launches}, FPS variants {kernels.fps_kernel.variant_launches}, "
           f"bfloat16 launches {bf16_launches}", flush=True)
     check_launches(launches, kind, True, f"{name} training", config, npoints)
-    check_bf16_launches(bf16_launches, bf16, True, f"{name} training")
+    check_bf16_launches(bf16_launches, bf16, True, f"{name} training", config)
     for f in ("model_best.pt", "model_last.pt", "config.json", "best.txt",
               "model_last.train.pt", "tensorboard/all_scalars.json"):
         if not (run_dir / f).is_file():
@@ -1280,14 +1325,22 @@ def grad_errors(got: dict, want: dict) -> list:
                   reverse=True)
 
 
+# the CPU steps (float64, float32) of train_step_card_vs_cpu by model kind
+# and column size, shared by phases 11 and 12: on the CPU the MXU route's
+# plain versions compute the default route's functions
+CPU_STEPS: dict = {}
+
+
 def train_step_card_vs_cpu(torch, kind: str, config: str = "default", npoints: int = NPOINTS) -> None:
     """Phases 11 and 12: one train step from the same weights on the card
     and on the CPU (float32 both, and float64 on the CPU as the reference),
     Dropout off."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
-    out = {}
+    out = CPU_STEPS.setdefault((kind, npoints), {})
     for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
+        if (device, dtype) in out and device == "cpu":
+            continue
         state = bench_torch.fresh_state(kind, device, 0.0)
         state.model.to(dtype)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
@@ -1443,7 +1496,7 @@ def train_step_repeat_and_time(torch, kind: str, config: str = "default", batch_
         ts.train_step(state, batch, num_classes=20)
         states.append(state.model.state_dict())
     check_launches(kernels.launch_counts(), kind, True, f"{name} determinism", config, npoints)
-    check_bf16_launches(kernels.bf16_launch_counts(), dtype is not None, True, f"{name} determinism")
+    check_bf16_launches(kernels.bf16_launch_counts(), dtype is not None, True, f"{name} determinism", config)
     differ = [k for k, v in states[0].items() if not torch.equal(states[1][k], v)]
     print(f"train step {name} determinism (Dropout 0.5): {len(states[0])} tensors, "
           f"{len(differ)} differ", flush=True)
@@ -1497,6 +1550,71 @@ def time_configs(torch) -> None:
     print(f"configurations SSG (B={BATCH} x {NPOINTS}): eval logits default vs P1 equal; "
           + "; ".join(f"{what} {c} " + " / ".join(f"{t:.3f}" for t in ms) + " ms"
                       for (c, what), ms in times.items()), flush=True)
+
+
+def time_configs_bf16(torch) -> None:
+    """Phase 24: the SSG model's steady serving forward and train step at
+    32 x 8192 in bfloat16 under the default configuration and P1's, and in
+    float32 under P1's, each the median of 5 windows of 5 calls between
+    CUDA events, in the order default, P1, P1, default."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    batch = train_batch(torch, BATCH, "cuda")
+    states = {"bfloat16": bench_torch.fresh_state("ssg", "cuda", 0.5, dtype=torch.bfloat16),
+              "float32": bench_torch.fresh_state("ssg", "cuda", 0.5)}
+
+    def forward(model):
+        model.eval()
+        with torch.inference_mode():
+            return model(batch["points"])
+
+    def median_ms(fn) -> float:
+        times = bench_torch.timed_windows(fn, "cuda", 5, 5, 3)
+        return times[len(times) // 2]
+
+    times = {}
+    for config in ("default", "p1", "p1", "default"):
+        with switches(**(MXU_CONFIG if config == "p1" else {})):
+            for dtype in ("bfloat16", "float32") if config == "p1" else ("bfloat16",):
+                state = states[dtype]
+                times.setdefault((dtype, config, "serve forward"), []).append(
+                    median_ms(lambda: forward(state.model)))
+                times.setdefault((dtype, config, "train step"), []).append(
+                    median_ms(lambda: ts.train_step(state, batch, num_classes=20)))
+    print(f"configurations SSG bfloat16 (B={BATCH} x {NPOINTS}), order default, P1, P1, default: "
+          + "; ".join(f"{what} {dtype} {c} " + " / ".join(f"{t:.3f}" for t in ms) + " ms"
+                      for (dtype, c, what), ms in times.items()), flush=True)
+
+
+def serve_forward_bf16(torch, tmp: pathlib.Path, kind: str) -> dict:
+    """Phase 24: one serving forward (a batch of 32) of a bfloat16 run dir
+    of the model under P1 (the caller's switches) through Predictor,
+    launching its path's kernels (e on bfloat16 rows) and no other; its
+    first CHECK_COLUMNS columns' logits against the CPU's under phase 23's
+    logit and label gates."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.engine.export import Predictor
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    name = f"{kind.upper()} (mxu config, {NPOINTS}-point columns, batch {BATCH}, bfloat16) serving forward"
+    run = make_run(torch, tmp / f"run_{kind}_forward_bf16", kind, compute_dtype="bfloat16")
+    batch = serving_columns(2)[:BATCH]
+    gpu = Predictor.from_run(run, batch_size=BATCH, emit="logits", device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = gpu.predict(batch)
+    torch.cuda.synchronize()
+    launches, bf16_launches = kernels.launch_counts(), kernels.bf16_launch_counts()
+    print(f"{name}: launches {launches}, bfloat16 launches {bf16_launches}", flush=True)
+    check_launches(launches, kind, False, name, "mxu")
+    check_bf16_launches(bf16_launches, True, False, name, "mxu")
+    check = batch[:CHECK_COLUMNS]
+    want = Predictor.from_run(run, batch_size=len(check), emit="logits", device="cpu").predict(check)
+    if got.shape != (len(batch), NPOINTS, 20) or not np.isfinite(got).all():
+        raise RuntimeError(f"{name}: logits of shape {got.shape} or not finite")
+    bf16_logits_agree(np, got[:len(check)], want, name)
+    return {"launches": launches, "bf16_launches": bf16_launches}
 
 
 def bench_gather(torch) -> dict:
@@ -1579,10 +1697,15 @@ def bench(torch) -> dict:
     return launches
 
 
-def check_bf16_launches(bf16_launches: dict, bf16: bool, training: bool, what: str) -> None:
-    """Phase 23: a bfloat16 run launched the gather (and, training, the
-    scatter-add) on bfloat16 rows; a float32 run never did."""
-    want = {"gather": bf16, "scatter_add": bf16 and training}
+def check_bf16_launches(bf16_launches: dict, bf16: bool, training: bool, what: str,
+                        config: str = "default") -> None:
+    """Phases 23 and 24: a bfloat16 run launched d (and, training, h) on
+    bfloat16 rows, and under P1 ("mxu") e (and, training, f) too; g never
+    (no model path takes it); a float32 run launched none of them on
+    bfloat16 rows."""
+    mxu = config == "mxu"
+    want = {"gather": bf16, "scatter_add": bf16 and training, "gather_smem": bf16 and mxu,
+            "scatter_smem": bf16 and mxu and training, "gather_split": False}
     got = {k: n > 0 for k, n in bf16_launches.items()}
     if got != want:
         raise RuntimeError(f"the {what} run launched {bf16_launches} on bfloat16 rows")
@@ -1659,34 +1782,107 @@ def check_bf16_kernels(torch, tallies, xyz, multi_idx) -> None:
     check_scatter(torch, tallies["scatter_add"], "skew bf16", skewed_row(torch), bf16)
 
 
-@contextlib.contextmanager
-def scaled_h(scale: float):
-    """Phase 23's negative controls: h's wrapper returns its output times
-    scale (0.5: halved, 0.0: zeroed) for the duration."""
-    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
+def check_p1_bf16_kernels(torch, tallies, xyz, multi_idx) -> None:
+    """Phase 24: e on bfloat16 rows at every gather that the SSG and MSG
+    bfloat16 train steps route to it under P1 (the packed [xyz_hi | xyz_lo
+    | features] groupings, listed from LEVELS and the MSG spec through
+    gather_route) and at bench_gather's shapes (C 9: 2-byte words), g on
+    bfloat16 rows at those, each bit for bit against its plain version;
+    f on bfloat16 cotangents at those train steps' grouping gradients, at
+    bench_gather's shapes and at phase 4's skewed row, bit for bit against
+    its plain version's bfloat16 branch on CPU copies; each timed beside
+    its counterpart, library call and bound. The tallies are e's, f's and
+    g's bfloat16 rows."""
+    from pointnet2_scannet_tpu_torch.models import msg_spec
+    from pointnet2_scannet_tpu_torch.ops import tuning
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_smem_kernel as gs
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_split_kernel as gsp
 
-    wrapper = sc.scatter_add_cuda
-    sc.scatter_add_cuda = lambda idx, g, n: wrapper(idx, g, n) * scale
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    def rows(n, c):
+        return torch.randn((BATCH, n, c), generator=gen, device="cuda").to(bf16)
+
+    spec = msg_spec(20, 6)
+    groupings = {"ssg": [], "msg": []}
+    for k, (n_in, _, radius, c) in enumerate(LEVELS):
+        x, q = xyz[k], xyz[k + 1]
+        groupings["ssg"].append((f"SA{k + 1}", bq.ball_query_cuda(radius, NSAMPLE, x, q).reshape(BATCH, -1),
+                                 n_in, BF16_XYZ + c))
+        for s in range(2):
+            groupings["msg"].append((f"SA{k + 1} scale {s}", multi_idx[k][s].reshape(BATCH, -1), n_in,
+                                     BF16_XYZ + spec.skip_channels[k]))
+    with switches(**MXU_CONFIG):
+        for kind, shapes in groupings.items():
+            backward = []
+            for label, idx, n, width in shapes:
+                if tuning.gather_route(n, idx.shape[1], width, bf16) != "mxu":
+                    continue
+                smem_gather_check(torch, tallies["gather_smem"], f"p1 {kind} bf16",
+                                  f"gather_smem bf16 P1 {kind.upper()} {label} packed grouping "
+                                  f"({BATCH},{n},{width})x{idx.shape[1]}", rows(n, width), idx,
+                                  gs.gather_smem_cuda, gs.gather_smem_plain)
+                if not label.startswith("SA1"):  # SA1 groups input data: no gradient
+                    backward.append((f"{label} packed grouping", idx, n, width))
+            check_scatter(torch, tallies["scatter_smem"], f"p1 {kind} bf16", backward, bf16)
+    backward = []
+    for c in BENCH_C:
+        src = rows(BENCH_N, c)
+        idx = torch.randint(0, BENCH_N, (BATCH, BENCH_J), generator=gen, device="cuda", dtype=torch.int32)
+        shape = f"({BATCH},{BENCH_N},{c})x{BENCH_J}"
+        smem_gather_check(torch, tallies["gather_smem"], "bench bf16", f"gather_smem bf16 bench {shape}", src,
+                          idx, gs.gather_smem_cuda, gs.gather_smem_plain)
+        smem_gather_check(torch, tallies["gather_split"], "bench bf16", f"gather_split bf16 bench {shape}", src,
+                          idx, gsp.gather_split_cuda, gsp.gather_split_plain)
+        backward.append((f"bench C={c:02d}", idx, BENCH_N, c))
+    check_scatter(torch, tallies["scatter_smem"], "bench bf16", backward, bf16)
+    check_scatter(torch, tallies["scatter_smem"], "skew bf16", skewed_row(torch), bf16)
+
+
+@contextlib.contextmanager
+def scaled(module, name: str, scale: float):
+    """Phases 23 and 24's negative controls: a scatter-add's wrapper (h's
+    scatter_add_cuda, f's scatter_smem_cuda) returns its output times scale
+    (0.5: halved, 0.0: zeroed) for the duration."""
+    wrapper = getattr(module, name)
+    setattr(module, name, lambda idx, g, n: wrapper(idx, g, n) * scale)
     try:
         yield
     finally:
-        sc.scatter_add_cuda = wrapper
+        setattr(module, name, wrapper)
 
 
-def train_step_card_vs_cpu_bf16(torch, kind: str) -> None:
-    """Phase 23: one bfloat16 train step from the same weights on the card
-    and on the CPU (2 full-width columns, Dropout off), and a float64 CPU
-    step of those weights as the reference: the loss within BF16_LOSS_RTOL
-    of the CPU's; the card's gradients (over all parameters and at the
-    median tensor) at most BF16_GRAD_VS_CPU times as far from the float64
-    ones as the CPU's bfloat16 gradients are, and at the median tensor no
-    further from the CPU's bfloat16 gradients than those are from the
-    float64 ones over all parameters; the parameters stay float32. The
-    same gates must refuse the card's step with h's output halved and
-    zeroed."""
+# the float64 CPU step's gradients of each model kind, shared by phases 23
+# and 24: its gathers and scatter-adds compute the same float64 function on
+# either configuration's routes
+F64_GRADS: dict = {}
+
+
+def train_step_card_vs_cpu_bf16(torch, kind: str, config: str = "default") -> None:
+    """Phases 23 and 24: one bfloat16 train step from the same weights on
+    the card and on the CPU (2 full-width columns, Dropout off), and a
+    float64 CPU step of those weights as the reference: the loss within
+    BF16_LOSS_RTOL of the CPU's; the card's gradients (over all parameters
+    and at the median tensor) at most BF16_GRAD_VS_CPU times as far from
+    the float64 ones as the CPU's bfloat16 gradients are, and at the median
+    tensor no further from the CPU's bfloat16 gradients than those are from
+    the float64 ones over all parameters; the parameters stay float32. The
+    same gates must refuse the card's step with the grouping gradients'
+    kernel's output halved and zeroed: h's under the default configuration,
+    f's under P1 ("mxu"). Under P1 the card's step must launch f on
+    bfloat16 rows, and a fourth gate holds each of f's outputs in the step,
+    as the step received it, bit for bit against f's plain version on CPU
+    copies of that launch's inputs: f feeds only the SA1 and SA2 parameters,
+    so the distances over all parameters may pass a halved f (the note at
+    BF16_GRAD_VS_CPU)."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
-    def step(device, dtype):
+    def step(device, dtype, record=None):
         state = bench_torch.fresh_state(kind, device, 0.0, dtype=None if dtype == torch.float64 else dtype)
         if dtype == torch.float64:
             state.model.to(dtype)
@@ -1694,10 +1890,24 @@ def train_step_card_vs_cpu_bf16(torch, kind: str) -> None:
             raise RuntimeError("a bfloat16 model holds parameters other than float32")
         batch = {k: v.to(torch.float64) if v.is_floating_point() and dtype == torch.float64 else v
                  for k, v in train_batch(torch, 2, device).items()}
-        res = ts.train_step(state, batch, num_classes=20)
+        wrapper = ss.scatter_smem_cuda
+
+        def recorded(idx, g, n):  # f's inputs and what the step received, as CPU copies
+            out = wrapper(idx, g, n)
+            record.append((idx.cpu(), g.cpu(), n, out.cpu()))
+            return out
+
+        if record is not None:
+            ss.scatter_smem_cuda = recorded
+        try:
+            res = ts.train_step(state, batch, num_classes=20)
+        finally:
+            ss.scatter_smem_cuda = wrapper
         return float(res["loss"]), {k: p.grad.cpu().double() for k, p in state.model.named_parameters()}
 
-    (_, ref), (cpu_loss, cpu_g) = step("cpu", torch.float64), step("cpu", torch.bfloat16)
+    if kind not in F64_GRADS:
+        F64_GRADS[kind] = step("cpu", torch.float64)[1]
+    ref, (cpu_loss, cpu_g) = F64_GRADS[kind], step("cpu", torch.bfloat16)
 
     def all_l2(g, want):
         return float(sum(((g[k] - w) ** 2).sum() for k, w in want.items()).sqrt()
@@ -1720,26 +1930,43 @@ def train_step_card_vs_cpu_bf16(torch, kind: str) -> None:
               f"{cpu_all:.3e}): {'pass' if ok else 'fail'}", flush=True)
         return ok
 
-    gpu_loss, gpu_g = step("cuda", torch.bfloat16)
+    def f_exact(what, record) -> bool:
+        ok = all(torch.equal(out, ss.scatter_smem_plain(idx, g, n)) for idx, g, n, out in record)
+        if config == "mxu":
+            print(f"train step {kind.upper()} bfloat16 f, {what}: {len(record)} outputs "
+                  f"{'equal' if ok else 'NOT equal'} to the plain version on CPU copies of their inputs",
+                  flush=True)
+        return ok and (config != "mxu" or len(record) > 0)
+
+    kernels.reset_launch_counts()
+    record = []
+    gpu_loss, gpu_g = step("cuda", torch.bfloat16, record)
+    bf16_launches = kernels.bf16_launch_counts()
     loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    print(f"train step {kind.upper()} bfloat16 card vs CPU (2 x {NPOINTS}): loss {gpu_loss} vs {cpu_loss} "
-          f"(rel {loss_err:.2e}, bound {BF16_LOSS_RTOL})", flush=True)
+    print(f"train step {kind.upper()} bfloat16 ({config} config) card vs CPU (2 x {NPOINTS}): loss {gpu_loss} "
+          f"vs {cpu_loss} (rel {loss_err:.2e}, bound {BF16_LOSS_RTOL}); bfloat16 launches {bf16_launches}",
+          flush=True)
+    check_bf16_launches(bf16_launches, True, True, f"{kind.upper()} bfloat16 card step", config)
     if not loss_err <= BF16_LOSS_RTOL:
         raise RuntimeError("bfloat16 train step: the card's loss disagrees with the CPU's")
-    if not gate("the card", gpu_g):
+    if not (gate("the card", gpu_g) and f_exact("the card", record)):
         raise RuntimeError("bfloat16 train step: the card's gradients are further from the float64 "
-                           "and the CPU's bfloat16 gradients than the gates allow")
-    for scale, what in ((0.5, "h halved"), (0.0, "h zeroed")):
-        with scaled_h(scale):
-            broken = step("cuda", torch.bfloat16)[1]
-        if gate(f"the card with {what} (must fail)", broken):
-            raise RuntimeError(f"bfloat16 train step: the gradient gates pass the card's step with {what}")
+                           "and the CPU's bfloat16 gradients than the gates allow, or f's differ")
+    module, name, short = (ss, "scatter_smem_cuda", "f") if config == "mxu" else (sc, "scatter_add_cuda", "h")
+    for scale, what in ((0.5, f"{short} halved"), (0.0, f"{short} zeroed")):
+        record = []
+        with scaled(module, name, scale):
+            broken = step("cuda", torch.bfloat16, record)[1]
+        distances = gate(f"the card with {what} (must fail)", broken)
+        if distances and f_exact(f"the card with {what} (must fail)", record):
+            raise RuntimeError(f"bfloat16 train step: the gates pass the card's step with {what}")
 
 
-def eval_run(torch, run: pathlib.Path, kind: str) -> dict:
-    """Phase 23: scripts/eval_torch.py on a run dir that train_torch.py
-    --bf16 wrote (2 synthetic scenes, batch 32): the model's forward kernels
-    launched on bfloat16 rows, every metric finite and in [0, 1]."""
+def eval_run(torch, run: pathlib.Path, kind: str, config: str = "default") -> dict:
+    """Phases 23 and 24: scripts/eval_torch.py on a run dir that
+    train_torch.py --bf16 wrote (2 synthetic scenes, batch 32), under the
+    configuration's switches: the model's forward kernels launched on
+    bfloat16 rows, every metric finite and in [0, 1]."""
     import math
 
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
@@ -1752,20 +1979,26 @@ def eval_run(torch, run: pathlib.Path, kind: str) -> dict:
     report = eval_torch.evaluate(args)
     torch.cuda.synchronize()
     launches, bf16_launches = kernels.launch_counts(), kernels.bf16_launch_counts()
-    what = f"eval_torch.py {kind.upper()} bfloat16 run dir"
+    what = f"eval_torch.py {kind.upper()} bfloat16 run dir ({config} config)"
     print(f"{what}: launches {launches}, bfloat16 launches {bf16_launches}; point acc "
           f"{report.point_acc:.4f}, voxel mIoU {report.voxel_miou:.4f}", flush=True)
-    check_launches(launches, kind, False, what)
-    check_bf16_launches(bf16_launches, True, False, what)
+    check_launches(launches, kind, False, what, config)
+    check_bf16_launches(bf16_launches, True, False, what, config)
     values = [report.point_acc, report.voxel_acc, report.voxel_cali_acc, report.point_miou, report.voxel_miou]
     if len(report.scenes) != 2 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
         raise RuntimeError(f"{what}: {len(report.scenes)} scenes, metrics {values}")
     return {"launches": launches, "bf16_launches": bf16_launches}
 
 
+def lap(t0: float, what: str) -> None:
+    """A line of the script's wall time so far, where a group of phases ends."""
+    print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
         return 1
@@ -1786,6 +2019,7 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "entry function" in line:
             print(f"  {line.strip()}")
+    lap(start, "phases 1-2")
 
     tallies = {k.NAME: Tally(k) for k in kernels.KERNELS}
     xyz, fps_idx, input_feats = level_clouds(torch)
@@ -1801,8 +2035,12 @@ def main() -> int:
     check_p3_fps(torch, tallies["furthest_point_sample"])
     check_p3_queries(torch, tallies)
     check_bf16_kernels(torch, tallies, xyz, multi_idx)  # phase 23's kernel checks
+    bf16_tallies = {k.NAME: Tally(k, f"{k.NAME}_bf16") for k in (
+        kernels.gather_smem_kernel, kernels.scatter_smem_kernel, kernels.gather_split_kernel)}
+    check_p1_bf16_kernels(torch, bf16_tallies, xyz, multi_idx)  # phase 24's kernel checks
     del backward, multi_idx, xyz, fps_idx, input_feats
-    for name, t in tallies.items():
+    lap(start, "phases 3-8 and 23-24's kernel checks")
+    for name, t in [*tallies.items(), *((t.name, t) for t in bf16_tallies.values())]:
         for path, p in t.paths.items():
             print(f"kernel {name} over the {path.upper()} shapes: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in p.items() if v is not None), flush=True)
@@ -1843,6 +2081,7 @@ def main() -> int:
         # phase 18: P3
         tally(train_cli(torch, tmp, "ssg", npoints=P3_NPOINTS, batch_size=P3_BATCH))
         tally(serve(torch, tmp, "ssg", npoints=P3_NPOINTS, batch_size=P3_BATCH))
+    lap(start, "the serve and train runs of phases 9-13, 16 and 18")
     for model_kind in KINDS:
         train_step_card_vs_cpu(torch, model_kind)
         train_step_repeat_and_time(torch, model_kind)
@@ -1850,6 +2089,7 @@ def main() -> int:
         train_step_card_vs_cpu(torch, "ssg", "mxu")
         train_step_repeat_and_time(torch, "ssg", "mxu")
     time_configs(torch)
+    lap(start, "the steps of phases 11-12")
     tally({"launches": bench_gather(torch)})
     tally({"launches": bench_fused(torch)})
     for model_kind in KINDS:  # phase 17
@@ -1857,12 +2097,15 @@ def main() -> int:
         wholescene_time(model_kind)
     train_step_card_vs_cpu(torch, "ssg", npoints=P3_NPOINTS)  # phase 18
     train_step_repeat_and_time(torch, "ssg", batch_size=P3_BATCH, npoints=P3_NPOINTS)
+    lap(start, "phases 14-18")
     tally({"launches": bench(torch)})  # phase 19
+    lap(start, "phase 19")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 20
         tally(train_cli(torch, pathlib.Path(tmp), "ssg", trace=True))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 21
         for model_kind in KINDS:
             tally(eval_cli(torch, pathlib.Path(tmp), model_kind))
+    lap(start, "phases 20-21")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 22
         run = train_cli(torch, pathlib.Path(tmp), "ssg", device_store=True)
         check_store_launches(run["launches"], host_train["ssg"]["launches"], 3, "--device_store")
@@ -1871,6 +2114,7 @@ def main() -> int:
     check_store_gather(torch, tallies["gather"])
     print("kernel gather over the STORE shape: " + ", ".join(
         f"{k} {v:.4f}" for k, v in tallies["gather"].paths["store"].items() if v is not None), flush=True)
+    lap(start, "phase 22")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 23: bfloat16
         tmp = pathlib.Path(tmp)
         for model_kind in KINDS:
@@ -1881,12 +2125,27 @@ def main() -> int:
     for model_kind in KINDS:
         train_step_card_vs_cpu_bf16(torch, model_kind)
         train_step_repeat_and_time(torch, model_kind, dtype=torch.bfloat16)
+    lap(start, "phase 23")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, switches(**MXU_CONFIG):  # phase 24
+        tmp = pathlib.Path(tmp)
+        tally(serve(torch, tmp, "ssg", "mxu", bf16=True))
+        run = train_cli(torch, tmp, "ssg", "mxu", bf16=True)
+        tally(run)
+        tally(eval_run(torch, run["run_dir"], "ssg", "mxu"))
+        tally(serve_forward_bf16(torch, tmp, "msg"))
+        lap(start, "phase 24's runs")
+        for model_kind in KINDS:
+            train_step_card_vs_cpu_bf16(torch, model_kind, "mxu")
+        train_step_repeat_and_time(torch, "ssg", "mxu", dtype=torch.bfloat16)
+    time_configs_bf16(torch)
+    lap(start, "phase 24")
 
-    print(f"bfloat16 launches on the main path (phase 23's runs): {bf16_launches}", flush=True)
+    print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]
     for row in rows:
         if row["name"] in bf16_launches:
             row["bf16_launches"] = bf16_launches[row["name"]]
+    rows += [t.row(bf16_launches[name]) for name, t in bf16_tallies.items()]
     print(json.dumps({"kernels": rows}))
     print(bench_torch.card_line())
     print(json.dumps({"ok": True, "device": {

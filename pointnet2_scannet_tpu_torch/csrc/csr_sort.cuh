@@ -4,8 +4,13 @@
 // summed in float32 in ascending j from +0.0f, rows that no j references
 // 0, with no float atomics; g and out are float32, or bfloat16 (each
 // element widened before it is added, each output rounded once to nearest
-// even). scatter_smem.cu's sort route and scatter_add.cu's sort route both
-// run it through csr_scatter_add() below.
+// even). With kTileJ > 0 (bfloat16 only: scatter_smem.cu's, the TPU
+// kernel's order) a bfloat16 output is instead summed tile by tile: the
+// float32 sum of the row's entries within each tile of kTileJ consecutive j,
+// rounded to bfloat16 and added to a bfloat16 accumulator (a float32 add,
+// rounded), tiles in ascending order from +0. scatter_smem.cu's sort route
+// and scatter_add.cu's sort route both run it through csr_scatter_add()
+// below.
 //
 // Bound on the card: bytes of g (each word read once) and of out (written
 // once). Each index row is sorted once, in parallel over the card, and
@@ -241,7 +246,12 @@ __global__ void __launch_bounds__(kPlaceThreads)
   }
 }
 
-template <typename T>
+// a float32 value rounded to bfloat16 (to nearest even), as float32
+__device__ __forceinline__ float p2_round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// T: g's and out's element; kTileJ: 0 for one float32 sum a row, rounded
+// once, else the tile width of the tile-by-tile sum (bfloat16 T)
+template <typename T, int kTileJ>
 __global__ void __launch_bounds__(kSumThreads)
     segment_sum_kernel(const T* __restrict__ g,
                        const int* __restrict__ offsets,
@@ -278,14 +288,18 @@ __global__ void __launch_bounds__(kSumThreads)
 
   int r = -1;  // the row being summed; warp-uniform
   float acc = 0.0f;
+  float part = 0.0f;  // kTileJ: the float32 sum of the current tile's entries
+  int tile = -1;      // kTileJ: the current tile; warp-uniform
   int mine = lane < kBatch && start + lane < end ? ord[start + lane] : 0;  // lane u: entry k0 + u
   for (int k0 = start; k0 < end; k0 += kBatch) {  // warp-uniform bounds
     const int cnt = min(kBatch, end - k0);
     float v[kBatch];
+    int tiles[kBatch];  // kTileJ: each entry's tile
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const long long j = __shfl_sync(0xffffffffu, mine, u);
       v[u] = (live && u < cnt) ? p2_widen(gb[j * C]) : 0.0f;
+      if constexpr (kTileJ > 0) tiles[u] = static_cast<int>(j) / kTileJ;
     }
     const int e = k0 + lane;
     mine = lane < kBatch && e + kBatch < end ? ord[e + kBatch] : 0;  // the next batch, in flight
@@ -295,26 +309,39 @@ __global__ void __launch_bounds__(kSumThreads)
     for (int u = 0; u < kBatch; ++u) {
       const int ru = __shfl_sync(0xffffffffu, row, u);
       if (u < cnt) {
+        if constexpr (kTileJ > 0) {
+          if (ru != r || tiles[u] != tile) {  // the tile's sum joins the accumulator
+            acc = p2_round_bf16(__fadd_rn(acc, p2_round_bf16(part)));
+            part = 0.0f;
+            tile = tiles[u];
+          }
+        }
         if (ru != r) {  // entry u starts row ru: row r is done
           if (live && r >= 0) ob[static_cast<long long>(r) * C] = p2_narrow<T>(acc);
           acc = 0.0f;
           r = ru;
         }
-        acc = __fadd_rn(acc, v[u]);
+        if constexpr (kTileJ > 0) {
+          part = __fadd_rn(part, v[u]);
+        } else {
+          acc = __fadd_rn(acc, v[u]);
+        }
       }
     }
   }
+  if constexpr (kTileJ > 0) acc = p2_round_bf16(__fadd_rn(acc, p2_round_bf16(part)));
   if (live && r >= 0) ob[static_cast<long long>(r) * C] = p2_narrow<T>(acc);
 }
 
 // idx (B, J) int32 in [0, N), trusted; g (B, J, C) and out (B, N, C) of
-// T (float or __nv_bfloat16), every word of out written. tile: the indices
-// a sort block takes (a multiple of 32 * walkers, at most 8192); walkers:
-// the warps that rank a tile (1 to 8); rows: the output rows a sum warp
-// takes (1 to 31); all from scatter_smem_kernel.sort_plan(). scratch:
-// int32 words for counts (B, ceil(J / tile), N), offsets (B, N + 1) and
-// order (B, J), in that order, which the caller allocates.
-template <typename T>
+// T (float or __nv_bfloat16), every word of out written; kTileJ as
+// segment_sum_kernel takes it. tile: the indices a sort block takes (a
+// multiple of 32 * walkers, at most 8192); walkers: the warps that rank a
+// tile (1 to 8); rows: the output rows a sum warp takes (1 to 31); all from
+// scatter_smem_kernel.sort_plan(). scratch: int32 words for counts (B,
+// ceil(J / tile), N), offsets (B, N + 1) and order (B, J), in that order,
+// which the caller allocates.
+template <typename T, int kTileJ = 0>
 int csr_scatter_add(const int* idx, const T* g, int B, int N, int J, int C, int tile,
                     int walkers, int rows, int* scratch, T* out, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
@@ -359,7 +386,7 @@ int csr_scatter_add(const int* idx, const T* g, int B, int N, int J, int C, int 
   const int chunks = (C + 31) / 32;
   const long long warps = static_cast<long long>(B) * groups * chunks;
   const long long blocks = (warps * 32 + kSumThreads - 1) / kSumThreads;
-  segment_sum_kernel<T><<<static_cast<unsigned>(blocks), kSumThreads, 0, s>>>(
+  segment_sum_kernel<T, kTileJ><<<static_cast<unsigned>(blocks), kSumThreads, 0, s>>>(
       g, offsets, order, N, J, C, rows, groups, chunks, warps, out);
   return static_cast<int>(cudaGetLastError());
 }

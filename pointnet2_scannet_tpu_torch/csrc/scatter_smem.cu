@@ -1,13 +1,20 @@
 // Deterministic scatter-add, the backward of gather_smem.cu:
 //   out[b, n, :] = sum over j with idx[b, j] == n of g[b, j, :]
-// summed in ascending j from +0.0f; rows that no j references are 0.
+// float32: summed in ascending j from +0.0f; rows that no j references are 0.
 //
 // Replaces pointnet2_scannet_tpu/ops/pallas/gather_kernel.py
 // (_mxu_gather_bwd, the VJP of mxu_gather). The TPU kernel keeps a batch
-// row's (N, C) accumulator in VMEM and adds one 128-row one-hot product into
-// it per grid step. Here the sum order is pinned to ascending j, as in
-// scatter_add.cu, the CPU's scatter_add_ and XLA's scatter, so all agree bit
-// for bit and every launch gives the same bits; no float atomics.
+// row's (N, C) accumulator in VMEM, of g's dtype, and adds one 128-row
+// one-hot product into it per grid step. Here the float32 sum order is
+// pinned to ascending j, as in scatter_add.cu, the CPU's scatter_add_ and
+// XLA's scatter, so all agree bit for bit and every launch gives the same
+// bits; no float atomics. bfloat16 follows the TPU kernel's order instead,
+// which its bfloat16 accumulator makes visible: for each tile of 128
+// consecutive j of a batch row, the float32 sum of the tile's entries in
+// ascending j, rounded to bfloat16, then added to the bfloat16 accumulator
+// (in float32, rounded), tiles in ascending order from +0 (the sort route's
+// segment sum with kTileJ = 128, csr_sort.cuh). bfloat16 always takes the
+// sort route.
 //
 // Bound on the card: bytes of g (each word read once) and of out (written
 // once). Two routes, which scatter_smem_kernel.plan() picks from the shapes:
@@ -22,6 +29,7 @@
 #include <cuda_runtime.h>
 
 #include "csr_sort.cuh"
+#include "on_device.cuh"
 #include "smem_limit.cuh"
 
 namespace {
@@ -30,6 +38,7 @@ constexpr int kAccThreads = 1024;  // 32 warps; one key a thread per tile
 constexpr int kAccWarps = kAccThreads / 32;
 constexpr int kAccBatch = 8;  // listed entries whose g rows load together
 constexpr int kAccSmemBytes = 200 * 1024;
+constexpr int kTileJ = 128;  // the TPU kernel's index tile (gather_kernel.py TILE_J)
 
 // The accumulate route, for little index work a batch row: one block of 32
 // warps per (batch row, row group, channel slice) owns the output rows n
@@ -134,20 +143,30 @@ __global__ void __launch_bounds__(kAccThreads)
 }  // namespace
 
 // The sort route: csr_scatter_add (csr_sort.cuh) with scatter_smem_kernel.plan()'s
-// tile, walkers and rows.
-extern "C" int p2_scatter_smem(const int* idx, const float* g, int B, int N,
-                               int J, int C, int tile, int walkers, int rows,
-                               int* scratch, float* out, void* stream) {
-  return csr_scatter_add(idx, g, B, N, J, C, tile, walkers, rows, scratch, out, stream);
+// tile, walkers and rows; g and out of esize-byte elements (4: float32,
+// summed in ascending j; 2: bfloat16, tile by tile, J a multiple of 128).
+// device: the card that holds the tensors.
+extern "C" int p2_scatter_smem(const int* idx, const void* g, int B, int N,
+                               int J, int C, int tile, int walkers, int rows, int esize,
+                               int* scratch, void* out, int device, void* stream) {
+  if (esize != 4 && (esize != 2 || J % kTileJ != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(p2_on_device(device, [&] {
+    return static_cast<cudaError_t>(
+        esize == 4 ? csr_scatter_add(idx, static_cast<const float*>(g), B, N, J, C, tile, walkers, rows,
+                                     scratch, static_cast<float*>(out), stream)
+                   : csr_scatter_add<__nv_bfloat16, kTileJ>(
+                         idx, static_cast<const __nv_bfloat16*>(g), B, N, J, C, tile, walkers, rows,
+                         scratch, static_cast<__nv_bfloat16*>(out), stream));
+  }));
 }
 
-// The accumulate route: idx, g and out as above; cs: the channels a block
-// accumulates; groups: the row groups a batch row's output is split into
-// (ceil(N / groups) * cs * 4 <= 200 KiB); both from
+// The accumulate route, float32 only: idx, g and out as above; cs: the
+// channels a block accumulates; groups: the row groups a batch row's output
+// is split into (ceil(N / groups) * cs * 4 <= 200 KiB); both from
 // scatter_smem_kernel.plan().
 extern "C" int p2_scatter_smem_accumulate(const int* idx, const float* g, int B, int N,
                                           int J, int C, int cs, int groups, float* out,
-                                          void* stream) {
+                                          int device, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   if (J < 0 || cs <= 0 || groups <= 0 || groups > N || B > 65535 || groups > 65535 ||
       static_cast<long long>((N + groups - 1) / groups) * cs * 4 > kAccSmemBytes) {
@@ -155,10 +174,12 @@ extern "C" int p2_scatter_smem_accumulate(const int* idx, const float* g, int B,
   }
   const int w = cs < C ? cs : C;
   const size_t smem = static_cast<size_t>((N + groups - 1) / groups) * w * sizeof(float);
-  static int allowed[kP2MaxDevices] = {};
-  cudaError_t err = p2_allow_smem(accumulate_kernel, smem, allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  accumulate_kernel<<<dim3((C + cs - 1) / cs, groups, B), kAccThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(idx, g, N, J, C, cs, groups, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(p2_on_device(device, [&] {
+    static int allowed[kP2MaxDevices] = {};
+    const cudaError_t err = p2_allow_smem(accumulate_kernel, smem, allowed);
+    if (err != cudaSuccess) return err;
+    accumulate_kernel<<<dim3((C + cs - 1) / cs, groups, B), kAccThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(idx, g, N, J, C, cs, groups, out);
+    return cudaGetLastError();
+  }));
 }

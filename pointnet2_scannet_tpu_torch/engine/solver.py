@@ -105,9 +105,12 @@ class Solver:
         *,
         device: torch.device | str,
         trace_dir: str | pathlib.Path | None = None,
+        compute_voxel_metrics: bool = True,
     ):
         self.config = config
         self.trace_dir = trace_dir  # execution only: never written into the run config
+        # False: validation skips the voxel metrics and model_best gates on point mIoU
+        self.compute_voxel_metrics = compute_voxel_metrics
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.train_dataset = train_dataset
@@ -322,7 +325,8 @@ class Solver:
             out = ts.eval_step(self.model, batch, num_classes=self.num_classes)
             losses.append(out["loss"])
             cms.append(out["confusion"])
-            voxel.append(self._voxel_metrics(*_real_rows(host, out["preds"])))
+            if self.compute_voxel_metrics:
+                voxel.append(self._voxel_metrics(*_real_rows(host, out["preds"])))
         if not cms:
             raise RuntimeError("validation produced no batches; check batch_size vs dataset size")
         return self._val_stats(losses, cms, voxel)
@@ -337,9 +341,14 @@ class Solver:
     @staticmethod
     def _val_stats(losses: list, cms: list, voxel: list) -> dict:
         """Validation stats: the mean loss, the point metrics of the summed
-        confusion matrices, and the voxel metrics averaged over their sets."""
+        confusion matrices, and the voxel metrics averaged over their sets;
+        with no voxel sets (compute_voxel_metrics=False), voxel_miou is the
+        point mIoU, which model_best then gates on."""
         stats = {"loss": float(torch.stack(losses).mean())}
         stats.update(M.confusion_to_point_metrics(torch.stack(cms).sum(0).cpu().numpy()))
+        if not voxel:
+            stats["voxel_miou"] = stats["point_miou"]
+            return stats
         accs, cali, mious = zip(*voxel)
         stats["voxel_acc"] = float(np.mean(accs))
         stats["voxel_acc_calibrated"] = float(np.mean(cali))
@@ -438,8 +447,10 @@ class WholeSceneSolver(Solver):
                 out = ts.eval_step(self.model, mb, num_classes=self.num_classes)
                 losses.append(out["loss"])
                 cms.append(out["confusion"])
-                rows.append(_real_rows(host, out["preds"]))
-            voxel.append(self._voxel_metrics(*map(np.concatenate, zip(*rows))))
+                if self.compute_voxel_metrics:
+                    rows.append(_real_rows(host, out["preds"]))
+            if rows:
+                voxel.append(self._voxel_metrics(*map(np.concatenate, zip(*rows))))
         if not cms:
             raise RuntimeError("validation produced no micro-batches")
         return self._val_stats(losses, cms, voxel)

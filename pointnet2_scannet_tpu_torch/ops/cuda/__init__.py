@@ -3,8 +3,9 @@ PyTorch version and a launch counter.
 
 Every kernel module carries `NAME`, `SOURCE` (its .cu file), `REPLACES` (the
 TPU kernel it ports, file:line), `launches` (incremented once per kernel
-launch and nowhere else), `<op>_plain` and `<op>_cuda`; the gather and the
-scatter-add also count their bfloat16 launches (`bf16_launches`). The
+launch and nowhere else), `<op>_plain` and `<op>_cuda`; the gathers (d, e,
+g) and the scatter-adds (h, f) also count their bfloat16 launches
+(`bf16_launches`). The
 public ops in ops/ pick between the two by the tensor's device: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
@@ -32,11 +33,15 @@ KERNELS = (
     gather_split_kernel, fused_gather_mm_kernel,
 )
 
+# the kernels that take bfloat16 rows, each counting those launches apart
+BF16_KERNELS = (gather_kernel, scatter_kernel, gather_smem_kernel, scatter_smem_kernel, gather_split_kernel)
+
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    gather_kernel.bf16_launches = scatter_kernel.bf16_launches = 0
+    for k in BF16_KERNELS:
+        k.bf16_launches = 0
     for variant in fps_kernel.variant_launches:
         fps_kernel.variant_launches[variant] = 0
 
@@ -46,8 +51,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def bf16_launch_counts() -> dict[str, int]:
-    """The gather's and the scatter-add's launches on bfloat16 rows."""
-    return {k.NAME: k.bf16_launches for k in (gather_kernel, scatter_kernel)}
+    """The gathers' and the scatter-adds' launches on bfloat16 rows."""
+    return {k.NAME: k.bf16_launches for k in BF16_KERNELS}
 
 
 def on_cuda(t) -> bool:

@@ -49,9 +49,9 @@ _SIGNATURES = {
     "p2_three_nn": [_vp, _vp, _i, _i, _i, _i, _i, _vp, _vp, _i, _vp],
     "p2_scatter_add": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_scatter_add_sort": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _i, _vp],
-    "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
-    "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp],
-    "p2_scatter_smem_accumulate": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp],
+    "p2_gather_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
+    "p2_scatter_smem": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _i, _vp],
+    "p2_scatter_smem_accumulate": [_vp, _vp, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_fused_gather_mm": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
 }
 

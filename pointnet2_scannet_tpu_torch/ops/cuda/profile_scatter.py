@@ -6,7 +6,7 @@ queries (b, csrc/ball_query.cu; c, csrc/ball_query_multi.cu) and of the
 fused gather-matmul (k, csrc/fused_gather_mm.cu), on one GPU, at the shapes
 chip_smoke.py checks them at.
 
-    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [k] [host] [--routes]
+    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [k] [host] [ptxas] [--routes]
 
 h at the seven backwards of the SSG train step and the ten of the MSG train
 step (the grouping and interpolation gathers' gradients of 32 synthetic
@@ -17,7 +17,11 @@ index row names; with --routes, each route that scatter_kernel.plan() could
 take there, launched through scatter_kernel.launch. f at the MXU-gather
 configuration's two train-step backwards (the SA2 and SA3 groupings) and at
 bench_gather_torch.py's shapes (B 32, N 8192, J 32768 uniform indices, C
-9/32/64); e at the same gathers forward. For each call: the longest run of
+9/32/64); e at the same gathers forward; both again on bfloat16 rows (f's
+tile-by-tile sum, e's int32 pairs or 2-byte words). ptxas: the registers
+ptxas reported for e's, f's and h's kernels, building the library in this
+process (run it as a file with PYTHONPATH=<an older checkout> to read that
+checkout's). For each call: the longest run of
 one index (the skew), the wrapper's time between CUDA events (launch cost
 included), and the device time of each kernel it launches from
 torch.profiler, averaged over REPS calls. d at SSG's 8 gathers (the four
@@ -716,7 +720,8 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
-    kernels = [a for a in sys.argv[1:] if a in ("h", "f", "d", "a", "i", "b", "c", "j", "k", "host")] or ["h", "f"]
+    kernels = [a for a in sys.argv[1:]
+               if a in ("h", "f", "d", "a", "i", "b", "c", "j", "k", "host", "ptxas")] or ["h", "f"]
     routes = "--routes" in sys.argv[1:]
     print(f"device: {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -758,6 +763,16 @@ def main() -> int:
             src = torch.randn((b, n, c), generator=gen, device="cuda")
             report(torch, "f", label, idx, n, c, lambda: ss.scatter_smem_cuda(idx, g, n))
             report(torch, "e", label, idx, n, c, lambda: gs.gather_smem_cuda(src, idx))
+            g16, src16 = g.to(torch.bfloat16), src.to(torch.bfloat16)
+            report(torch, "f bf16", label, idx, n, c, lambda: ss.scatter_smem_cuda(idx, g16, n))
+            report(torch, "e bf16", label, idx, n, c, lambda: gs.gather_smem_cuda(src16, idx))
+    if "ptxas" in kernels:
+        build.library()
+        ptxas("e", "gather_smem_kernel")
+        ptxas("f", "scatter_smem", "segment_sum")
+        ptxas("f", "accumulate_kernel")
+        ptxas("h", "scatter_add", "segment_sum")
+        ptxas("h", "block_kernel")
     return 0
 
 

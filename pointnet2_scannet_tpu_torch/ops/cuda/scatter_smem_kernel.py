@@ -2,10 +2,18 @@
 kernels (csrc/scatter_smem.cu) and their plain PyTorch version.
 
 Replaces pointnet2_scannet_tpu/ops/pallas/gather_kernel.py
-(_mxu_gather_bwd, the VJP of mxu_gather). Contract, as scatter_kernel.py's:
-out[b, n] = the sum of g[b, j] over every j with idx[b, j] == n, added in
-ascending j from +0.0, the same bits on every launch; unreferenced rows are
-0. Each index row is sorted once, in parallel over the card (a stable
+(_mxu_gather_bwd, the VJP of mxu_gather). Contract for float32 g, as
+scatter_kernel.py's: out[b, n] = the sum of g[b, j] over every j with
+idx[b, j] == n, added in ascending j from +0.0, the same bits on every
+launch; unreferenced rows are 0. bfloat16 g is summed in the TPU kernel's
+order, whose bfloat16 accumulator rounds once a 128-index tile: for each
+tile of TILE_J consecutive j of a batch row (J a multiple of TILE_J), the
+float32 sum of its terms in ascending j, rounded to bfloat16 (to nearest
+even), then acc = bfloat16(float32(acc) + float32(that sum)), tiles in
+ascending order from +0 (not scatter_kernel.py's single rounding, which
+agrees with the TPU kernel at only about half the elements where rows
+collect many terms). bfloat16 always takes the sort route. Each index row
+is sorted once, in parallel over the card (a stable
 counting sort split into tiles of indices), and each output row is then
 summed in registers by the warp that owns it and written once. Where a
 batch row's index work is small (the accumulate route's blocks times J at
@@ -30,6 +38,7 @@ NAME = "scatter_smem"
 SOURCE = "pointnet2_scannet_tpu_torch/csrc/scatter_smem.cu"
 REPLACES = "pointnet2_scannet_tpu/ops/pallas/gather_kernel.py:98"
 MAX_N = 65535  # keys share a 32-bit word with their 16-bit rank in a tile
+TILE_J = 128  # the TPU kernel's index tile (gather_kernel.py:29): bfloat16 rounds once a tile
 MIN_TILE, MAX_TILE = 1024, 8192  # indices a sort block takes
 MAX_WALKERS = 8  # warps that rank a tile, each a stretch with its own cursors
 PLACE_BYTES = 100 * 1024  # a ranking block's shared memory, two blocks an SM
@@ -40,6 +49,7 @@ ACCUMULATE_BYTES = 200 * 1024  # an accumulate block's rows, ceil(n / groups) * 
 ACCUMULATE_WORK = 65536  # indices the accumulate route's blocks of a batch row walk, at most
 
 launches = 0
+bf16_launches = 0  # of those, the launches on bfloat16 cotangents
 
 
 class AccumulatePlan(NamedTuple):
@@ -68,11 +78,12 @@ def accumulate_plan(b: int, n: int, c: int, sms: int) -> AccumulatePlan:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, n: int, j: int, c: int, sms: int) -> Plan | AccumulatePlan:
-    """The accumulate route's split where its blocks of a batch row walk at
-    most ACCUMULATE_WORK indices in all, else the sort route's plan."""
+def plan(b: int, n: int, j: int, c: int, sms: int, esize: int = 4) -> Plan | AccumulatePlan:
+    """For float32 (esize 4), the accumulate route's split where its blocks
+    of a batch row walk at most ACCUMULATE_WORK indices in all, else the
+    sort route's plan; for bfloat16 (esize 2) always the sort route's."""
     acc = accumulate_plan(b, n, c, sms)
-    if acc.groups * -(-c // acc.cs) * j <= ACCUMULATE_WORK:
+    if esize == 4 and acc.groups * -(-c // acc.cs) * j <= ACCUMULATE_WORK:
         return acc
     return sort_plan(b, n, j, c, sms)
 
@@ -108,42 +119,83 @@ def shared_bytes(p: Plan, n: int) -> int:
     return 4 * (p.tile + p.walkers * ((n + 1) // 2))
 
 
+def _check_tiles(j: int) -> None:
+    if j % TILE_J:
+        raise ValueError(f"scatter_smem takes bfloat16 cotangents only in whole {TILE_J}-index tiles "
+                         f"(J % {TILE_J} == 0, as the MXU gather's gate admits), got J = {j}")
+
+
 def scatter_smem_plain(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, J) int x (B, J, C) -> (B, n, C), summed in ascending j on the
-    CPU."""
-    return scatter_add_plain(idx, g, n)
+    """(B, J) int x (B, J, C) -> (B, n, C) of g's dtype: float32 summed in
+    ascending j (scatter_kernel.scatter_add_plain; on the CPU), bfloat16
+    tile by tile (the module's contract). The bfloat16 branch sums each
+    (batch row, tile, row) key's terms with scatter_add_ into a compact
+    float32 table (ascending j on the CPU), rounds it, then folds the
+    tiles into each output row in ascending tile order, one round per
+    tile rank; its memory is O(B J C), not O(B J / TILE_J n C)."""
+    if g.dtype != torch.bfloat16:
+        return scatter_add_plain(idx, g, n)
+    B, J, C = g.shape
+    _check_tiles(J)
+    tiles = J // TILE_J
+    dev = g.device
+    j = torch.arange(J, device=dev)
+    batch = torch.arange(B, device=dev)[:, None]
+    keys, inverse = torch.unique(((batch * tiles + j // TILE_J) * n + idx.long()).reshape(-1),
+                                 return_inverse=True)  # ascending (b, tile, row)
+    part = torch.zeros((len(keys), C), dtype=torch.float32, device=dev).scatter_add_(
+        0, inverse[:, None].expand(-1, C), g.reshape(-1, C).float()).to(torch.bfloat16)
+    dest = keys // (tiles * n) * n + keys % n  # flat output row b * n + row
+    order = torch.sort(dest, stable=True).indices  # each row's tiles stay ascending
+    dest, part = dest[order], part[order]
+    first = torch.ones(len(dest), dtype=torch.bool, device=dev)
+    first[1:] = dest[1:] != dest[:-1]
+    starts = torch.nonzero(first).reshape(-1)
+    rank = torch.arange(len(dest), device=dev) - starts[torch.cumsum(first.long(), 0) - 1]
+    by_rank = torch.sort(rank, stable=True).indices
+    out = torch.zeros((B * n, C), dtype=torch.bfloat16, device=dev)
+    at = 0
+    for count in torch.bincount(rank).tolist():  # the k-th tile of every row that has one
+        sel = by_rank[at:at + count]
+        rows = dest[sel]
+        out[rows] = (out[rows].float() + part[sel].float()).to(torch.bfloat16)
+        at += count
+    return out.reshape(B, n, C)
 
 
 def scatter_smem_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, J) int32 x (B, J, C) float32 on the card -> (B, n, C) float32;
-    launches scatter_smem.cu's accumulate route or its sort and sum, as
-    plan() chooses.
+    """(B, J) int32 x (B, J, C) float32/bfloat16 on the card -> (B, n, C)
+    of g's dtype; launches scatter_smem.cu's accumulate route or its sort
+    and sum, as plan() chooses (bfloat16: J a multiple of TILE_J).
     Indices must lie in [0, n)."""
-    global launches
+    global launches, bf16_launches
     build.require(idx, "idx", (torch.int32,), 2)
-    build.require(g, "g", (torch.float32,), 3)
+    build.require(g, "g", (torch.float32, torch.bfloat16), 3)
     B, J, C = g.shape
     if tuple(idx.shape) != (B, J) or idx.device != g.device:
         raise ValueError("idx must be (B, J) on the device of g (B, J, C)")
     if not 0 < n <= MAX_N:
         raise ValueError(f"scatter_smem_cuda takes 0 < n <= {MAX_N}, got {n}")
+    bf16 = g.dtype == torch.bfloat16
+    if bf16:
+        _check_tiles(J)
     build.check_batch(B, NAME)
-    out = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
+    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
     if out.numel() == 0:
         return out
-    p = plan(B, n, J, C, build.sm_count(g))
-    with torch.cuda.device(g.device):
-        if isinstance(p, AccumulatePlan):
-            err = build.library().p2_scatter_smem_accumulate(
-                build.ptr(idx), build.ptr(g), B, n, J, C, p.cs, p.groups,
-                build.ptr(out), build.stream_of(g),
-            )
-        else:
-            scratch = torch.empty(B * (p.tiles * n + n + 1 + J), dtype=torch.int32, device=g.device)
-            err = build.library().p2_scatter_smem(
-                build.ptr(idx), build.ptr(g), B, n, J, C, p.tile, p.walkers, p.rows,
-                build.ptr(scratch), build.ptr(out), build.stream_of(g),
-            )
+    esize = g.element_size()
+    p = plan(B, n, J, C, build.sm_count(g), esize)
+    lib, device, stream = build.library(), g.get_device(), build.stream_of(g)
+    if isinstance(p, AccumulatePlan):
+        err = lib.p2_scatter_smem_accumulate(
+            build.ptr(idx), build.ptr(g), B, n, J, C, p.cs, p.groups, build.ptr(out), device, stream)
+    else:
+        scratch = torch.empty(B * (p.tiles * n + n + 1 + J), dtype=torch.int32, device=g.device)
+        err = lib.p2_scatter_smem(
+            build.ptr(idx), build.ptr(g), B, n, J, C, p.tile, p.walkers, p.rows, esize,
+            build.ptr(scratch), build.ptr(out), device, stream)
     build.check(err, NAME)
     launches += 1
+    if bf16:
+        bf16_launches += 1
     return out

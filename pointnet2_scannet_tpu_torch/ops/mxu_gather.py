@@ -1,17 +1,21 @@
 """The JAX package's one-hot MXU gathers (ops/pallas/gather_kernel.py), under
 their public names, computed the card's way.
 
-On the TPU these are exact float32 gathers built as one-hot matrix products
-(the TPU has no general gather) and their VJPs as the transposed products.
-The port computes the same functions:
+On the TPU these are exact gathers built as one-hot matrix products (the
+TPU has no general gather) and their VJPs as the transposed products. The
+port computes the same functions, on float32 and bfloat16 rows:
 - mxu_gather: forward gather_smem.cu (e), backward scatter_smem.cu (f);
 - mxu_gather_split: forward gather_smem.cu through its own wrapper (g),
   backward scatter_add.cu (h), as the JAX VJP is h;
 - mxu_scatter_add: scatter_add.cu (h).
-On the CPU each runs the kernels' plain versions. Both backwards sum in
-ascending j, so the gradients equal the JAX VJPs up to the order in which
-their products add (and bit for bit wherever a row collects one term).
-supported and scatter_supported are the JAX package's shape gates.
+On the CPU each runs the kernels' plain versions. The float32 backwards sum
+in ascending j, so the gradients equal the JAX VJPs up to the order in
+which their products add (and bit for bit wherever a row collects one
+term). On bfloat16 cotangents f follows the TPU kernel's order, whose
+bfloat16 accumulator rounds once a 128-index tile, and h sums in float32
+and rounds once, as the split VJP casts once: both equal the JAX VJPs bit
+for bit at the shapes the tests draw. supported and scatter_supported are
+the JAX package's shape gates.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ def mxu_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def mxu_gather_split(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) float32 x (B, J) int -> (B, J, C), differentiable in src."""
+    """(B, N, C) float32/bfloat16 x (B, J) int -> (B, J, C), differentiable
+    in src."""
     return _MxuGatherSplit.apply(src, _index(src, idx))
 
 

@@ -8,7 +8,9 @@ vmem_gather custom_vjp, vmem_gather_kernel.py:111-151), routed as the JAX
 package routes it (ops/tuning.gather_route): its "mxu" route runs
 ops/mxu_gather.mxu_gather, the others gather_rows. gather_rows takes
 float32, float64, int32 and bfloat16 rows (a bfloat16 gradient is summed in
-float32 and rounded once); the "mxu" route takes float32 rows only.
+float32 and rounded once); the "mxu" route takes float32 and bfloat16 rows
+(a bfloat16 gradient rounded once a 128-index tile, as the TPU kernel's
+bfloat16 accumulator).
 """
 
 from __future__ import annotations
@@ -80,9 +82,5 @@ def gather_points(
     )
     tuning.route_counts["gather", route] += 1
     if route == "mxu":
-        if points.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bfloat16 rows on the MXU-gather route (kernels e and f, mxu_gather=True) are "
-                "not ported yet (ROADMAP queue 2, R8)")
         return mxu_gather(points, idx)
     return gather_rows(points, idx)

@@ -25,19 +25,19 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
-def jax_initial_state(npoints: int = 1024) -> dict:
-    """The JAX test's initial SSG weights (its Solver's init with seed 0) as
-    a port state_dict of float32 tensors."""
+def jax_initial_state(npoints: int = 1024, is_msg: bool = False) -> dict:
+    """The JAX tests' initial SSG (or, with is_msg, MSG) weights (their
+    Solver's init with seed 0) as a port state_dict of float32 tensors."""
     import jax
     import numpy as np
 
     from pointnet2_scannet_tpu import models
-    from pointnet2_scannet_tpu_torch.models import convert, ssg_spec
+    from pointnet2_scannet_tpu_torch.models import convert, msg_spec, ssg_spec
 
     init_rng, _ = jax.random.split(jax.random.key(0))
-    variables = models.get_model(num_classes=20, is_msg=False, input_channels=6).init(
+    variables = models.get_model(num_classes=20, is_msg=is_msg, input_channels=6).init(
         init_rng, np.zeros((1, npoints, 9), np.float32), train=False)
-    state = convert.state_dict_from_jax(variables, ssg_spec(20, 6))
+    state = convert.state_dict_from_jax(variables, (msg_spec if is_msg else ssg_spec)(20, 6))
     return {k: torch.from_numpy(v) for k, v in state.items()}
 
 

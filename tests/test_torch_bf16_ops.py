@@ -17,7 +17,7 @@
   gather.cu as int32 pairs, odd C as 2-byte words; bfloat16 cotangents reach
   scatter_add.cu's block route and card-wide sort with 2-byte elements, the
   block plans in the card's shared memory; bfloat16 rows on the MXU-gather
-  route (kernels e and f) raise NotImplementedError naming ROADMAP R8.
+  route launch kernel e forward and f backward.
 """
 
 import jax
@@ -30,6 +30,7 @@ from pointnet2_scannet_tpu.ops import neighborhood as jnb
 from pointnet2_scannet_tpu.ops.pallas import vmem_gather_kernel as jvk
 from pointnet2_scannet_tpu_torch import ops
 from pointnet2_scannet_tpu_torch.ops import neighborhood as pnb
+from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 from pointnet2_scannet_tpu_torch.ops import tuning
 from pointnet2_scannet_tpu_torch.ops.sampling import gather_rows
 from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
@@ -273,12 +274,18 @@ def test_bf16_block_plans_fit_shared_memory(sms):
                     assert f32 is None or p.page >= f32.page
 
 
-def test_bf16_rows_on_the_mxu_route_raise_naming_r8(monkeypatch):
-    monkeypatch.setattr(tuning.ops_config, "vmem_gather", False)
-    monkeypatch.setattr(tuning.ops_config, "mxu_gather", True)
-    src = torch.zeros((2, 256, 8), dtype=torch.bfloat16)
-    idx = torch.zeros((2, 256), dtype=torch.int32)
-    assert tuning.gather_route(256, 256, 8, torch.bfloat16, auto=False) == "mxu"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, R8"):
-        ops.gather_points(src, idx)
-    assert ops.gather_points(src.float(), idx).shape == (2, 256, 8)  # float32 takes e as before
+def test_bf16_rows_on_the_mxu_route_launch_e_and_f(monkeypatch, fake_card):
+    # on a (stand-in) card, gather_points sends bfloat16 rows that pass the
+    # MXU gate to e, and their gradient to f, under the P1 switches
+    from pointnet2_scannet_tpu_torch.ops import mxu_gather, sampling
+
+    _switch(monkeypatch, vmem_gather=False, mxu_gather=True)
+    for mod in (sampling, mxu_gather):
+        monkeypatch.setattr(mod, "on_cuda", lambda t: True)
+    tuning.reset_route_counts()
+    src = torch.zeros((2, 256, 12), dtype=torch.bfloat16, requires_grad=True)
+    out = ops.gather_points(src, torch.zeros((2, 256), dtype=torch.int32))
+    assert tuning.route_counts[("gather", "mxu")] == 1 and out.dtype == torch.bfloat16
+    out.backward(torch.zeros_like(out))
+    assert [name for name, _ in fake_card.calls] == ["p2_gather_smem", "p2_scatter_smem"]
+    assert kernels.bf16_launch_counts()["gather_smem"] == kernels.bf16_launch_counts()["scatter_smem"] == 1

@@ -5,9 +5,11 @@ tests/test_msg_e2e.py::test_msg_loss_decreases_on_synthetic_scene.
 1024-point chunks, batch 4, MSG at full width (xyz + colour + normal): the
 mean train loss of the last three epochs must fall below 0.9 of the first
 three's, and the mean val point mIoU must rise by more than 0.02. Marked
-slow (tier-1 runs -m 'not slow'). It imports no jax, so it also runs where
-only PyTorch is installed; the card's case is marked gpu and skips without
-one:
+slow (tier-1 runs -m 'not slow'). The cpu case starts from the JAX test's
+initial weights (its Solver's init with seed 0, moved by models/convert.py:
+test_torch_bf16_convergence.jax_initial_state) and imports jax inside the
+case only; the card's case, marked gpu and skipped without one, starts from
+the port's seeded draw, so the file runs where only PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_msg_e2e.py -m slow -k cpu
     python -m pytest --noconftest tests/test_torch_msg_e2e.py -m slow -k cuda
@@ -41,6 +43,10 @@ def test_msg_loss_decreases_on_synthetic_scene(tmp_path, device):
     val_ds = ChunkedSceneDataset(store, cfg.data, phase="val", seed=1)
     model = get_model(cfg.model.num_classes, is_msg=True, input_channels=cfg.data.input_channels,
                       generator=torch.Generator().manual_seed(0))
+    if device == "cpu":
+        from tests.test_torch_bf16_convergence import jax_initial_state
+
+        model.load_state_dict(jax_initial_state(cfg.data.npoints, is_msg=True), strict=True)
     solver = Solver(model, train_ds, val_ds, cfg, tmp_path, device=device)
     best = solver()
 

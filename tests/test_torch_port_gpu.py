@@ -1170,3 +1170,123 @@ def test_bf16_train_steps_on_the_card_repeat_bit_for_bit_through_d_and_h(dev, ki
     for k, v in states[0].items():
         assert v.dtype == torch.float32 or not v.is_floating_point(), k
         assert torch.equal(states[1][k], v), k
+
+
+# --- bfloat16 rows on the MXU-gather route: e (int32 lane pairs, 2-byte
+# words for odd C), g, and f's tile-by-tile bfloat16 sum (J % 128 == 0)
+
+# (B, N, J, C) of bfloat16 gathers through gather_smem.cu: P1's packed SA1-SA3
+# payloads (6 + 3 odd, 6 + 6, 6 + 64, 6 + 128), bench_gather's widths, ragged
+# tiles at odd C, a row too wide for 8 a tile (the 2-byte chunk route) and one
+# wide even row (4-byte chunks of pairs)
+SMEM_BF16_SHAPES = [(32, 8192, 32768, 9), (32, 8192, 32768, 12), (32, 1024, 8192, 70), (32, 256, 2048, 134),
+                    (32, 8192, 32768, 32), (32, 8192, 32768, 64), (3, 300, 1000, 9), (2, 100, 333, 5),
+                    (2, 64, 37, 4103), (1, 16, 9, 20002), (2, 8192, 1001, 1)]
+
+
+@pytest.mark.parametrize("b,n,j,c", SMEM_BF16_SHAPES)
+def test_gather_smem_kernel_bf16_equals_plain(dev, b, n, j, c):
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_smem_kernel as gs
+
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    src = _special_source(b, n, c, dev, n + c).to(torch.bfloat16)
+    idx = torch.randint(0, n, (b, j), generator=g, device=dev, dtype=torch.int32)
+    before = (gs.launches, gs.bf16_launches)
+    got = gs.gather_smem_cuda(src, idx)
+    assert (gs.launches, gs.bf16_launches) == (before[0] + 1, before[1] + 1)
+    _same_bits(got.view(torch.int16), gs.gather_smem_plain(src, idx).view(torch.int16))
+
+
+def test_gather_smem_kernel_bf16_takes_a_row_start_off_4_bytes(dev):
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_smem_kernel as gs
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    src = torch.randn(2 * 256 * 12 + 1, generator=g, device=dev).to(torch.bfloat16)[1:].view(2, 256, 12)
+    idx = torch.randint(0, 256, (2, 1024), generator=g, device=dev, dtype=torch.int32)
+    assert src.is_contiguous() and src.data_ptr() % 4 == 2
+    _same_bits(gs.gather_smem_cuda(src, idx).view(torch.int16), gs.gather_smem_plain(src, idx).view(torch.int16))
+
+
+@pytest.mark.parametrize("c", [9, 32])
+def test_gather_split_kernel_bf16_equals_plain(dev, c):
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_split_kernel as gsp
+
+    src = _special_source(2, 1024, c, dev, 6).to(torch.bfloat16)
+    idx = torch.randint(0, 1024, (2, 4096), device=dev, dtype=torch.int32)
+    before = gsp.bf16_launches
+    _same_bits(gsp.gather_split_cuda(src, idx).view(torch.int16), gsp.gather_split_plain(src, idx).view(torch.int16))
+    assert gsp.bf16_launches == before + 1
+
+
+# (B, N, J, C): P1's SA2 and SA3 backwards at full width (6 + 64, 6 + 128),
+# MSG's SA2 (6 + 96), bench_gather's shapes, one tile, a tile of 128 at N
+# = 65535, and small ragged widths
+SMEM_BF16_SCATTER_SHAPES = [(32, 1024, 8192, 70), (32, 256, 2048, 134), (32, 1024, 4096, 102),
+                            (32, 8192, 32768, 9), (32, 8192, 32768, 64), (2, 256, 128, 8), (1, 65535, 256, 3),
+                            (3, 300, 1024, 40), (2, 40, 640, 1027)]
+
+
+@pytest.mark.parametrize("b,n,j,c", SMEM_BF16_SCATTER_SHAPES)
+def test_scatter_smem_kernel_bf16_equals_plain_on_cpu_copies(dev, b, n, j, c):
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    g = torch.Generator(device=dev).manual_seed(j + c)
+    idx = torch.randint(0, max(n * 3 // 4, 1), (b, j), generator=g, device=dev, dtype=torch.int32)
+    idx[:, ::5] = idx[:, :1]  # one row named in every tile; a quarter never
+    grad = torch.randn((b, j, c), generator=g, device=dev)
+    grad = (grad * 10.0 ** (torch.rand((b, j, 1), generator=g, device=dev) * 6 - 3)).to(torch.bfloat16)
+    before = (ss.launches, ss.bf16_launches)
+    got = ss.scatter_smem_cuda(idx, grad, n)
+    again = ss.scatter_smem_cuda(idx, grad, n)
+    assert (ss.launches, ss.bf16_launches) == (before[0] + 2, before[1] + 2)
+    want = ss.scatter_smem_plain(idx.cpu(), grad.cpu(), n)
+    _same_bits(got.cpu().view(torch.int16), want.view(torch.int16))
+    _same_bits(again.view(torch.int16), got.view(torch.int16))
+
+
+def test_scatter_smem_kernel_bf16_sums_a_skewed_row_tile_by_tile(dev):
+    # phase 4's skewed row (N 65535, one output named ~1000 times over J =
+    # 131072) in bfloat16: the card-wide sort with the per-tile rounding
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.randint(0, 65535, (2, 131072), generator=g, device=dev, dtype=torch.int32)
+    idx[:, torch.randperm(131072, generator=g, device=dev)[:1000]] = 4321
+    grad = torch.randn((2, 131072, 64), generator=g, device=dev).to(torch.bfloat16)
+    got = ss.scatter_smem_cuda(idx, grad, 65535).cpu()
+    _same_bits(got.view(torch.int16), ss.scatter_smem_plain(idx.cpu(), grad.cpu(), 65535).view(torch.int16))
+    once = sc.scatter_add_plain(idx.cpu(), grad.cpu(), 65535)  # the other order differs at the hot row
+    assert not torch.equal(got[:, 4321], once[:, 4321])
+
+
+def test_scatter_smem_kernel_bf16_refuses_a_ragged_tile(dev):
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    idx = torch.zeros((1, 200), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="J % 128 == 0"):
+        ss.scatter_smem_cuda(idx, torch.zeros((1, 200, 3), dtype=torch.bfloat16, device=dev), 4)
+
+
+def test_bf16_train_steps_under_the_mxu_config_repeat_bit_for_bit_through_e_and_f(dev, mxu_config):
+    # N = 512 and 128 centroids: the packed groupings of SA1 and SA2 take e
+    # on bfloat16 rows, SA2's gradient f; two runs of two steps agree
+    ts, _, _, schedule = _train_setup(0.5)
+    spec = PointNet2Spec(**dict(SMALL_SPECS["ssg"], npoints=(128, 32)))
+    model = PointNet2SemSeg(spec, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    pc = np.concatenate([rng.uniform(0, 1.5, (2, 512, 3)), rng.uniform(-1, 1, (2, 512, 3))], -1)
+    batch = {"points": torch.from_numpy(pc.astype(np.float32)).to(dev),
+             "weights": torch.ones((2, 512), device=dev),
+             "labels": torch.from_numpy(rng.integers(0, 5, (2, 512)).astype(np.int32)).to(dev)}
+    kernels.reset_launch_counts()
+    states = []
+    for _ in range(2):
+        state = ts.create_train_state(copy.deepcopy(model).to(dev), schedule, seed=4)
+        for _ in range(2):
+            ts.train_step(state, batch, num_classes=5)
+        states.append(state.model.state_dict())
+    bf16 = kernels.bf16_launch_counts()
+    assert bf16["gather_smem"] == 2 * 2 * 2 and bf16["scatter_smem"] == 2 * 2
+    assert kernels.launch_counts()["gather_smem"] == 2 * 2 * 3  # and SA1's float32 centroids
+    for k, v in states[0].items():
+        assert torch.equal(states[1][k], v), k

@@ -11,7 +11,6 @@ version; the CUDA kernels themselves are held against those plain versions
 in tests/test_torch_port_gpu.py.
 """
 
-import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -766,7 +765,6 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(build, "sm_count", lambda t: 132)
     monkeypatch.setattr(build, "stream_of", lambda t: 0)
     monkeypatch.setattr(build, "library", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())  # f's context
     kernels.reset_launch_counts()
     return lib
 
