@@ -178,7 +178,18 @@
     under P1: one serving forward card vs CPU under phase 23's logit and
     label gates (e launched on bfloat16 rows) and one train step card vs
     CPU under the same gates.
-25. Print one JSON line of kernel results (time, plain time, the card's bound
+25. The serving artifacts (torch.export, the kernels as pn2:: ops). For the
+    SSG and MSG float32 run dirs of phase 9 and phase 23's SSG bfloat16
+    one (made anew from the same seed): scripts/infer_torch.py serving the
+    run dir, then --export --platforms cuda and --from_artifact of that
+    artifact, 4 synthetic scenes each: the artifact's prediction and PLY
+    files equal the run dir's byte for byte, its run launches its route's
+    kernels and no other (the export none). One SSG artifact traced on the
+    CPU (--platforms cpu cuda, 8 x 8192) and served on the card: labels
+    equal to Predictor's bit for bit, every 3-NN on three_nn (the CPU's
+    route). Each artifact's export seconds, graph nodes and MB, and its
+    steady batch of 32 x 8192 beside Predictor's (median of 9, in turns).
+26. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -186,7 +197,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23 and 24 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24 and 25 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -1990,6 +2001,95 @@ def eval_run(torch, run: pathlib.Path, kind: str, config: str = "default") -> di
     return {"launches": launches, "bf16_launches": bf16_launches}
 
 
+def same_files(a: pathlib.Path, b: pathlib.Path, what: str) -> None:
+    """Raise unless two output dirs hold the same files, byte for byte."""
+    names = sorted(p.name for p in a.iterdir())
+    if not names or names != sorted(p.name for p in b.iterdir()):
+        raise RuntimeError(f"{what}: {names} against {sorted(p.name for p in b.iterdir())}")
+    for name in names:
+        if (a / name).read_bytes() != (b / name).read_bytes():
+            raise RuntimeError(f"{what}: {name} differs")
+
+
+def steady_pair(first, second, batch, reps: int = 9) -> tuple[float, float]:
+    """Median ms of first.predict(batch) and second.predict(batch), timed in
+    turns after a warm-up of each."""
+    first.predict(batch)
+    second.predict(batch)
+    times = ([], [])
+    for _ in range(reps):
+        for t, predictor in zip(times, (first, second)):
+            t0 = time.perf_counter()
+            predictor.predict(batch)
+            t.append(time.perf_counter() - t0)
+    return tuple(1e3 * sorted(t)[reps // 2] for t in times)
+
+
+def serve_artifacts(torch, tmp: pathlib.Path) -> list:
+    """Phase 25: the run dirs served through artifacts (see the module
+    docstring); returns each artifact run's launches."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.engine.export import Predictor, ServingPredictor
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    infer_torch = load_script("infer_torch")
+    batch = serving_columns(2)[:BATCH]
+    runs = []
+
+    def infer(*argv) -> tuple[dict, dict, dict]:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        stats = infer_torch.infer(infer_torch.parse_args([*argv, "--device", "cuda"]))
+        torch.cuda.synchronize()
+        return stats, kernels.launch_counts(), kernels.bf16_launch_counts()
+
+    for kind, dtype in (("ssg", "float32"), ("msg", "float32"), ("ssg", "bfloat16")):
+        t0 = time.perf_counter()
+        name = f"{kind.upper()} {dtype} artifact"
+        run = make_run(torch, tmp / f"run_{kind}_{dtype}", kind, compute_dtype=dtype)
+        scenes = ["--synthetic", "--synthetic_scenes", "4", "--write_ply"]
+        infer("--folder", str(run), *scenes, "--out", str(tmp / f"{kind}_{dtype}_run_dir"))
+        path = tmp / f"{kind}_{dtype}.pt2"
+        exported, launches, _ = infer("--folder", str(run), "--export", str(path), "--platforms", "cuda")
+        if any(launches.values()):
+            raise RuntimeError(f"exporting the {name} launched {launches}")
+        out = tmp / f"{kind}_{dtype}_artifact"
+        _, launches, bf16_launches = infer("--folder", str(run), "--from_artifact", str(path), *scenes,
+                                           "--out", str(out))
+        print(f"serve {name}: launches {launches}, bfloat16 launches {bf16_launches}", flush=True)
+        check_launches(launches, kind, False, f"{name} serving")
+        check_bf16_launches(bf16_launches, dtype == "bfloat16", False, f"{name} serving")
+        same_files(out, tmp / f"{kind}_{dtype}_run_dir", f"{name} against its run dir")
+        runs.append({"launches": launches, "bf16_launches": bf16_launches})
+        runs_s = time.perf_counter() - t0
+        eager = Predictor.from_run(run, batch_size=BATCH, device="cuda")
+        eager_ms, artifact_ms = steady_pair(eager, ServingPredictor.from_artifact(path), batch)
+        print(f"artifact {name}: exported in {exported['export_s']:.2f} s, {exported['nodes']} graph nodes, "
+              f"{exported['mb']:.2f} MB; steady batch of {len(batch)} x {NPOINTS} in {artifact_ms:.2f} ms "
+              f"against Predictor's {eager_ms:.2f} ms (median of 9, in turns); run dir, export and "
+              f"artifact serving runs {runs_s:.1f} s", flush=True)
+
+    # the SSG run dir's artifact traced on the CPU at 8 x 8192, served on the card
+    run, path = tmp / "run_ssg_float32", tmp / "ssg_cpu.pt2"
+    exported, _, _ = infer("--folder", str(run), "--export", str(path), "--platforms", "cpu", "cuda",
+                           "--batch_size", "8")
+    columns = serving_columns(1)[:20]  # ragged onto batches of 8
+    kernels.reset_launch_counts()
+    got = ServingPredictor.from_artifact(path, devices=["cuda"]).predict(columns)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    what = "SSG float32 artifact traced on the CPU"
+    print(f"serve {what} on the card: launches {launches}; exported in {exported['export_s']:.2f} s, "
+          f"{exported['nodes']} graph nodes, {exported['mb']:.2f} MB", flush=True)
+    check_launches(launches, "ssg", False, f"{what} serving")
+    runs.append({"launches": launches})
+    want = Predictor.from_run(run, batch_size=8, device="cuda").predict(columns)
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"{what}: labels differ from Predictor's at {int((got != want).sum())} points")
+    return runs
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2139,6 +2239,10 @@ def main() -> int:
         train_step_repeat_and_time(torch, "ssg", "mxu", dtype=torch.bfloat16)
     time_configs_bf16(torch)
     lap(start, "phase 24")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 25
+        for run in serve_artifacts(torch, pathlib.Path(tmp)):
+            tally(run)
+    lap(start, "phase 25")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -2,6 +2,8 @@
 
 A CPU tensor runs the op's plain PyTorch version; a CUDA tensor launches the
 hand-written kernel in ops/cuda/ (or raises). Indices are int32 throughout.
+The kernels a serving forward launches are reached through the pn2::
+torch.library ops of ops/library.py, which this package registers.
 """
 
 from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
@@ -16,6 +18,7 @@ from pointnet2_scannet_tpu_torch.ops.neighborhood import (
     query_and_group,
 )
 from pointnet2_scannet_tpu_torch.ops.sampling import furthest_point_sample, gather_points
+from pointnet2_scannet_tpu_torch.ops import library  # noqa: F401  (registers pn2::; last: its impls read the modules above)
 
 __all__ = [
     "pairwise_sqdist",

@@ -6,7 +6,7 @@ queries (b, csrc/ball_query.cu; c, csrc/ball_query_multi.cu) and of the
 fused gather-matmul (k, csrc/fused_gather_mm.cu), on one GPU, at the shapes
 chip_smoke.py checks them at.
 
-    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [k] [host] [ptxas] [--routes]
+    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [k] [host] [serve] [ptxas] [--routes]
 
 h at the seven backwards of the SSG train step and the ten of the MSG train
 step (the grouping and interpolation gathers' gradients of 32 synthetic
@@ -54,7 +54,14 @@ bytes a second against the bound, beside the unfused composition (d, then
 torch.matmul) and d alone, with --routes every launch its plan() could
 take, ptxas' registers and the innermost loops of its SASS (cuobjdump).
 host: the host µs of each piece of d's, a's, i's, b's, c's, j's and h's wrappers at SA4's
-and FP3's shapes. With no kernel named, h and f.
+and FP3's shapes, and of the public ops that call them (under
+torch.inference_mode, as serving calls them; through the pn2:: torch.library
+ops where the checkout has them, ops/library.py, each op also alone). serve:
+the eager Predictor's steady batch of 32 x 8192 (SSG and MSG, float32,
+random weights from seed 0, labels back on the host, median of 9 after a
+warm call) and, where the checkout has artifacts, the same batch served from
+a torch.export artifact traced on the card (ServingPredictor), the two in
+turns. With no kernel named, h and f.
 Needs a CUDA device.
 """
 
@@ -679,7 +686,7 @@ def host_costs(torch) -> None:
         "build.stream_of": lambda: build.stream_of(src),
         "plan (cached)": lambda: ga.plan(BATCH, 64, 16, 3, build.sm_count(src)),
         "p2_gather, nothing to launch": lambda: lib.p2_gather(
-            src.data_ptr(), idx.data_ptr(), 0, 64, 16, 3, 1, 1, out.data_ptr(), 0, 0),
+            src.data_ptr(), idx.data_ptr(), 0, 64, 16, 3, 1, 1, 4, out.data_ptr(), 0, 0),
         "gather_kernel.launch": lambda: ga.launch(src, idx, out, p),
         "gather_kernel.gather_cuda": lambda: ga.gather_cuda(src, idx),
         "torch.gather": lambda: torch.gather(src, 1, index),
@@ -708,6 +715,87 @@ def host_costs(torch) -> None:
     for what, fn in pieces.items():
         print(f"host {what}: {host_us(torch, fn):.2f} us a call", flush=True)
 
+    from pointnet2_scannet_tpu_torch import ops
+
+    public = {
+        "ops.furthest_point_sample 64->16 (public op, SA4)": lambda: ops.furthest_point_sample(src, 16),
+        "ops.gather_points 64->16 (public op, SA4's centroids)": lambda: ops.gather_points(src, idx),
+        "ops.ball_query 64->16 (public op, SA4)": lambda: ops.ball_query(0.8, 32, src, cen),
+        "ops.ball_query_multi 64->16 (public op, MSG SA4)": lambda: ops.ball_query_multi(
+            (0.4, 0.8), (16, 32), src, cen),
+        "ops.three_nn 64x16 (public op, FP3)": lambda: ops.three_nn(src, cen),
+    }
+    try:
+        from pointnet2_scannet_tpu_torch.ops import library
+    except ImportError:  # a checkout from before the pn2:: ops
+        library = None
+    if library is not None:
+        public.update({
+            "pn2::furthest_point_sample alone 64->16": lambda: library.furthest_point_sample(src, 16, True),
+            "pn2::gather alone 64->16": lambda: library.gather(src, idx),
+            "pn2::ball_query alone 64->16": lambda: library.ball_query(0.8, 32, src, cen),
+            "pn2::three_nn alone 64x16": lambda: library.three_nn(src, cen),
+        })
+    with torch.inference_mode():
+        for what, fn in public.items():
+            print(f"host {what}: {host_us(torch, fn):.2f} us a call", flush=True)
+
+
+def serve_times(torch) -> None:
+    """The eager Predictor's steady serving batch at 32 x 8192, SSG and MSG
+    float32, beside an artifact's of the same weights where the checkout
+    has export_forward, timed in turns."""
+    import time
+
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.engine import export
+    from pointnet2_scannet_tpu_torch.models import get_model
+
+    columns = np.random.default_rng(0).uniform(0, 1.5, (BATCH, 8192, 9)).astype(np.float32)
+    for kind in ("ssg", "msg"):
+        model = get_model(20, is_msg=kind == "msg", input_channels=6, generator=torch.Generator().manual_seed(0))
+        shape = dict(batch_size=BATCH, npoints=8192, channels=9)
+        predictors = {"Predictor": export.Predictor(model, device="cuda", **shape)}
+        if hasattr(export, "export_forward"):
+            exported = export.export_forward(model, platforms=["cuda"], **shape)
+            predictors["artifact"] = export.ServingPredictor(exported)
+        times = {name: [] for name in predictors}
+        for p in predictors.values():
+            p.predict(columns)
+        for _ in range(9):
+            for name, p in predictors.items():
+                t0 = time.perf_counter()
+                p.predict(columns)
+                times[name].append(1e3 * (time.perf_counter() - t0))
+        for name, t in times.items():
+            t.sort()
+            print(f"serve {kind.upper()} {BATCH} x 8192 {name}: {t[4]:.2f} ms median of 9 "
+                  f"(min {t[0]:.2f}, max {t[-1]:.2f})", flush=True)
+        # the host's share: ms until the forward returns (its launches queued)
+        # and until the card is done, the batch already on the card
+        forwards = {"Predictor": export.build_forward(predictors["Predictor"].model)}
+        if "artifact" in predictors:
+            forwards["artifact"] = exported.program.module()
+        x = torch.from_numpy(columns).cuda()
+        enqueue = {name: [] for name in forwards}
+        done = {name: [] for name in forwards}
+        with torch.inference_mode():
+            for fwd in forwards.values():
+                fwd(x)
+            for _ in range(9):
+                for name, fwd in forwards.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fwd(x)
+                    enqueue[name].append(1e3 * (time.perf_counter() - t0))
+                    torch.cuda.synchronize()
+                    done[name].append(1e3 * (time.perf_counter() - t0))
+        for name in forwards:
+            print(f"serve {kind.upper()} {BATCH} x 8192 {name} forward: returns after "
+                  f"{sorted(enqueue[name])[4]:.2f} ms, the card done after {sorted(done[name])[4]:.2f} ms "
+                  "(medians of 9, in turns)", flush=True)
+
 
 def main() -> int:
     import torch
@@ -721,7 +809,7 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
     kernels = [a for a in sys.argv[1:]
-               if a in ("h", "f", "d", "a", "i", "b", "c", "j", "k", "host", "ptxas")] or ["h", "f"]
+               if a in ("h", "f", "d", "a", "i", "b", "c", "j", "k", "host", "serve", "ptxas")] or ["h", "f"]
     routes = "--routes" in sys.argv[1:]
     print(f"device: {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -740,6 +828,8 @@ def main() -> int:
                            lambda p=p: sc.launch(idx, g, n, p))
     if "host" in kernels:
         host_costs(torch)
+    if "serve" in kernels:
+        serve_times(torch)
     if "d" in kernels:
         profile_d(torch, routes)
     if "a" in kernels:

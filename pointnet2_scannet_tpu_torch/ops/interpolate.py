@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from pointnet2_scannet_tpu_torch.ops import tuning
-from pointnet2_scannet_tpu_torch.ops.cuda import on_cuda, three_nn_kernel, three_nn_q_kernel
+from pointnet2_scannet_tpu_torch.ops.cuda import on_cuda
 from pointnet2_scannet_tpu_torch.ops.sampling import gather_rows
 
 
@@ -24,16 +24,11 @@ def three_nn(
     unknown: torch.Tensor, known: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, n, 3) x (B, m, 3), m >= 3 -> (dist2 (B, n, 3), idx (B, n, 3) int32)."""
-    cuda = on_cuda(unknown)
-    route = tuning.three_nn_route(unknown.shape[1], known.shape[1], auto=cuda)
+    route = tuning.three_nn_route(unknown.shape[1], known.shape[1], auto=on_cuda(unknown))
     tuning.route_counts["three_nn", route] += 1
     if route == "q":
-        if cuda:
-            return three_nn_q_kernel.three_nn_q_cuda(unknown.contiguous(), known.contiguous())
-        return three_nn_q_kernel.three_nn_q_plain(unknown, known)
-    if cuda:
-        return three_nn_kernel.three_nn_cuda(unknown.contiguous(), known.contiguous())
-    return three_nn_kernel.three_nn_plain(unknown, known)
+        return torch.ops.pn2.three_nn_q.default(unknown, known)
+    return torch.ops.pn2.three_nn.default(unknown, known)
 
 
 def three_interpolate(

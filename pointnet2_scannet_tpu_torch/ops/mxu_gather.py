@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from pointnet2_scannet_tpu_torch.ops.cuda import (
-    gather_smem_kernel,
     gather_split_kernel,
     on_cuda,
     scatter_kernel,
@@ -40,9 +39,7 @@ class _MxuGather(torch.autograd.Function):
     def forward(ctx, src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(idx)
         ctx.n = src.shape[1]
-        if on_cuda(src):
-            return gather_smem_kernel.gather_smem_cuda(src.contiguous(), idx)
-        return gather_smem_kernel.gather_smem_plain(src, idx)
+        return torch.ops.pn2.gather_smem.default(src, idx)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):

@@ -16,11 +16,7 @@ from collections.abc import Sequence
 import torch
 
 from pointnet2_scannet_tpu_torch.ops import tuning
-from pointnet2_scannet_tpu_torch.ops.cuda import (
-    ball_query_kernel,
-    ball_query_multi_kernel,
-    on_cuda,
-)
+from pointnet2_scannet_tpu_torch.ops.cuda import on_cuda
 from pointnet2_scannet_tpu_torch.ops.sampling import gather_points
 
 _HIGH_HALF = -65536  # 0xFFFF0000 as an int32: a float32 word's top 16 bits
@@ -29,12 +25,10 @@ _HIGH_HALF = -65536  # 0xFFFF0000 as an int32: a float32 word's top 16 bits
 def ball_query(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> torch.Tensor:
-    """(B, N, 3) x (B, M, 3) -> (B, M, nsample) int32 indices into N."""
-    if on_cuda(xyz):
-        return ball_query_kernel.ball_query_cuda(
-            radius, nsample, xyz.contiguous(), new_xyz.contiguous()
-        )
-    return ball_query_kernel.ball_query_plain(radius, nsample, xyz, new_xyz)
+    """(B, N, 3) x (B, M, 3) -> (B, M, nsample) int32 indices into N
+    (pn2::ball_query)."""
+    on_cuda(xyz)  # raises for a device with neither a kernel nor a plain version
+    return torch.ops.pn2.ball_query.default(radius, nsample, xyz, new_xyz)
 
 
 def ball_query_multi(
@@ -44,12 +38,11 @@ def ball_query_multi(
     new_xyz: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two radii at once: (B, N, 3) x (B, M, 3) -> ((B, M, k1), (B, M, k2))
-    int32, each equal to ball_query(radii[s], nsamples[s], xyz, new_xyz)."""
-    if on_cuda(xyz):
-        return ball_query_multi_kernel.ball_query_multi_cuda(
-            radii, nsamples, xyz.contiguous(), new_xyz.contiguous()
-        )
-    return ball_query_multi_kernel.ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
+    int32, each equal to ball_query(radii[s], nsamples[s], xyz, new_xyz)
+    (pn2::ball_query_multi)."""
+    on_cuda(xyz)  # raises for a device with neither a kernel nor a plain version
+    return torch.ops.pn2.ball_query_multi.default(
+        [float(r) for r in radii], [int(k) for k in nsamples], xyz, new_xyz)
 
 
 def group_points(

@@ -18,26 +18,16 @@ from __future__ import annotations
 import torch
 
 from pointnet2_scannet_tpu_torch.ops import tuning
-from pointnet2_scannet_tpu_torch.ops.cuda import (
-    fps_kernel,
-    gather_kernel,
-    on_cuda,
-    scatter_kernel,
-)
+from pointnet2_scannet_tpu_torch.ops.cuda import on_cuda, scatter_kernel
 from pointnet2_scannet_tpu_torch.ops.mxu_gather import mxu_gather
 
 
 def furthest_point_sample(
     xyz: torch.Tensor, npoint: int, *, skip_near_origin: bool = True
 ) -> torch.Tensor:
-    """(B, N, 3) -> (B, npoint) int32 indices into N."""
-    if on_cuda(xyz):
-        return fps_kernel.furthest_point_sample_cuda(
-            xyz.contiguous(), npoint, skip_near_origin=skip_near_origin
-        )
-    return fps_kernel.furthest_point_sample_plain(
-        xyz, npoint, skip_near_origin=skip_near_origin
-    )
+    """(B, N, 3) -> (B, npoint) int32 indices into N (pn2::furthest_point_sample)."""
+    on_cuda(xyz)  # raises for a device with neither a kernel nor a plain version
+    return torch.ops.pn2.furthest_point_sample.default(xyz, npoint, skip_near_origin)
 
 
 class _GatherPoints(torch.autograd.Function):
@@ -48,9 +38,7 @@ class _GatherPoints(torch.autograd.Function):
     def forward(ctx, points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(idx)
         ctx.n = points.shape[1]
-        if on_cuda(points):
-            return gather_kernel.gather_cuda(points.contiguous(), idx)
-        return gather_kernel.gather_plain(points, idx)
+        return torch.ops.pn2.gather.default(points, idx)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):

@@ -2,8 +2,9 @@
 
 For the SSG or MSG model at full width (32 columns x 8192 points x 9
 channels, seeded random weights, float32 or with --dtype bfloat16 the
-bfloat16 compute dtype), time the steady serving forward
-and the steady train step with CUDA events, then trace a few of each with
+bfloat16 compute dtype), time the steady serving forward (eager, and the
+same forward exported with torch.export on the card and run from its
+program) and the steady train step with CUDA events, then trace a few of each with
 torch.profiler and print: the device time of the top ATen ops (their kernels
 included), device time by kernel class (the port's hand-written kernels,
 GEMM, reductions, elementwise, other), the number of kernel launches, and the
@@ -146,6 +147,7 @@ def main(argv=None) -> None:
 
     import pointnet2_scannet_tpu_torch  # noqa: F401  (switches TF32 off)
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.engine.export import export_forward
 
     print(f"device: {torch.cuda.get_device_name(0)}; model {args.model.upper()}, "
           f"{BATCH} x {NPOINTS}, compute dtype {args.dtype}", flush=True)
@@ -156,10 +158,18 @@ def main(argv=None) -> None:
             return model(batch["points"]).argmax(-1)
 
     model.eval()
-    times = event_ms(torch, forward, 10)
-    print(f"serve forward (labels on the card): {times[len(times) // 2]:.2f} ms median of 10 "
-          f"(min {times[0]:.2f}, max {times[-1]:.2f})", flush=True)
-    profile(torch, "serve forward", forward, times[len(times) // 2])
+    program = export_forward(model, batch_size=BATCH, npoints=NPOINTS, channels=9, emit="logits",
+                             platforms=["cuda"]).program.module()
+
+    def exported_forward():
+        with torch.inference_mode():
+            return program(batch["points"]).argmax(-1)
+
+    for label, fn in (("serve forward", forward), ("exported serve forward", exported_forward)):
+        times = event_ms(torch, fn, 10)
+        print(f"{label} (labels on the card): {times[len(times) // 2]:.2f} ms median of 10 "
+              f"(min {times[0]:.2f}, max {times[-1]:.2f})", flush=True)
+        profile(torch, label, fn, times[len(times) // 2])
 
     state = ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=0)
     step = lambda: ts.train_step(state, batch, num_classes=20)  # noqa: E731

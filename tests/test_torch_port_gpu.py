@@ -1290,3 +1290,105 @@ def test_bf16_train_steps_under_the_mxu_config_repeat_bit_for_bit_through_e_and_
     assert kernels.launch_counts()["gather_smem"] == 2 * 2 * 3  # and SA1's float32 centroids
     for k, v in states[0].items():
         assert torch.equal(states[1][k], v), k
+
+
+# ------------------------------------------------ the pn2:: ops and the serving artifacts
+
+
+def _op_cases(dev):
+    """name -> (pn2:: op, its arguments on the card, its plain version, the
+    kernel module that counts its launches)."""
+    from pointnet2_scannet_tpu_torch.ops import library
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_smem_kernel as gs
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_q_kernel as nnq
+
+    xyz = _cloud(0, (2, 512, 3), dev)
+    q = xyz[:, :128].contiguous()
+    idx = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 256), dtype=np.int32)).to(dev)
+    feats = _cloud(2, (2, 512, 12), dev, -1, 1)
+    words = torch.from_numpy(np.random.default_rng(3).integers(-2**31, 2**31 - 1, (2, 512, 3),
+                                                                dtype=np.int32)).to(dev)
+    return {
+        "a": (library.furthest_point_sample, (xyz, 128, True), lambda: fps.furthest_point_sample_plain(xyz, 128),
+              fps),
+        "b": (library.ball_query, (0.2, 32, xyz, q), lambda: bq.ball_query_plain(0.2, 32, xyz, q), bq),
+        "c": (library.ball_query_multi, ([0.1, 0.2], [16, 32], xyz, q),
+              lambda: bqm.ball_query_multi_plain((0.1, 0.2), (16, 32), xyz, q), bqm),
+        "d_f32": (library.gather, (feats, idx), lambda: ga.gather_plain(feats, idx), ga),
+        "d_i32": (library.gather, (words, idx), lambda: ga.gather_plain(words, idx), ga),
+        "d_bf16": (library.gather, (feats.bfloat16(), idx), lambda: ga.gather_plain(feats.bfloat16(), idx), ga),
+        "e_f32": (library.gather_smem, (feats, idx), lambda: gs.gather_smem_plain(feats, idx), gs),
+        "e_bf16": (library.gather_smem, (feats.bfloat16(), idx),
+                   lambda: gs.gather_smem_plain(feats.bfloat16(), idx), gs),
+        "i": (library.three_nn, (xyz, q), lambda: nn3.three_nn_plain(xyz, q), nn3),
+        "j": (library.three_nn_q, (xyz, q), lambda: nnq.three_nn_q_plain(xyz, q), nnq),
+    }
+
+
+@pytest.mark.parametrize("case", ["a", "b", "c", "d_f32", "d_i32", "d_bf16", "e_f32", "e_bf16", "i", "j"])
+def test_op_on_the_card_launches_its_kernel_and_equals_plain(dev, case):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args, plain, module = _op_cases(dev)[case]
+    before = module.launches
+    got = op(*args)
+    assert module.launches == before + 1
+    want = plain()
+    got, want = (got, want) if isinstance(want, tuple) else ((got,), (want,))
+    for g, w in zip(got, want, strict=True):
+        _equal(g, w)
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    assert module.launches == before + 1  # the fake impl launches nothing
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(f.shape, f.dtype, f.device) for f in fake] == [(g.shape, g.dtype, g.device) for g in got]
+
+
+def _serving_columns(s):
+    return np.concatenate([_cloud(4, (s, 256, 3), "cpu").numpy(), _cloud(5, (s, 256, 3), "cpu", -1, 1).numpy()],
+                          -1)
+
+
+@pytest.mark.parametrize("kind,dtype", [("ssg", None), ("msg", None), ("ssg", torch.bfloat16)],
+                         ids=["ssg", "msg", "ssg_bf16"])
+def test_card_artifact_labels_equal_the_predictor(dev, tmp_path, kind, dtype):
+    from pointnet2_scannet_tpu_torch.engine import export
+
+    model = PointNet2SemSeg(PointNet2Spec(**SMALL_SPECS[kind]), dtype=dtype,
+                            generator=torch.Generator().manual_seed(0))
+    x = _serving_columns(5)  # ragged onto a batch of 2
+    shape = dict(batch_size=2, npoints=256, channels=6, num_classes=5)
+    want = export.Predictor(model, device=dev, **shape).predict(x)
+    exported = export.export_forward(model, platforms=["cuda"], **shape)
+    assert exported.device == f"cuda:{torch.cuda.current_device()}" and exported.num_nodes < 2000
+    loaded = export.load_exported(export.save_exported(exported, tmp_path / "m.pt2"))
+    kernels.reset_launch_counts()
+    got = export.ServingPredictor(loaded).predict(x)
+    counts = kernels.launch_counts()
+    np.testing.assert_array_equal(got, want)
+    assert counts.pop(sc.NAME) == 0 and counts.pop(UNUSED_QUERY[kind]) == 0
+    assert all(counts.pop(k) == 0 for k in OFF_BY_DEFAULT)
+    assert all(n > 0 for n in counts.values())
+    twice = export.ServingPredictor(loaded, devices=["cuda:0", "cuda:0"]).predict(x)
+    np.testing.assert_array_equal(twice, want)
+    with pytest.raises(ValueError, match=r"platforms \['cuda'\]; cannot serve on \['cpu'\]"):
+        export.ServingPredictor(loaded, devices=["cpu"])
+
+
+def test_cpu_traced_artifact_serves_on_the_card(dev, tmp_path):
+    # traced on the CPU (its routes: every 3-NN is three_nn, i), moved to
+    # the card by ServingPredictor
+    from pointnet2_scannet_tpu_torch.engine import export
+
+    model = PointNet2SemSeg(PointNet2Spec(**SMALL_SPECS["ssg"]), generator=torch.Generator().manual_seed(0))
+    shape = dict(batch_size=2, npoints=256, channels=6, num_classes=5)
+    exported = export.export_forward(model, platforms=["cpu", "cuda"], **shape)
+    loaded = export.load_exported(export.save_exported(exported, tmp_path / "m.pt2"))
+    x = _serving_columns(3)
+    kernels.reset_launch_counts()
+    got = export.ServingPredictor(loaded, devices=["cuda"]).predict(x)
+    counts = kernels.launch_counts()
+    np.testing.assert_array_equal(got, export.Predictor(model, device=dev, **shape).predict(x))
+    np.testing.assert_array_equal(export.ServingPredictor(loaded, devices=["cpu"]).predict(x), got)
+    assert counts["three_nn"] == 2 * 2 and counts["three_nn_q"] == 0  # 2 batches x 2 FP levels
+    assert counts["furthest_point_sample"] == 2 * 2 and counts["gather"] > 0 and counts[sc.NAME] == 0
