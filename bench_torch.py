@@ -1,8 +1,11 @@
 """Benchmark of the PyTorch + CUDA port (pointnet2_scannet_tpu_torch): the
-port's counterpart of bench.py. Prints ONE JSON line.
+port's counterpart of bench.py. Prints ONE JSON line (with --scale or
+--scale_only, one more a scale row).
 
     python bench_torch.py                 # the card, full size
     python bench_torch.py --device cpu    # the plain versions, small (a check of the flow, not a speed)
+    python bench_torch.py --scale_only    # bench.py's --scale rows alone, one JSON line a row
+    python bench_torch.py --scale         # the headline line, then those rows
 
 Headline, as bench.py's: `metric` train_points_per_sec_ssg_b32_n8192, its
 `value` the SSG train step's points a second at B 32 x 8192 x 9, float32
@@ -68,6 +71,14 @@ model's weights from torch.Generator().manual_seed(0). Other fields:
   device, power_limit             nvidia-smi's name and power limit
   unported                        bench.py's fields not ported yet, each with
                                   its ROADMAP queue 1 item (none left)
+
+--scale / --scale_only: bench.py's scale rows (bench.py:284-345, listed by
+scale_rows()), one JSON line each with its `metric`, `value` points/s,
+`step_ms[_min|_max]` (as step_ms), batch, npoints, input_channels, device
+and power_limit: scale_ssg_{f32,bf16}_b{64,128};
+scale_{ssg,msg}_mv131_{f32,bf16} (get_model(input_channels=131), B 32 x
+8192); scale_ssg_{f32,bf16}_b16_n16384 and _b8_n32768. A row that runs out
+of the card's memory prints its `error` in place of the numbers.
 
 No vs_baseline (its divisor estimates another card) and no TPU figure.
 --device cpu runs every cell at B 2 x 1024 (P3: 1 x 2048; the scene cut to
@@ -175,9 +186,10 @@ def timed_windows(fn, device, steps: int, repeats: int, warm: int) -> list[float
     return sorted(s.elapsed_time(e) / steps for s, e in events)
 
 
-def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0, dtype=None):
-    """A train state over a seeded SSG or MSG model at full width (xyz + 6
-    feature channels, 20 classes), of compute dtype dtype (None: float32)."""
+def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0, dtype=None, input_channels: int = 6):
+    """A train state over a seeded SSG or MSG model at full width (xyz +
+    input_channels feature channels, 20 classes), of compute dtype dtype
+    (None: float32)."""
     import dataclasses
 
     import torch
@@ -185,18 +197,18 @@ def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0, dtype=No
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
 
-    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=dropout)
+    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, input_channels), dropout=dropout)
     model = PointNet2SemSeg(spec, dtype=dtype, generator=torch.Generator().manual_seed(seed), device=device)
     return ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=seed)
 
 
-def train_inputs(batch: int, npoints: int, device) -> dict:
+def train_inputs(batch: int, npoints: int, device, input_channels: int = 6) -> dict:
     """bench.py's train batch (bench.py:123-134), on device."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(0)
-    pc = rng.uniform(0.0, 1.5, size=(batch, npoints, 9)).astype(np.float32)
+    pc = rng.uniform(0.0, 1.5, size=(batch, npoints, 3 + input_channels)).astype(np.float32)
     raw = {
         "points": pc,
         "labels": rng.integers(0, 20, size=(batch, npoints)).astype(np.int32),
@@ -206,15 +218,16 @@ def train_inputs(batch: int, npoints: int, device) -> dict:
 
 
 def train_ms(kind: str, device, batch: int, npoints: int, steps: int, warm: int,
-             dtype=None) -> list[float]:
+             dtype=None, input_channels: int = 6) -> list[float]:
     """Sorted ms a train step over TRAIN_REPEATS windows of `steps` steps,
-    in compute dtype dtype (None: float32)."""
+    in compute dtype dtype (None: float32), with input_channels feature
+    channels beside xyz."""
     import torch
 
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
-    state = fresh_state(kind, device, dtype=dtype)
-    data = train_inputs(batch, npoints, device)
+    state = fresh_state(kind, device, dtype=dtype, input_channels=input_channels)
+    data = train_inputs(batch, npoints, device, input_channels)
     losses = []
     times = timed_windows(lambda: losses.append(ts.train_step(state, data, num_classes=20)["loss"]),
                           device, steps, TRAIN_REPEATS, warm)
@@ -464,16 +477,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def run(device: str = "cuda") -> dict:
-    """Every cell on `device` ("cuda" or "cpu"); the JSON row."""
+def card_fields(device: str) -> dict:
+    """The row's device and power_limit: nvidia-smi's name and power limit
+    of the card, or "cpu" and None."""
+    name, limit = (part.strip() for part in card_line().rsplit(",", 1)) if device == "cuda" else ("cpu", None)
+    return {"device": name, "power_limit": limit}
+
+
+def _setup(device: str) -> None:
+    """Import the port (TF32 off); refuse --device cuda without a card."""
     import torch
 
     sys.path.insert(0, str(ROOT))
     import pointnet2_scannet_tpu_torch  # noqa: F401  (switches TF32 off)
-    from pointnet2_scannet_tpu_torch.models import ssg_spec
 
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available (use --device cpu)")
+
+
+def run(device: str = "cuda") -> dict:
+    """Every cell on `device` ("cuda" or "cpu"); the JSON row."""
+    import torch
+
+    _setup(device)
+    from pointnet2_scannet_tpu_torch.models import ssg_spec
+
     size = SIZES[device]
     b, n, steps, warm = size["batch"], size["npoints"], size["steps"], size["warm"]
     row = {"metric": METRIC, "unit": "points/sec", "batch": b, "npoints": n}
@@ -482,8 +510,8 @@ def run(device: str = "cuda") -> dict:
     ssg_ms = train["ssg"][TRAIN_REPEATS // 2]
     bf16_ms = bf16["ssg"][TRAIN_REPEATS // 2]
     flops = fwd_matmul_flops(ssg_spec(20, 6), b, n)
-    name, limit = (part.strip() for part in card_line().rsplit(",", 1)) if device == "cuda" else ("cpu", None)
-    peak, bf16_peak = F32_PEAK.get(name), BF16_PEAK.get(name)
+    card = card_fields(device)
+    peak, bf16_peak = F32_PEAK.get(card["device"]), BF16_PEAK.get(card["device"])
     row.update({
         "value": b * n / ssg_ms * 1e3,
         "step_ms": ssg_ms, "step_ms_min": train["ssg"][0], "step_ms_max": train["ssg"][-1],
@@ -514,15 +542,64 @@ def run(device: str = "cuda") -> dict:
     p3 = train_ms("ssg", device, *size["p3"], steps, warm)
     row.update(solver_fields(device, *size["solver"]))
     row.update({"p3_step_ms": p3[TRAIN_REPEATS // 2], "p3_step_ms_min": p3[0], "p3_step_ms_max": p3[-1],
-                "device": name, "power_limit": limit, "unported": UNPORTED})
+                **card, "unported": UNPORTED})
     return row
+
+
+def scale_rows() -> list[tuple[str, str, int, int, int, str]]:
+    """bench.py's --scale rows (bench.py:284-345), in its order: (metric,
+    model kind, batch, points a column, input channels, dtype). The batch
+    study, the multiview recipes (xyz + normal + 128-d ENet features = 131
+    input channels: SA1 takes the pregather in float32) and the chunk-size
+    study at constant points a step."""
+    rows = [(f"scale_ssg_{dt}_b{bs}", "ssg", bs, 8192, 6, dt) for bs in (64, 128) for dt in ("f32", "bf16")]
+    rows += [(f"scale_{kind}_mv131_{dt}", kind, 32, 8192, 131, dt)
+             for kind in ("ssg", "msg") for dt in ("f32", "bf16")]
+    rows += [(f"scale_ssg_{dt}_b{bs}_n{n}", "ssg", bs, n, 6, dt)
+             for n, bs in ((16384, 16), (32768, 8)) for dt in ("f32", "bf16")]
+    return rows
+
+
+def scale(device: str = "cuda"):
+    """Yield one JSON row a scale_rows() entry: `value` points/s and `step_ms`
+    (the median of TRAIN_REPEATS windows, as step_ms), with the batch and
+    points it ran at. On the card a row that runs out of device memory
+    comes back with its error in place of the numbers. --device cpu runs
+    each row at batch / 32 (at least 1) x points / 8, one step a window."""
+    import torch
+
+    _setup(device)
+    size = SIZES[device]
+    card = card_fields(device)
+    for metric, kind, batch, npoints, channels, dt in scale_rows():
+        if device == "cpu":
+            batch, npoints = max(1, batch // 32), npoints // 8
+        row = {"metric": metric, "unit": "points/sec", "batch": batch, "npoints": npoints,
+               "input_channels": channels, **card}
+        try:
+            times = train_ms(kind, device, batch, npoints, size["steps"], size["warm"],
+                             torch.bfloat16 if dt == "bf16" else None, channels)
+        except torch.cuda.OutOfMemoryError as e:
+            row["error"] = f"out of device memory: {str(e).splitlines()[0]}"
+        else:
+            ms = times[TRAIN_REPEATS // 2]
+            row.update(value=batch * npoints / ms * 1e3, step_ms=ms, step_ms_min=times[0], step_ms_max=times[-1])
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        yield row
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--scale", action="store_true", help="bench.py's scale rows after the headline row")
+    p.add_argument("--scale_only", action="store_true", help="bench.py's scale rows alone")
     args = p.parse_args(argv)
-    print(json.dumps(run(args.device)), flush=True)
+    if not args.scale_only:
+        print(json.dumps(run(args.device)), flush=True)
+    if args.scale or args.scale_only:
+        for row in scale(args.device):
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

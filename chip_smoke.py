@@ -189,7 +189,28 @@
     equal to Predictor's bit for bit, every 3-NN on three_nn (the CPU's
     route). Each artifact's export seconds, graph nodes and MB, and its
     steady batch of 32 x 8192 beside Predictor's (median of 9, in turns).
-26. Print one JSON line of kernel results (time, plain time, the card's bound
+26. Multiview and the mv131 recipe (xyz + normal + 128-d ENet features,
+    131 input channels). ENet (float32, eval, 8 frames of 256 x 328) on the
+    card against the CPU from the same seeded weights within rtol 1e-3,
+    atol 1e-4, and scripts/bench_enet_torch.py's frames/s (float32,
+    bfloat16); the correspondence of one synthetic scene of 100 000 points
+    seen by 16 cameras, card against CPU (differing pairs counted, at most
+    1e-5 of them, each within 1e-4 of a decision threshold); the multiview
+    CLI's loop body (scripts/multiview_torch.process_frames: ENet,
+    correspondence and fusion on the card) equal bit for bit to
+    fuse_scene_features on the CPU over the card's features and
+    correspondences. Then the SSG mv131 model trained by the Solver (32
+    scenes written as .npy, read back with the features in memory, so the
+    phase needs no h5py; scene 0 with the fused features, the others
+    label-correlated; 3 steps of 32 x 8192) and its run dir evaluated, each
+    launching a, b, d, h (training) and i and no other, SA1 taking the
+    pregather in every forward and no other level (the gathers of SA1's
+    pregather and their scatter-add are checked with phases 3 and 4, at
+    B 32 x 8192 x 32 and x 3 through the 32768-row index); the mv131 train step
+    card vs CPU under phase 11's gates, determinism and its steady time;
+    SA1's pregather against the unfused composition (SA1's forward, the
+    serving forward, the train step).
+27. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -197,7 +218,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24 and 25 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25 and 26 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -293,6 +314,21 @@ BF16_LOSS_RTOL, BF16_GRAD_VS_CPU = 2e-3, 1.25
 # float64 step (PERF.md, section 6); the card's step under P1 must also give
 # each of f's outputs bit for bit as its plain version does on CPU copies
 # of that launch's inputs
+# phase 26, multiview and the mv131 recipe (xyz + normal + 128-d ENet
+# features: 131 input channels, the reference's best published recipe).
+# ENet in float32 (TF32 off) on ENET_BATCH frames, card against CPU from the
+# same seeded weights, within the JAX package's reference-parity tolerance
+# (tests/test_multiview.py:165); the correspondence of one synthetic scene
+# of MV_POINTS points seen by MV_FRAMES cameras, card against CPU: at most
+# MV_FLIP_SHARE of the (frame, point) pairs may differ, each within
+# MV_FLIP_MARGIN of a decision threshold (data/multiview.decision_margins;
+# the CPU tests measured none against the JAX package); the mv131 Solver
+# run's train and val scenes
+MV131 = 131
+ENET_BATCH, ENET_RTOL, ENET_ATOL = 8, 1e-3, 1e-4
+MV_POINTS, MV_FRAMES = 100_000, 16
+MV_FLIP_SHARE, MV_FLIP_MARGIN = 1e-5, 1e-4
+MV_SCENES, MV_VAL_SCENES = 32, 2
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
@@ -504,7 +540,7 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
 
 
 def check_scatter(torch, tally, path, backward, dtype=None) -> None:
-    """Phases 4, 6, 8, 23 and 24: a scatter-add kernel (the tally's:
+    """Phases 4, 6, 8, 23, 24 and 26: a scatter-add kernel (the tally's:
     scatter_add.cu, or scatter_smem.cu with scatter_add.cu as its
     counterpart) against its plain version on CPU copies (which adds in
     ascending j, as the kernels do; bfloat16 cotangents in float32, rounded
@@ -646,35 +682,67 @@ def check_msg_gathers(torch, tallies, xyz, input_feats, multi_idx) -> list:
     return backward
 
 
-def time_pregather(torch) -> None:
-    """Phase 7: the MSG model at 32 x 8192 with its pregather gate as it
-    stands (on at SA3 and SA4 in float32) and forced off (the unfused
-    composition at every level). The eval logits of the two must agree;
-    the serving forward and the train step are timed with CUDA events, in
-    the order on, off, off, on. The switches of P1 are process-wide, so the
-    gate-on forward runs under MXU_CONFIG too: its logits must equal the
-    default configuration's bit for bit, with gather_smem.cu launched."""
+def check_mv131_gathers(torch, tallies, xyz) -> None:
+    """Phase 26's kernel checks, run with phases 3 and 4: the mv131 recipe
+    (131 input channels) takes the pregather at SSG's SA1, so the gather
+    (d) moves layer 0's output (widths[0] words a row) and the xyz (3)
+    through SA1's ball-query index, and the scatter-add (h) takes the first
+    one's gradient back to the 8192 source rows. Both as check_kernels and
+    check_scatter hold them, at the shapes the SSG model's gate gives."""
+    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, ssg_spec
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+
+    spec = ssg_spec(20, MV131)
+    sa = PointNet2SemSeg(spec).sa_0
+    widths = sa._mlps()[0].widths
+    if not sa._pregather(torch.empty((1, 1, spec.skip_channels[0])), widths):
+        raise RuntimeError("the mv131 recipe's SA1 does not take the pregather")
+    (n_in, _, radius, _), x = LEVELS[0], xyz[0]
+    idx = bq.ball_query_cuda(radius, NSAMPLE, x, xyz[1]).reshape(BATCH, -1)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    zf = torch.randn((BATCH, n_in, widths[0]), generator=gen, device="cuda")
+    for what, src in (("zf", zf), ("xyz", x)):
+        gather_check(torch, tallies[ga.NAME], "mv131",
+                     f"gather SSG mv131 SA1 pregather {what} ({BATCH},{n_in},{src.shape[2]})x{idx.shape[1]}",
+                     src, idx)
+    # the xyz are input data: only layer 0's output takes a gradient
+    check_scatter(torch, tallies["scatter_add"], "mv131", [("SA1 mv131 pregather zf", idx, n_in, widths[0])])
+
+
+def time_pregather(torch, kind: str = "msg", input_channels: int = 6) -> None:
+    """Phases 7 and 26: the model at 32 x 8192 with its pregather gate as it
+    stands (MSG: on at SA3 and SA4 in float32; SSG at the mv131 recipe's 131
+    input channels: on at SA1) and forced off (the unfused composition at
+    every level). The eval logits of the two must agree; the serving
+    forward and the train step (and for mv131 SA1's forward alone) are
+    timed with CUDA events, in the order on, off, off, on. For MSG, the
+    switches of P1 are process-wide, so the gate-on forward runs under
+    MXU_CONFIG too: its logits must equal the default configuration's bit
+    for bit, with gather_smem.cu launched."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
-    from pointnet2_scannet_tpu_torch.models import SetAbstraction
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    batch = train_batch(torch, BATCH, "cuda")
-    state = bench_torch.fresh_state("msg", "cuda", 0.5)
+    batch = train_batch(torch, BATCH, "cuda", input_channels=input_channels)
+    state = bench_torch.fresh_state(kind, "cuda", 0.5, input_channels=input_channels)
     model = state.model
-    levels = [m for m in model.modules() if isinstance(m, SetAbstraction)]
+    gate = pregather_gate(model)
+    pc = batch["points"]
 
-    def gate(on: bool) -> None:
-        for sa in levels:
-            if on:
-                vars(sa).pop("_pregather", None)
-            else:
-                sa._pregather = lambda features, widths: False
+    def inference(fn):
+        def run():
+            model.eval()
+            with torch.inference_mode():
+                return fn()
+        return run
 
-    def forward():
-        model.eval()
-        with torch.inference_mode():
-            return model(batch["points"])
-
+    forward = inference(lambda: model(pc))
+    timed = {"serve forward": forward, "train step": lambda: ts.train_step(state, batch, num_classes=20)}
+    name = f"{kind.upper()} (B={BATCH} x {NPOINTS})"
+    if input_channels == MV131:
+        xyz, feats = pc[..., :3].contiguous(), pc[..., 3:].contiguous()
+        timed = {"SA1 forward": inference(lambda: model.sa_0(xyz, feats)), **timed}
+        name = f"{kind.upper()} mv131 (B={BATCH} x {NPOINTS}, {MV131} input channels)"
     logits = {}
     for on in (True, False):
         gate(on)
@@ -682,23 +750,23 @@ def time_pregather(torch) -> None:
     torch.testing.assert_close(logits[True], logits[False], rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
     err = float((logits[True] - logits[False]).abs().max())
     gate(True)
-    before = kernels.launch_counts()
-    with switches(**MXU_CONFIG):
-        mxu = forward()
-    ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
-    print(f"MSG under P1's switches (B={BATCH} x {NPOINTS}): launches {ran}; eval logits vs the "
-          f"default configuration max_abs_err {float((mxu - logits[True]).abs().max())}", flush=True)
-    if not ran.get("gather_smem") or not torch.equal(mxu, logits[True]):
-        raise RuntimeError("the MSG forward under P1's switches launched no gather_smem kernel "
-                           "or differs from the default configuration's")
-    times = {(on, what): [] for on in (True, False) for what in ("serve forward", "train step")}
+    if kind == "msg":
+        before = kernels.launch_counts()
+        with switches(**MXU_CONFIG):
+            mxu = forward()
+        ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+        print(f"MSG under P1's switches (B={BATCH} x {NPOINTS}): launches {ran}; eval logits vs the "
+              f"default configuration max_abs_err {float((mxu - logits[True]).abs().max())}", flush=True)
+        if not ran.get("gather_smem") or not torch.equal(mxu, logits[True]):
+            raise RuntimeError("the MSG forward under P1's switches launched no gather_smem kernel "
+                               "or differs from the default configuration's")
+    times = {(on, what): [] for on in (True, False) for what in timed}
     for on in (True, False, False, True):
         gate(on)
-        times[(on, "serve forward")].append(cuda_ms(forward, torch))
-        times[(on, "train step")].append(
-            cuda_ms(lambda: ts.train_step(state, batch, num_classes=20), torch))
+        for what, fn in timed.items():
+            times[(on, what)].append(cuda_ms(fn, torch))
     gate(True)
-    print(f"pregather MSG (B={BATCH} x {NPOINTS}): logits gate on vs off max_abs_err {err}; "
+    print(f"pregather {name}: logits gate on vs off max_abs_err {err}; "
           + "; ".join(f"{what} gate {'on' if on else 'off'} "
                       + " / ".join(f"{t:.3f}" for t in ms) + " ms"
                       for (on, what), ms in times.items()), flush=True)
@@ -1317,15 +1385,22 @@ def print_columns() -> None:
         raise RuntimeError("the whole-scene run would have no padded or no multi-micro-batch scene")
 
 
-def train_batch(torch, n: int, device, npoints: int = NPOINTS):
-    """A train batch of n full-width chunks of synthetic scenes, on device."""
+def train_batch(torch, n: int, device, npoints: int = NPOINTS, input_channels: int = 6):
+    """A train batch of n full-width chunks of synthetic scenes, on device:
+    xyz + colour + normal (6 input channels), or the mv131 recipe's xyz +
+    normal + label-correlated multiview features (131)."""
     from pointnet2_scannet_tpu_torch.config import DataConfig
     from pointnet2_scannet_tpu_torch.data import make_synthetic_store
     from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
     from pointnet2_scannet_tpu_torch.data.pipeline import BatchLoader, to_device
+    from pointnet2_scannet_tpu_torch.data.synthetic import attach_label_multiview
 
-    cfg = DataConfig(npoints=npoints, use_color=True, use_normal=True)
-    ds = ChunkedSceneDataset(make_synthetic_store(n, seed=0), cfg, phase="train", seed=0)
+    mv = input_channels == MV131
+    cfg = DataConfig(npoints=npoints, use_color=not mv, use_normal=True, use_multiview=mv)
+    store = make_synthetic_store(n, seed=0)
+    if mv:
+        attach_label_multiview(store)
+    ds = ChunkedSceneDataset(store, cfg, phase="train", seed=0)
     ds.generate_chunks()
     return to_device(next(iter(BatchLoader(ds, n, drop_last=True))), device)
 
@@ -1342,21 +1417,34 @@ def grad_errors(got: dict, want: dict) -> list:
 CPU_STEPS: dict = {}
 
 
-def train_step_card_vs_cpu(torch, kind: str, config: str = "default", npoints: int = NPOINTS) -> None:
-    """Phases 11 and 12: one train step from the same weights on the card
-    and on the CPU (float32 both, and float64 on the CPU as the reference),
-    Dropout off."""
+def train_step_card_vs_cpu(torch, kind: str, config: str = "default", npoints: int = NPOINTS,
+                           input_channels: int = 6) -> None:
+    """Phases 11, 12, 18 and 26: one train step from the same weights on the
+    card and on the CPU (float32 both, and float64 on the CPU as the
+    reference), Dropout off; the card's step launches its route's kernels
+    and no other, and at the mv131 recipe's 131 input channels takes the
+    pregather at SA1 (1024 centroids) and at no other level."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops import tuning
 
-    out = CPU_STEPS.setdefault((kind, npoints), {})
+    out = CPU_STEPS.setdefault((kind, npoints, input_channels), {})
     for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
         if (device, dtype) in out and device == "cpu":
             continue
-        state = bench_torch.fresh_state(kind, device, 0.0)
+        state = bench_torch.fresh_state(kind, device, 0.0, input_channels=input_channels)
         state.model.to(dtype)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
-                 for k, v in train_batch(torch, 2, device, npoints).items()}
+                 for k, v in train_batch(torch, 2, device, npoints, input_channels).items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            tuning.reset_route_counts()
         res = ts.train_step(state, batch, num_classes=20)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            pregather = {k: n for k, n in tuning.route_counts.items() if k[0] == "pregather"}
         m = state.model
         out[(device, dtype)] = (
             float(res["loss"]), {k: p.grad.cpu() for k, p in m.named_parameters()},
@@ -1369,7 +1457,12 @@ def train_step_card_vs_cpu(torch, kind: str, config: str = "default", npoints: i
     med = len(card) // 2
     bn_err = max(float((gpu_b[k] - b).abs().max()) for k, b in cpu_b.items())
     loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    print(f"train step {kind.upper()} ({config} config) card vs CPU (2 x {npoints}): loss {gpu_loss} vs {cpu_loss} "
+    name = f"{kind.upper()} ({config} config, 2 x {npoints}, {input_channels} input channels)"
+    print(f"train step {name} on the card: launches {launches}, pregathers {pregather}", flush=True)
+    check_launches(launches, kind, True, f"train step {name}", config, npoints)
+    if input_channels == MV131 and kind == "ssg" and pregather != {("pregather", 1024): 1}:
+        raise RuntimeError(f"the mv131 train step took the pregather at {pregather}, not at SA1 alone")
+    print(f"train step {name} card vs CPU: loss {gpu_loss} vs {cpu_loss} "
           f"(rel {loss_err:.2e}); BatchNorm stats max abs err {bn_err:.2e}; gradients, per-tensor "
           f"relative L2 over {len(card)} tensors, worst / median: card vs CPU float32 "
           f"{direct[0][0]:.2e} ({direct[0][1]}) / {direct[med][0]:.2e}; vs CPU float64: card "
@@ -1490,20 +1583,21 @@ def wholescene_time(kind: str) -> dict:
 
 
 def train_step_repeat_and_time(torch, kind: str, config: str = "default", batch_size: int = BATCH,
-                               npoints: int = NPOINTS, dtype=None) -> dict:
-    """Phases 11, 12 and 23: two identical steps on the card give the same
-    bits and launch the kernels of the configuration's path (in compute
-    dtype dtype; None: float32); then the warm step at batch 32, timed with
-    CUDA events."""
+                               npoints: int = NPOINTS, dtype=None, input_channels: int = 6) -> dict:
+    """Phases 11, 12, 23 and 26: two identical steps on the card give the
+    same bits and launch the kernels of the configuration's path (in compute
+    dtype dtype, None: float32; with input_channels feature channels); then
+    the warm step at batch 32, timed with CUDA events."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
 
-    name = f"{kind.upper()} ({config} config, {batch_size} x {npoints}{', bfloat16' * (dtype is not None)})"
-    batch = train_batch(torch, batch_size, "cuda", npoints)
+    name = (f"{kind.upper()} ({config} config, {batch_size} x {npoints}{', bfloat16' * (dtype is not None)}"
+            f"{f', {input_channels} input channels' * (input_channels != 6)})")
+    batch = train_batch(torch, batch_size, "cuda", npoints, input_channels)
     states = []
     kernels.reset_launch_counts()
     for _ in range(2):
-        state = bench_torch.fresh_state(kind, "cuda", 0.5, dtype=dtype)
+        state = bench_torch.fresh_state(kind, "cuda", 0.5, dtype=dtype, input_channels=input_channels)
         ts.train_step(state, batch, num_classes=20)
         states.append(state.model.state_dict())
     check_launches(kernels.launch_counts(), kind, True, f"{name} determinism", config, npoints)
@@ -2090,6 +2184,233 @@ def serve_artifacts(torch, tmp: pathlib.Path) -> list:
     return runs
 
 
+def seeded_enet(torch):
+    """ENetSemSeg (41 classes) in eval mode on the CPU: torch's default
+    initialisation from seed 0, BatchNorm running statistics drawn from
+    numpy's generator seeded 0."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.models.enet import ENetSemSeg
+
+    torch.manual_seed(0)
+    model = ENetSemSeg(41)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, m.num_features).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, m.num_features).astype(np.float32)))
+    return model.eval()
+
+
+def enet_frames(n: int, seed: int):
+    """n random RGB frames of 256 x 328, normalised for ENet (float32 numpy)."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.models.enet import normalize_frame
+
+    rgb = np.random.default_rng(seed).uniform(0.0, 1.0, (n, 256, 328, 3))
+    return normalize_frame(rgb).astype(np.float32)
+
+
+def enet_card_vs_cpu(torch) -> None:
+    """Phase 26: ENet's eval logits on ENET_BATCH frames, card against CPU;
+    then scripts/bench_enet_torch.py's frames/s (B 64, float32 and
+    bfloat16)."""
+    model = seeded_enet(torch)
+    x = torch.from_numpy(enet_frames(ENET_BATCH, 0))
+    with torch.inference_mode():
+        want = model(x)
+        got = model.to("cuda")(x.to("cuda")).cpu()
+    err = float((got - want).abs().max())
+    print(f"ENet (41 classes) {tuple(x.shape)} card vs CPU: logits {tuple(got.shape)}, max_abs_err {err} "
+          f"(max |logit| {float(want.abs().max())}; rtol {ENET_RTOL}, atol {ENET_ATOL})", flush=True)
+    torch.testing.assert_close(got, want, rtol=ENET_RTOL, atol=ENET_ATOL)
+    row = load_script("bench_enet_torch").run("cuda")
+    print(json.dumps(row), flush=True)
+    print(f"ENet frames/s float32: {row['value']:.1f} ({row['forward_ms']:.3f} ms a batch of 64)", flush=True)
+    print(f"ENet frames/s bfloat16: {row['bf16_frames_per_sec']:.1f} ({row['forward_ms_bf16']:.3f} ms a batch "
+          f"of 64)", flush=True)
+
+
+def correspondence_and_fusion(torch):
+    """Phase 26: the correspondence of one synthetic scene (MV_POINTS points,
+    MV_FRAMES cameras looking into it, depths rendered from it) on the card
+    against the CPU; the multiview CLI's loop body
+    (scripts/multiview_torch.process_frames: ENet, correspondence and fusion
+    on the card) against fuse_scene_features on the CPU over the card's
+    features and correspondences, bit for bit; both timed. Returns (scene,
+    its fused (N, 128) features)."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.data import multiview as mv
+    from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_scene, make_synthetic_views
+
+    cam = mv.CameraConfig()
+    scene = make_synthetic_scene(0, n_points=MV_POINTS)
+    poses, depths = make_synthetic_views(scene, MV_FRAMES, cam, seed=0)
+    pts = torch.from_numpy(np.ascontiguousarray(scene[:, :3]))
+    want_v, want_p = mv.compute_correspondence_batch(pts, depths, poses, cam)
+    card = pts.to("cuda")
+    got_v, got_p = (t.cpu() for t in mv.compute_correspondence_batch(card, depths, poses, cam))
+    differ = (got_v != want_v) | (got_p != want_p)
+    margins = mv.decision_margins(pts, depths, poses, cam)
+    flips = int(differ.sum())
+    worst = float(margins[differ].max()) if flips else 0.0
+    corr_ms = cuda_ms(lambda: mv.compute_correspondence_batch(card, depths, poses, cam), torch)
+    print(f"correspondence {MV_POINTS} points x {MV_FRAMES} frames card vs CPU: {flips} of {differ.numel()} "
+          f"(frame, point) pairs differ (largest decision margin among them {worst}); valid share "
+          f"{float(want_v.float().mean()):.4f}; {corr_ms:.3f} ms a batch of {MV_FRAMES} frames on the card",
+          flush=True)
+    if flips > MV_FLIP_SHARE * differ.numel() or worst > MV_FLIP_MARGIN:
+        raise RuntimeError(f"the card's correspondence differs at {flips} pairs, margins up to {worst}")
+
+    encoder = seeded_enet(torch).encoder.to("cuda")
+    frames = enet_frames(MV_FRAMES, 1)
+    batches = [(frames[i:i + ENET_BATCH], depths[i:i + ENET_BATCH], poses[i:i + ENET_BATCH])
+               for i in range(0, MV_FRAMES, ENET_BATCH)]
+    fused = load_script("multiview_torch").process_frames(scene[:, :3], batches, encoder, "cuda", cam)
+    with torch.inference_mode():
+        feats = torch.cat([encoder(torch.from_numpy(c).to("cuda")) for c, _, _ in batches])
+        v, p = mv.compute_correspondence_batch(card, depths, poses, cam)
+        fuse_ms = cuda_ms(lambda: mv.fuse_scene_features(feats, v, p), torch)
+    want = mv.fuse_scene_features(feats.cpu(), got_v, got_p).numpy()
+    covered = float((np.abs(fused).sum(1) > 0).mean())
+    print(f"fusion on the card ({MV_FRAMES} frames of ENet features {tuple(feats.shape[1:])} onto {MV_POINTS} "
+          f"points): {covered:.4f} of the points covered, {'equal' if np.array_equal(fused, want) else 'DIFFERENT'}"
+          f" to fuse_scene_features on the CPU; {fuse_ms:.3f} ms a scene on the card", flush=True)
+    if fused.shape != (MV_POINTS, 128) or not np.array_equal(fused, want) or covered == 0.0:
+        raise RuntimeError("the card's fused features differ from the CPU's fusion of the same inputs")
+    return scene, fused
+
+
+def mv131_train_eval(torch, tmp: pathlib.Path, scene, fused) -> dict:
+    """Phase 26: the SSG mv131 recipe (--use_normal --use_multiview, 131
+    input channels) trained by the Solver for 3 steps of 32 x 8192 from
+    MV_SCENES scenes written to tmp/<sid>.npy and read back with
+    SceneStore.from_npy_dir, their features in memory (no HDF5 file, so no
+    h5py): scene 0 carries the fused features of correspondence_and_fusion,
+    the others label-correlated ones. Then the run dir's model_best
+    evaluated on the val scenes by the whole-scene evaluator. Each run
+    launches a, b, d, h (training) and i and no other kernel, SA1 taking the
+    pregather in every forward. Returns the runs' launches."""
+    import contextlib
+    import io
+    import math
+
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.config import DataConfig, RunConfig, TrainConfig
+    from pointnet2_scannet_tpu_torch.data import SceneStore, WholeSceneDataset, make_synthetic_scene
+    from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
+    from pointnet2_scannet_tpu_torch.data.synthetic import attach_label_multiview
+    from pointnet2_scannet_tpu_torch.engine.evaluator import WholeSceneEvaluator
+    from pointnet2_scannet_tpu_torch.engine.export import load_run_model
+    from pointnet2_scannet_tpu_torch.engine.solver import Solver
+    from pointnet2_scannet_tpu_torch.models import model_from_config
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops import tuning
+
+    ids = [f"mv{i:04d}_00" for i in range(MV_SCENES + MV_VAL_SCENES)]
+    np.save(tmp / f"{ids[0]}.npy", scene)
+    for i, sid in enumerate(ids[1:], 1):
+        np.save(tmp / f"{sid}.npy", make_synthetic_scene(i))
+    train = SceneStore.from_npy_dir(ids[:MV_SCENES], tmp)
+    val = attach_label_multiview(SceneStore.from_npy_dir(ids[MV_SCENES:], tmp))
+    train.multiview[ids[0]] = fused
+    attach_label_multiview(train, skip={ids[0]})
+    cfg = RunConfig(tag="chip_smoke_mv131",
+                    data=DataConfig(npoints=NPOINTS, use_normal=True, use_multiview=True),
+                    train=TrainConfig(batch_size=BATCH, epochs=3, verbose=1, seed=0))
+    if cfg.data.input_channels != MV131:
+        raise RuntimeError(f"the mv131 recipe has {cfg.data.input_channels} input channels")
+    run_dir = tmp / "run_mv131"
+    solver = Solver(model_from_config(cfg, generator=torch.Generator().manual_seed(0)),
+                    ChunkedSceneDataset(train, cfg.data, phase="train", seed=0),
+                    ChunkedSceneDataset(val, cfg.data, phase="val", seed=1), cfg, run_dir, device="cuda")
+
+    def pregathers(forwards: int, what: str) -> None:
+        got = {k: n for k, n in tuning.route_counts.items() if k[0] == "pregather"}
+        if got != {("pregather", 1024): forwards}:
+            raise RuntimeError(f"{what}: {forwards} forwards took the pregather at {got}, not at SA1 each")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tuning.reset_route_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            best = solver()
+    finally:
+        print(log.getvalue(), end="", flush=True)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    train_launches = kernels.launch_counts()
+    what = f"mv131 SSG Solver ({MV_SCENES} scenes, 3 steps of {BATCH} x {NPOINTS}, {MV131} input channels)"
+    print(f"{what}: launches {train_launches}, pregathers {dict(tuning.route_counts)}", flush=True)
+    check_launches(train_launches, "ssg", True, what)
+    pregathers(train_launches["furthest_point_sample"] // 4, what)
+    losses = [v for _, v in solver.logger.scalars["train/loss"]] + [v for _, v in solver.logger.scalars["val/loss"]]
+    if len(solver.logger.scalars["train/loss"]) != 3 or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"{what}: train/val losses {losses}")
+    for f in ("model_best.pt", "model_last.pt", "config.json"):
+        if not (run_dir / f).is_file():
+            raise RuntimeError(f"{what} wrote no {f}")
+    print(f"{what}: {took:.2f} s; losses {losses}; best val voxel mIoU {best['voxel_miou']:.4f}", flush=True)
+
+    model, saved = load_run_model(run_dir)
+    evaluator = WholeSceneEvaluator(model, device="cuda", batch_size=BATCH, num_classes=saved.model.num_classes)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tuning.reset_route_counts()
+    report = evaluator.evaluate(WholeSceneDataset(val, saved.data, seed=0), verbose=False)
+    torch.cuda.synchronize()
+    eval_launches = kernels.launch_counts()
+    what = f"mv131 SSG run dir evaluated ({MV_VAL_SCENES} scenes, batch {BATCH})"
+    print(f"{what}: launches {eval_launches}; point acc {report.point_acc:.4f}, voxel mIoU "
+          f"{report.voxel_miou:.4f}", flush=True)
+    check_launches(eval_launches, "ssg", False, what)
+    pregathers(eval_launches["furthest_point_sample"] // 4, what)
+    values = [report.point_acc, report.voxel_acc, report.point_miou, report.voxel_miou]
+    if len(report.scenes) != MV_VAL_SCENES or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+        raise RuntimeError(f"{what}: {len(report.scenes)} scenes, metrics {values}")
+    return {"launches": {k: train_launches[k] + eval_launches[k] for k in train_launches}}
+
+
+def pregather_gate(model):
+    """gate(on): every set abstraction of model with its pregather gate as
+    it stands (on) or forced off (the unfused composition at every level)."""
+    from pointnet2_scannet_tpu_torch.models import SetAbstraction
+
+    levels = [m for m in model.modules() if isinstance(m, SetAbstraction)]
+
+    def gate(on: bool) -> None:
+        for sa in levels:
+            if on:
+                vars(sa).pop("_pregather", None)
+            else:
+                sa._pregather = lambda features, widths: False
+
+    return gate
+
+
+def multiview(torch) -> dict:
+    """Phase 26: ENet, the correspondence and the fusion on the card against
+    the CPU; the mv131 recipe trained and evaluated through the kernels; its
+    train step card vs CPU, determinism and steady time; SA1's pregather
+    timed against the unfused composition. Returns the main-path launches."""
+    enet_card_vs_cpu(torch)
+    scene, fused = correspondence_and_fusion(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        runs = mv131_train_eval(torch, pathlib.Path(tmp), scene, fused)
+    train_step_card_vs_cpu(torch, "ssg", input_channels=MV131)
+    step = train_step_repeat_and_time(torch, "ssg", input_channels=MV131)
+    print(f"mv131 SSG train step (32 x 8192, float32): {step['ms']:.2f} ms", flush=True)
+    time_pregather(torch, "ssg", MV131)
+    return runs
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2126,6 +2447,7 @@ def main() -> int:
     backward = check_kernels(torch, tallies, xyz, fps_idx, input_feats)
     check_scatter(torch, tallies["scatter_add"], "ssg", backward)
     check_scatter(torch, tallies["scatter_add"], "skew", skewed_row(torch))
+    check_mv131_gathers(torch, tallies, xyz)
     multi_idx = check_multi(torch, tallies, xyz)
     backward = check_msg_gathers(torch, tallies, xyz, input_feats, multi_idx)
     check_scatter(torch, tallies["scatter_add"], "msg", backward)
@@ -2243,6 +2565,8 @@ def main() -> int:
         for run in serve_artifacts(torch, pathlib.Path(tmp)):
             tally(run)
     lap(start, "phase 25")
+    tally(multiview(torch))  # phase 26
+    lap(start, "phase 26")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -105,3 +105,55 @@ def make_synthetic_store(n_scenes: int = 4, seed: int = 0, n_points: int = 60_00
         for idx in range(n_scenes)
     }
     return SceneStore.from_scenes(scenes)
+
+
+def attach_label_multiview(store, skip=(), seed: int = 7):
+    """Give each scene of store not in skip label-correlated (N, 128)
+    multiview features, as ENet features carry their class: a fixed class
+    embedding N(0, 1) plus N(0, 0.3) noise a point (the JAX package's
+    tests/test_multiview_convergence.py fixture). Returns store."""
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(0.0, 1.0, size=(40, 128)).astype(np.float32)
+    for sid in store.scene_ids:
+        if sid not in skip:
+            labels = store.scenes[sid][:, 10].astype(np.int64)
+            store.multiview[sid] = (emb[labels] + rng.normal(0.0, 0.3, (len(labels), 128))).astype(np.float32)
+    return store
+
+
+def make_synthetic_views(points: np.ndarray, n_frames: int, cam, seed: int = 0):
+    """Camera poses looking into a scene and the depth maps rendered from its
+    points, for the multiview correspondence (data/multiview.py).
+
+    Each camera stands at eye height (1.2-1.8 m) inside the scene's xy box
+    and looks at a random point of the scene's middle, with its x axis
+    level; camera axes x right, y down, z forward. Each depth map (cam.height,
+    cam.width) holds, a pixel, the least camera depth of the points that
+    round to it in front of the camera, 0 where none does (an invalid
+    pixel). Returns (poses (F, 4, 4), depths (F, H, W)), float32."""
+    rng = np.random.default_rng(seed)
+    pts = np.asarray(points, np.float64)[:, :3]
+    lo, hi = pts.min(0), pts.max(0)
+    poses, depths = [], []
+    for _ in range(n_frames):
+        eye = np.array([*rng.uniform(lo[:2] + 0.2 * (hi[:2] - lo[:2]), hi[:2] - 0.2 * (hi[:2] - lo[:2])),
+                        rng.uniform(1.2, 1.8)])
+        target = rng.uniform(lo + 0.25 * (hi - lo), hi - 0.25 * (hi - lo))
+        fwd = (target - eye) / np.linalg.norm(target - eye)
+        right = np.cross(fwd, (0.0, 0.0, 1.0))
+        right /= np.linalg.norm(right)
+        pose = np.eye(4)
+        pose[:3, :3] = np.column_stack([right, np.cross(fwd, right), fwd])
+        pose[:3, 3] = eye
+        cam_pts = (pts - eye) @ pose[:3, :3]
+        z = cam_pts[:, 2]
+        front = z > 1e-3
+        u = np.round(cam_pts[front, 0] * cam.fx / z[front] + cam.cx).astype(np.int64)
+        v = np.round(cam_pts[front, 1] * cam.fy / z[front] + cam.cy).astype(np.int64)
+        inside = (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+        depth = np.full(cam.height * cam.width, np.inf)
+        np.minimum.at(depth, v[inside] * cam.width + u[inside], z[front][inside])
+        depth[np.isinf(depth)] = 0.0
+        poses.append(pose)
+        depths.append(depth.reshape(cam.height, cam.width))
+    return np.stack(poses).astype(np.float32), np.stack(depths).astype(np.float32)

@@ -1,4 +1,5 @@
-"""JAX parameters to the port's state_dict (numpy only).
+"""JAX parameters, and the reference's checkpoints, to the port's
+state_dict and back (numpy only; torch for the files).
 
 The JAX package's variables are {"params", "batch_stats"} trees, as
 engine/checkpoint.restore_params_only returns them. The port names its
@@ -11,6 +12,22 @@ modules after that tree, so each scope maps to a dotted prefix:
 and the same for fp_{k}/mlp, cls_fc and cls_out. Values come back as numpy
 arrays; load them with model.load_state_dict({k: torch.from_numpy(v)},
 strict=True) or engine/checkpoint.save_state_dict.
+
+The reference (Pointnet2.ScanNet) saves bare model.state_dict() files
+(model.pth) named after its SharedMLP / Conv wrappers:
+
+    SA_modules.{k}.mlps.{s}.layer{i}.conv.weight (out, in, 1, 1) <-> sa_{k}.mlp_{s}.dense_{i}.weight (out, in)
+    SA_modules.{k}.mlps.{s}.layer{i}.bn.bn.{weight, bias, running_mean, running_var, num_batches_tracked}
+                                                             <-> sa_{k}.mlp_{s}.bn_{i}.*
+    FP_modules.{k}.mlp.layer{i}.*                            <-> fp_{k}.mlp.*_{i}
+    cls_layer.0.conv.weight (out, in, 1), cls_layer.0.bn.bn.* <-> cls_fc.dense_0, cls_fc.bn_0
+    cls_layer.2.*  (after the Dropout at cls_layer.1)          <-> cls_out.dense_0, cls_out.bn_0
+
+(a conv has a bias only where no BatchNorm follows). convert_torch_pointnet2
+and export_torch_pointnet2 map between the two directly, as the JAX
+package's functions of those names map the reference's keys to and from
+its flax tree; num_batches_tracked comes in as 0, as the JAX route's
+state_dict_from_jax gives it, and goes out as 0.
 """
 
 from __future__ import annotations
@@ -39,6 +56,86 @@ def _node(tree, scope):
     for name in scope:
         tree = tree[name]
     return tree
+
+
+def _ref_blocks(spec: PointNet2Spec) -> Iterator[tuple[str, str, int]]:
+    """(reference key of the layer, port prefix of the layer, conv rank) of
+    every Linear(+BN) layer that the reference's model.pth holds."""
+    for k, level in enumerate(spec.sa_mlps):
+        for s, widths in enumerate(level):
+            for i in range(len(widths)):
+                yield f"SA_modules.{k}.mlps.{s}.layer{i}", f"sa_{k}.mlp_{s}.{{}}_{i}", 4
+    for k, widths in enumerate(spec.fp_mlps):
+        for i in range(len(widths)):
+            yield f"FP_modules.{k}.mlp.layer{i}", f"fp_{k}.mlp.{{}}_{i}", 4
+    # the reference's head: Conv1d, Dropout, Conv1d
+    yield "cls_layer.0", "cls_fc.{}_0", 3
+    yield "cls_layer.2", "cls_out.{}_0", 3
+
+
+_BN_KEYS = ("weight", "bias", "running_mean", "running_var")  # bn.bn.* and bn_{i}.*
+
+
+def _numpy(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+
+
+def convert_torch_pointnet2(state_dict, spec: PointNet2Spec) -> dict[str, np.ndarray]:
+    """A reference model.pth state_dict (tensors or numpy arrays) -> the
+    port's state_dict (float32 numpy arrays). Raises ValueError where a
+    reference tensor is left over, KeyError where one is missing."""
+    sd = {k: _numpy(v) for k, v in state_dict.items() if not k.endswith("num_batches_tracked")}
+    out: dict[str, np.ndarray] = {}
+    for ref, port, _ in _ref_blocks(spec):
+        w = sd.pop(f"{ref}.conv.weight")
+        out[port.format("dense") + ".weight"] = np.array(w.reshape(w.shape[0], w.shape[1]), np.float32)
+        if f"{ref}.conv.bias" in sd:
+            out[port.format("dense") + ".bias"] = np.array(sd.pop(f"{ref}.conv.bias"), np.float32)
+        if f"{ref}.bn.bn.weight" in sd:
+            for key in _BN_KEYS:
+                out[f"{port.format('bn')}.{key}"] = np.array(sd.pop(f"{ref}.bn.bn.{key}"), np.float32)
+            out[f"{port.format('bn')}.num_batches_tracked"] = np.array(0, np.int64)
+    if sd:
+        raise ValueError(f"unconsumed reference tensors: {sorted(sd)[:8]} ...")
+    return out
+
+
+def load_torch_pointnet2(path, spec: PointNet2Spec) -> dict[str, np.ndarray]:
+    """convert_torch_pointnet2 of a reference model.pth file."""
+    import torch
+
+    return convert_torch_pointnet2(torch.load(path, map_location="cpu", weights_only=True), spec)
+
+
+def export_torch_pointnet2(state_dict, spec: PointNet2Spec) -> dict[str, np.ndarray]:
+    """The inverse of convert_torch_pointnet2: the port's state_dict
+    (tensors or numpy arrays) -> a reference-format state_dict (numpy
+    arrays, the reference's key names and shapes), which the reference's
+    model loads with load_state_dict(strict=True). The reference's head is
+    exactly Conv1d, Dropout, Conv1d, so a multi-layer cls_fc raises."""
+    if len(spec.cls_fc) != 1:
+        raise ValueError(f"reference export supports a single-layer cls_fc, got {spec.cls_fc}")
+    sd = {k: _numpy(v) for k, v in state_dict.items()}
+    out: dict[str, np.ndarray] = {}
+    for ref, port, rank in _ref_blocks(spec):
+        w = np.asarray(sd[port.format("dense") + ".weight"], np.float32)
+        out[f"{ref}.conv.weight"] = w.reshape(w.shape + (1,) * (rank - 2))
+        if port.format("dense") + ".bias" in sd:
+            out[f"{ref}.conv.bias"] = np.asarray(sd[port.format("dense") + ".bias"], np.float32)
+        if f"{port.format('bn')}.weight" in sd:
+            for key in _BN_KEYS:
+                out[f"{ref}.bn.bn.{key}"] = np.asarray(sd[f"{port.format('bn')}.{key}"], np.float32)
+            out[f"{ref}.bn.bn.num_batches_tracked"] = np.asarray(0, np.int64)
+    return out
+
+
+def save_torch_pointnet2(path, state_dict, spec: PointNet2Spec) -> None:
+    """Write export_torch_pointnet2's state_dict as a reference-loadable
+    model.pth."""
+    import torch
+
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in export_torch_pointnet2(state_dict, spec).items()}, path)
 
 
 def state_dict_from_jax(variables, spec: PointNet2Spec) -> dict[str, np.ndarray]:

@@ -22,6 +22,7 @@ from torch import nn
 
 from pointnet2_scannet_tpu_torch import ops
 from pointnet2_scannet_tpu_torch.models.layers import PointwiseMLP
+from pointnet2_scannet_tpu_torch.ops import tuning
 
 
 class SetAbstraction(nn.Module):
@@ -82,6 +83,7 @@ class SetAbstraction(nn.Module):
             outs = []
             for mlp, nidx in zip(self._mlps(), self._scale_indices(xyz, new_xyz)):
                 if self._pregather(features, mlp.widths):
+                    tuning.route_counts["pregather", self.npoint] += 1  # a scale of this level
                     h = mlp.pregather(
                         xyz if self.use_xyz else None, features, nidx,
                         new_xyz if self.use_xyz else None, row_mask,

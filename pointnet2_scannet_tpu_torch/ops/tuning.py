@@ -21,7 +21,10 @@ as follows (on the CPU every route runs the kernels' plain versions):
   JAX package) three_nn_kernel.
 
 route_counts tallies the routes taken (no launch involved), so a test can
-show on the CPU which kernels a run would have launched on the card.
+show on the CPU which kernels a run would have launched on the card; its
+("pregather", npoint) entries count the set-abstraction scales that ran
+layer 0 before the gather (models/modules.py), keyed by the level's
+centroid count (1024: SA1).
 """
 
 from __future__ import annotations

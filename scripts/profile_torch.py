@@ -1,8 +1,8 @@
 """Where the device time of the port goes, on one GPU (pointnet2_scannet_tpu_torch).
 
 For the SSG or MSG model at full width (32 columns x 8192 points x 9
-channels, seeded random weights, float32 or with --dtype bfloat16 the
-bfloat16 compute dtype), time the steady serving forward (eager, and the
+channels, or 134 with --mv131, seeded random weights, float32 or with
+--dtype bfloat16 the bfloat16 compute dtype), time the steady serving forward (eager, and the
 same forward exported with torch.export on the card and run from its
 program) and the steady train step with CUDA events, then trace a few of each with
 torch.profiler and print: the device time of the top ATen ops (their kernels
@@ -14,6 +14,11 @@ unprofiled call (busy time against the CUDA-event time).
   python scripts/profile_torch.py --model msg
   python scripts/profile_torch.py --model ssg
   python scripts/profile_torch.py --model ssg --dtype bfloat16
+  python scripts/profile_torch.py --model ssg --mv131   # 131 input channels
+
+--mv131 profiles the multiview recipe: xyz + normal + 128 label-correlated
+multiview channels (data/synthetic.attach_label_multiview) instead of xyz +
+colour + normal.
 
 Needs a CUDA device. The profiler slows the many small launches of an eager
 step, so its window is longer than the unprofiled step; both are printed.
@@ -52,21 +57,26 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def inputs(torch, kind: str, dtype=None):
+def inputs(torch, kind: str, dtype=None, mv131: bool = False):
     """A seeded model (compute dtype dtype; None: float32) and one
-    full-width train batch of synthetic chunks."""
+    full-width train batch of synthetic chunks (with mv131, of the
+    multiview recipe's 131 input channels)."""
     import dataclasses
 
     from pointnet2_scannet_tpu_torch.config import DataConfig
     from pointnet2_scannet_tpu_torch.data import make_synthetic_store
     from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
     from pointnet2_scannet_tpu_torch.data.pipeline import BatchLoader, to_device
+    from pointnet2_scannet_tpu_torch.data.synthetic import attach_label_multiview
     from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
 
-    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=0.5)
+    cfg = DataConfig(npoints=NPOINTS, use_color=not mv131, use_normal=True, use_multiview=mv131)
+    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, cfg.input_channels), dropout=0.5)
     model = PointNet2SemSeg(spec, dtype=dtype, generator=torch.Generator().manual_seed(0), device="cuda")
-    cfg = DataConfig(npoints=NPOINTS, use_color=True, use_normal=True)
-    ds = ChunkedSceneDataset(make_synthetic_store(BATCH, seed=0), cfg, phase="train", seed=0)
+    store = make_synthetic_store(BATCH, seed=0)
+    if mv131:
+        attach_label_multiview(store)
+    ds = ChunkedSceneDataset(store, cfg, phase="train", seed=0)
     ds.generate_chunks()
     return model, to_device(next(iter(BatchLoader(ds, BATCH, drop_last=True))), "cuda")
 
@@ -141,6 +151,8 @@ def main(argv=None) -> None:
     p.add_argument("--model", choices=("ssg", "msg"), default="msg")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="the compute dtype (bfloat16: float32 parameters, bfloat16 MLPs and grouping)")
+    p.add_argument("--mv131", action="store_true",
+                   help="the multiview recipe: xyz + normal + 128 multiview channels (131 input channels)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch.py measures the card: no CUDA device here")
@@ -149,16 +161,17 @@ def main(argv=None) -> None:
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.engine.export import export_forward
 
+    model, batch = inputs(torch, args.model, torch.bfloat16 if args.dtype == "bfloat16" else None, args.mv131)
+    channels = batch["points"].shape[-1]
     print(f"device: {torch.cuda.get_device_name(0)}; model {args.model.upper()}, "
-          f"{BATCH} x {NPOINTS}, compute dtype {args.dtype}", flush=True)
-    model, batch = inputs(torch, args.model, torch.bfloat16 if args.dtype == "bfloat16" else None)
+          f"{BATCH} x {NPOINTS} x {channels}, compute dtype {args.dtype}", flush=True)
 
     def forward():
         with torch.inference_mode():
             return model(batch["points"]).argmax(-1)
 
     model.eval()
-    program = export_forward(model, batch_size=BATCH, npoints=NPOINTS, channels=9, emit="logits",
+    program = export_forward(model, batch_size=BATCH, npoints=NPOINTS, channels=channels, emit="logits",
                              platforms=["cuda"]).program.module()
 
     def exported_forward():

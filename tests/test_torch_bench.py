@@ -3,6 +3,8 @@
 - bench_torch.fwd_matmul_flops, the port's copy of bench.py's, gives
   bench.py's number exactly on the JAX package's SSG and MSG specs (and on
   the port's, which are the same architecture), at B 32 x 8192 and small.
+- bench_torch.scale_rows() names bench.py's --scale rows, in its order and
+  at its models and shapes (bench.py's timer stubbed).
 - bench_torch.run("cpu") (the plain versions at B 2 x 1024) returns every
   field of its JSON row, rates positive, the eval cell's and the Solver
   cells' too (host path and device store, 3 epochs each), bench.py's bf16
@@ -61,6 +63,26 @@ def test_fwd_matmul_flops_equals_bench_py(kind, b, n):
     want = bench.fwd_matmul_flops(jax_spec, b, n)
     assert bench_torch.fwd_matmul_flops(jax_spec, b, n) == want
     assert bench_torch.fwd_matmul_flops(port_spec, b, n) == want > 0
+
+
+def test_scale_rows_are_bench_py_rows(monkeypatch, capsys):
+    """bench_torch.scale_rows() lists bench.py's --scale rows in its order,
+    each with the model kind, batch, points, input channels and dtype that
+    bench.py times (its timer stubbed: no step runs)."""
+    import jax.numpy as jnp
+
+    seen = []
+
+    def fake_time_train(model, steps=bench.STEPS, batch_size=bench.BATCH, npoints=None, **kwargs):
+        kind = "msg" if len(model.spec.radii[0]) == 2 else "ssg"
+        seen.append((kind, batch_size, npoints or bench.NPOINTS, model.spec.input_channels,
+                     "bf16" if model.dtype == jnp.bfloat16 else "f32"))
+        return [1.0]
+
+    monkeypatch.setattr(bench, "time_train", fake_time_train)
+    bench._scale_rows(jax_models, jnp, lambda draws: draws[len(draws) // 2])
+    metrics = [json.loads(line)["metric"] for line in capsys.readouterr().out.splitlines()]
+    assert [(m, *row) for m, row in zip(metrics, seen)] == [tuple(r) for r in bench_torch.scale_rows()]
 
 
 def test_bench_torch_runs_on_the_cpu_without_jax():

@@ -1392,3 +1392,38 @@ def test_cpu_traced_artifact_serves_on_the_card(dev, tmp_path):
     np.testing.assert_array_equal(export.ServingPredictor(loaded, devices=["cpu"]).predict(x), got)
     assert counts["three_nn"] == 2 * 2 and counts["three_nn_q"] == 0  # 2 batches x 2 FP levels
     assert counts["furthest_point_sample"] == 2 * 2 and counts["gather"] > 0 and counts[sc.NAME] == 0
+
+
+# ENet (models/enet.py) in float32, TF32 off: cuDNN's convolutions against
+# the CPU's at the JAX package's reference-parity tolerance
+ENET_RTOL, ENET_ATOL = 1e-3, 1e-4
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 48, 3), (2, 256, 328, 3)])
+def test_enet_on_the_card_matches_the_cpu(dev, shape):
+    from pointnet2_scannet_tpu_torch.models.enet import ENetSemSeg
+
+    torch.manual_seed(0)
+    model = ENetSemSeg(41).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=shape).astype(np.float32))
+    with torch.inference_mode():
+        want = model(x)
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert got.shape == (shape[0], shape[1] // 8, shape[2] // 8, 41)
+    torch.testing.assert_close(got, want, rtol=ENET_RTOL, atol=ENET_ATOL)
+
+
+def test_correspondence_and_fusion_on_the_card_equal_the_cpu(dev):
+    """One elementwise op a step on either device: equal bit for bit."""
+    from pointnet2_scannet_tpu_torch.data import multiview as mv
+    from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_scene, make_synthetic_views
+
+    scene = make_synthetic_scene(3, n_points=20_000)
+    poses, depths = make_synthetic_views(scene, 8, mv.CameraConfig(), seed=3)
+    points = torch.from_numpy(np.ascontiguousarray(scene[:, :3]))
+    want_v, want_p = mv.compute_correspondence_batch(points, depths, poses)
+    got_v, got_p = mv.compute_correspondence_batch(points.to(dev), depths, poses)
+    _equal(got_v.cpu(), want_v)
+    _equal(got_p.cpu(), want_p)
+    feats = torch.from_numpy(np.random.default_rng(4).normal(size=(8, 32, 41, 16)).astype(np.float32))
+    _equal(mv.fuse_scene_features(feats.to(dev), got_v, got_p).cpu(), mv.fuse_scene_features(feats, want_v, want_p))

@@ -128,6 +128,7 @@ def test_port_imports_without_jax():
         "for m in mods: importlib.import_module(m)\n"
         "import runpy\n"
         "for s in ('scripts/infer_torch.py', 'scripts/train_torch.py', 'scripts/eval_torch.py',\n"
+        "          'scripts/multiview_torch.py', 'scripts/bench_enet_torch.py', 'scripts/export_reference_torch.py',\n"
         "          'scripts/visualize_torch.py', 'chip_smoke.py', 'bench_torch.py'):\n"
         "    runpy.run_path(s, run_name='probe')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pointnet2_scannet_tpu')]\n"
