@@ -186,10 +186,11 @@ def timed_windows(fn, device, steps: int, repeats: int, warm: int) -> list[float
     return sorted(s.elapsed_time(e) / steps for s, e in events)
 
 
-def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0, dtype=None, input_channels: int = 6):
+def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0, dtype=None, input_channels: int = 6,
+                bn_group=None):
     """A train state over a seeded SSG or MSG model at full width (xyz +
     input_channels feature channels, 20 classes), of compute dtype dtype
-    (None: float32)."""
+    (None: float32); bn_group: a data-parallel run's process group."""
     import dataclasses
 
     import torch
@@ -198,7 +199,8 @@ def fresh_state(kind: str, device, dropout: float = 0.5, seed: int = 0, dtype=No
     from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, msg_spec, ssg_spec
 
     spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, input_channels), dropout=dropout)
-    model = PointNet2SemSeg(spec, dtype=dtype, generator=torch.Generator().manual_seed(seed), device=device)
+    model = PointNet2SemSeg(spec, dtype=dtype, bn_group=bn_group, generator=torch.Generator().manual_seed(seed),
+                            device=device)
     return ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=seed)
 
 

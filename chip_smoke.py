@@ -210,7 +210,31 @@
     card vs CPU under phase 11's gates, determinism and its steady time;
     SA1's pregather against the unfused composition (SA1's forward, the
     serving forward, the train step).
-27. Print one JSON line of kernel results (time, plain time, the card's bound
+27. Data parallelism (parallel/, one rank a device). (a) One NCCL rank:
+    the data-parallel SSG train step at 32 x 8192 x 9 (Dropout 0.5) equal
+    bit for bit to the plain single-process step (loss, gradients, BatchNorm
+    statistics, parameters), launching the kernels of the path. (b) Two
+    gloo ranks sharing cuda:0, 16 columns each: two SSG train steps
+    (Dropout off) against the single-process step at batch 32 on the card
+    (the second from the ranks' state after the first), each step's loss and BatchNorm statistics within phase 11's bounds and
+    its gradients (before the optimizer) within twice phase 11's bound of
+    the single-process step's (2 x TRAIN_GRAD_VS_CPU times the CPU's float32
+    gradients' distance from its float64 step: both within phase 11's bound
+    of the float64 gradient), over all parameters and at the median tensor
+    (as phase 23 holds bfloat16 gradients); the gradient doubled
+    must fail that bound (the JAX shard_map step's scale); then one
+    whole-scene accumulated update (20 columns in micro-batches of 16, rank
+    1's rows of the padded one all padding) under the same gates. Each step's
+    time on both ranks, and the share of it spent in the all-reduces (the
+    step timed again with every all-reduce a no-op). (c) On the same two
+    ranks, phase 10's SSG run through train_torch.train (32 scenes, batch
+    32, 2 epochs): finite losses, rank 0 alone writes a run dir, and every
+    kernel of the path launched on both ranks. (d) eval_torch.py's and
+    visualize_torch.py's entry points on the same ranks over 4 synthetic
+    scenes: the merged report equal to the single-process report on the
+    card, and one PLY a scene. NCCL across two or more cards is not run
+    here (one card).
+28. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -218,7 +242,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25 and 26 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26 and 27 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -227,6 +251,7 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib.util
 import json
 import pathlib
@@ -329,6 +354,20 @@ ENET_BATCH, ENET_RTOL, ENET_ATOL = 8, 1e-3, 1e-4
 MV_POINTS, MV_FRAMES = 100_000, 16
 MV_FLIP_SHARE, MV_FLIP_MARGIN = 1e-5, 1e-4
 MV_SCENES, MV_VAL_SCENES = 32, 2
+# phase 27, data parallelism: the ranks sharing the card, the global
+# batch, the Solver run's scenes and epochs, the eval scenes, and the
+# steady-step timing (warm steps, timed steps a rank)
+DP_RANKS, DP_BATCH = 2, 32
+DP_SCENES, DP_EPOCHS, DP_EVAL_SCENES = 32, 2, 4
+# (b)'s whole-scene update: the scene's first columns and the micro-batch
+# (the padded one's rows on rank 1 all padding)
+DP_WS_COLUMNS, DP_WS_BATCH = 20, 16
+# (b)'s gradient bound, in units of phase 11's float32 noise: were the
+# two-rank and the single-process float32 gradients each within phase 11's
+# bound of the float64 gradient (TRAIN_GRAD_VS_CPU times the noise), they
+# would lie within twice that of each other
+DP_GRAD_BOUND = 2 * TRAIN_GRAD_VS_CPU
+DP_WARM, DP_TIMED = 2, 5
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
@@ -1411,6 +1450,12 @@ def grad_errors(got: dict, want: dict) -> list:
                   reverse=True)
 
 
+def all_l2(got: dict, want: dict) -> float:
+    """Relative L2 error of gradients over all parameters together."""
+    return float(sum(((got[k].double() - w) ** 2).sum() for k, w in want.items()).sqrt()
+                 / sum((w.double() ** 2).sum() for w in want.values()).sqrt())
+
+
 # the CPU steps (float64, float32) of train_step_card_vs_cpu by model kind
 # and column size, shared by phases 11 and 12: on the CPU the MXU route's
 # plain versions compute the default route's functions
@@ -2014,10 +2059,6 @@ def train_step_card_vs_cpu_bf16(torch, kind: str, config: str = "default") -> No
         F64_GRADS[kind] = step("cpu", torch.float64)[1]
     ref, (cpu_loss, cpu_g) = F64_GRADS[kind], step("cpu", torch.bfloat16)
 
-    def all_l2(g, want):
-        return float(sum(((g[k] - w) ** 2).sum() for k, w in want.items()).sqrt()
-                     / sum((w ** 2).sum() for w in want.values()).sqrt())
-
     def median(g, want):
         errs = grad_errors(g, want)
         return errs[len(errs) // 2][0]
@@ -2411,6 +2452,311 @@ def multiview(torch) -> dict:
     return runs
 
 
+def dp_step_out(torch, state, out: dict) -> dict:
+    """What phase 27 compares of a train step: the loss, the gradients the
+    optimizer applied, the BatchNorm statistics, the parameters."""
+    m = state.model
+    return {"loss": float(out["loss"]),
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in m.named_parameters()},
+            "stats": {k: b.cpu().clone() for k, b in m.named_buffers() if b.is_floating_point()},
+            "params": {k: p.detach().cpu().clone() for k, p in m.named_parameters()}}
+
+
+def dp_accumulated_update(torch, state, micro_batches, ctx) -> dict:
+    """One whole-scene update of state over a scene's micro-batches, each
+    rank feeding its rows of each as WholeSceneSolver does; the gradients
+    are read where the optimizer takes them."""
+    from pointnet2_scannet_tpu_torch.data.pipeline import to_device
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    seen, step = {}, state.optimizer.step
+
+    def spy(*args, **kwargs):
+        seen.update({k: p.grad.detach().cpu().clone() for k, p in state.model.named_parameters()})
+        return step(*args, **kwargs)
+
+    state.optimizer.step = spy
+    loss_sum = count = 0
+    for mb in micro_batches:
+        out = ts.grad_accum_step(state, to_device(ctx.place_from_global(mb), "cuda"), num_classes=20)
+        loss_sum, count = loss_sum + out["loss_sum"], count + out["count"]
+    totals = ts.sum_over_ranks({"loss_sum": loss_sum, "count": count}, ctx.group)
+    ts.apply_accumulated(state, totals["count"], ctx.group)
+    state.optimizer.step = step
+    return {"loss": float(totals["loss_sum"]), "count": float(totals["count"]), "grads": seen,
+            "stats": {k: b.cpu().clone() for k, b in state.model.named_buffers() if b.is_floating_point()}}
+
+
+def dp_micro_batches() -> list:
+    """Phase 27's scene: the first DP_WS_COLUMNS columns of synthetic scene 0
+    at full width, in micro-batches of DP_WS_BATCH, the last padded."""
+    from pointnet2_scannet_tpu_torch.engine.solver import _SceneBatchIterator
+
+    scene = bench_torch.wholescene_dataset(1, NPOINTS).get_scene(0)
+    return list(_SceneBatchIterator(None, DP_WS_BATCH).micro_batches(*(a[:DP_WS_COLUMNS] for a in scene)))
+
+
+def f32_noise(torch) -> tuple[float, float]:
+    """Phase 11's float32 noise at SSG's 2 x NPOINTS: the CPU's float32
+    step's gradients' distance from its float64 step (relative L2 over all
+    parameters, and the median tensor's), from phase 11's cached CPU steps
+    (taken here where phase 11 has not run)."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    out = CPU_STEPS.setdefault(("ssg", NPOINTS, 6), {})
+    for dtype in (torch.float64, torch.float32):
+        if ("cpu", dtype) not in out:
+            state = bench_torch.fresh_state("ssg", "cpu", 0.0)
+            state.model.to(dtype)
+            batch = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in train_batch(torch, 2, "cpu", NPOINTS).items()}
+            ts.train_step(state, batch, num_classes=20)
+            out[("cpu", dtype)] = (None, {k: p.grad for k, p in state.model.named_parameters()}, None)
+    got, want = out[("cpu", torch.float32)][1], out[("cpu", torch.float64)][1]
+    errs = grad_errors(got, want)
+    return all_l2(got, want), errs[len(errs) // 2][0]
+
+
+def dp_gates(torch, got: dict, want: dict, noise: tuple[float, float], what: str) -> None:
+    """Phase 27 (b)'s gates on one update against the single-process one:
+    loss and BatchNorm statistics within phase 11's bounds; gradients within
+    DP_GRAD_BOUND times phase 11's float32 noise of the single process's
+    (relative L2 over all parameters, and the median tensor's, as phase 23
+    holds bfloat16 gradients); the doubled gradient refused by that bound."""
+    doubled = {k: 2 * g for k, g in got["grads"].items()}
+    errs = grad_errors(got["grads"], want["grads"])
+    med = len(errs) // 2
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    bn_err = max(float((got["stats"][k] - b).abs().max()) for k, b in want["stats"].items())
+
+    def distances(g):
+        return all_l2(g, want["grads"]), grad_errors(g, want["grads"])[med][0]
+
+    def passes(g):
+        return all(d <= DP_GRAD_BOUND * n for d, n in zip(distances(g), noise))
+
+    print(f"{what}: loss rel {loss_err:.2e}; BatchNorm stats max abs err {bn_err:.2e}; gradients vs the "
+          f"single-process step's, relative L2 over all parameters / median tensor / worst tensor: two ranks "
+          f"{distances(got['grads'])[0]:.2e} / {errs[med][0]:.2e} / {errs[0][0]:.2e} ({errs[0][1]}), doubled "
+          f"{distances(doubled)[0]:.2e} / {distances(doubled)[1]:.2e}; bound {DP_GRAD_BOUND} x phase 11's float32 "
+          f"noise {noise[0]:.2e} / {noise[1]:.2e}", flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"{what}: the two ranks' loss disagrees with the single process's")
+    for k, b in want["stats"].items():
+        torch.testing.assert_close(got["stats"][k], b, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
+    if not passes(got["grads"]):
+        raise RuntimeError(f"{what}: the two ranks' gradients are further from the single-process step's "
+                           "than float32 noise allows")
+    if passes(doubled):
+        raise RuntimeError(f"{what}: the doubled gradient passed the gradient bound")
+
+
+def dp_timed(torch, fn) -> list:
+    """Sorted host ms of DP_TIMED synchronised calls of fn after DP_WARM."""
+    out = []
+    for i in range(DP_WARM + DP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= DP_WARM:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def dp_rank(rank: int, port: int, tmp: str) -> None:
+    """Phase 27 (b)-(d) on one of DP_RANKS gloo ranks sharing cuda:0; writes
+    what it got to <tmp>/rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.parallel.distributed import initialize_distributed, shutdown
+
+    tmp = pathlib.Path(tmp)
+    ctx = initialize_distributed(f"127.0.0.1:{port}", DP_RANKS, rank, device="cuda", backend="gloo")
+    group, out = ctx.group, {}
+    # (b) two train steps on this rank's rows, the steady step, one scene's update
+    batch = train_batch(torch, DP_BATCH, "cuda")
+    local = {k: v[rank * DP_BATCH // DP_RANKS : (rank + 1) * DP_BATCH // DP_RANKS] for k, v in batch.items()}
+    state = bench_torch.fresh_state("ssg", "cuda", 0.0, bn_group=group)
+    out["steps"] = [dp_step_out(torch, state, ts.train_step(state, local, num_classes=20, group=group))]
+    out["after_step1"] = copy.deepcopy({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict()})
+    out["steps"].append(dp_step_out(torch, state, ts.train_step(state, local, num_classes=20, group=group)))
+    out["step_ms"] = dp_timed(torch, lambda: ts.train_step(state, local, num_classes=20, group=group))
+    all_reduce = dist.all_reduce
+    dist.all_reduce = lambda *args, **kwargs: None  # timing only: every all-reduce a no-op
+    try:
+        out["step_ms_no_all_reduce"] = dp_timed(torch, lambda: ts.train_step(state, local, num_classes=20,
+                                                                               group=group))
+    finally:
+        dist.all_reduce = all_reduce
+    ctx.barrier("steps timed")
+    state = bench_torch.fresh_state("ssg", "cuda", 0.0, bn_group=group)
+    out["wholescene"] = dp_accumulated_update(torch, state, dp_micro_batches(), ctx)
+    del state, batch, local
+    # (c) the Solver through train_torch, each rank with an output root of its own
+    train_torch = load_script("train_torch")
+    args = train_torch.parse_args([
+        "--synthetic", "--synthetic_scenes", str(DP_SCENES), "--batch_size", str(DP_BATCH), "--epoch",
+        str(DP_EPOCHS), "--npoints", str(NPOINTS), "--use_color", "--use_normal", "--verbose", "1",
+        "--device", "cuda", "--tag", "chip_smoke_dp", "--output_root", str(tmp / f"train{rank}")])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_dir, _ = train_torch.train(args, ctx)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = kernels.launch_counts()
+    check_launches(out["launches"], "ssg", True, f"two-rank Solver run, rank {rank}")
+    out["run_dir"] = str(run_dir)
+    # (d) eval_torch's and visualize_torch's entry points on both ranks
+    eval_torch, visualize_torch = load_script("eval_torch"), load_script("visualize_torch")
+    argv = ["--folder", str(tmp / "eval_run"), "--device", "cuda", "--synthetic", "--synthetic_scenes",
+            str(DP_EVAL_SCENES), "--batch_size", str(BATCH)]
+    kernels.reset_launch_counts()
+    report = eval_torch.evaluate_rank(eval_torch.parse_args(argv), ctx)
+    out["report"] = None if report is None else report.format_table()
+    out["eval_scenes"] = None if report is None else [r.scene_id for r in report.scenes]
+    out["written"] = [str(w[0]) for w in visualize_torch.visualize_rank(visualize_torch.parse_args(argv), ctx)]
+    out["eval_launches"] = kernels.launch_counts()
+    check_launches(out["eval_launches"], "ssg", False, f"two-rank eval and visualize, rank {rank}")
+    torch.save(out, tmp / f"rank{rank}.pt")
+    shutdown(ctx)
+
+
+def data_parallel(torch, tmp: pathlib.Path) -> dict:
+    """Phase 27; returns the launches of its main-path runs (the NCCL rank's
+    step, both ranks' Solver runs and evaluations)."""
+    import math
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.parallel import ProcessContext, initialize_distributed
+    from pointnet2_scannet_tpu_torch.parallel.distributed import free_port, shutdown, spawn
+
+    card = bench_torch.card_line()
+    # (a) one NCCL rank (env://, as torchrun starts one) against the plain step
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1", "RANK": "0"}
+    os.environ.update(env)
+    try:
+        ctx = initialize_distributed(None, auto=True, device="cuda")
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    if dist.get_backend(ctx.group) != "nccl":
+        raise RuntimeError(f"the one-rank group runs {dist.get_backend(ctx.group)}, not NCCL")
+    batch = train_batch(torch, DP_BATCH, "cuda")
+    plain = bench_torch.fresh_state("ssg", "cuda", 0.5)
+    dp = bench_torch.fresh_state("ssg", "cuda", 0.5, bn_group=ctx.group)
+    want = dp_step_out(torch, plain, ts.train_step(plain, batch, num_classes=20))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = dp_step_out(torch, dp, ts.train_step(dp, batch, num_classes=20, group=ctx.group))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launches(launches, "ssg", True, "one-rank NCCL data-parallel step")
+    differ = [f"{part}.{k}" for part in ("grads", "stats", "params") for k, v in want[part].items()
+              if not torch.equal(got[part][k], v)]
+    if got["loss"] != want["loss"] or differ:
+        raise RuntimeError(f"the one-rank NCCL step differs from the plain step: loss {got['loss']} against "
+                           f"{want['loss']}, tensors {differ[:5]}")
+    times = {"nccl": [], "plain": []}
+    for name, state, group in (("plain", plain, None), ("nccl", dp, ctx.group), ("nccl", dp, ctx.group),
+                               ("plain", plain, None)):
+        times[name] += dp_timed(torch, lambda: ts.train_step(state, batch, num_classes=20, group=group))
+    print(f"data parallel (a), one NCCL rank, SSG {DP_BATCH} x {NPOINTS} x 9 (Dropout 0.5): the loss, "
+          f"{len(want['grads'])} gradients, {len(want['stats'])} BatchNorm statistics and the parameters equal "
+          f"bit for bit to the plain step's; launches {launches}; step ms median (min, max) of "
+          f"{2 * DP_TIMED} in turns: NCCL {np.median(times['nccl']):.2f} ({min(times['nccl']):.2f}, "
+          f"{max(times['nccl']):.2f}), plain {np.median(times['plain']):.2f} ({min(times['plain']):.2f}, "
+          f"{max(times['plain']):.2f}); {card}", flush=True)
+    shutdown(ctx)
+    del plain, dp, state
+
+    # (b)'s single-process references on the card, and phase 11's float32 noise
+    state = bench_torch.fresh_state("ssg", "cuda", 0.0)
+    refs = [dp_step_out(torch, state, ts.train_step(state, batch, num_classes=20))]
+    mbs = dp_micro_batches()
+    ws = dp_accumulated_update(torch, bench_torch.fresh_state("ssg", "cuda", 0.0), mbs,
+                               ProcessContext.single("cuda"))
+    noise = f32_noise(torch)
+    del batch, state
+    make_run(torch, tmp / "eval_run", "ssg")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spawn(dp_rank, DP_RANKS, (free_port(), str(tmp)), timeout=600)
+    spawned_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False, map_location="cpu") for r in range(DP_RANKS)]
+    # the second step starts, on one process as on the ranks, from the ranks'
+    # state after the first (Adam's first update is lr * sign(g): float32
+    # noise flips it where g is near 0, so two separate runs part there)
+    state = bench_torch.fresh_state("ssg", "cuda", 0.0)
+    state.model.load_state_dict(ranks[0]["after_step1"]["model"])
+    state.optimizer.load_state_dict(ranks[0]["after_step1"]["optimizer"])
+    state.step = 1
+    refs.append(dp_step_out(torch, state, ts.train_step(state, train_batch(torch, DP_BATCH, "cuda"),
+                                                        num_classes=20)))
+    del state
+
+    # (b)
+    masks = [int(mb["row_mask"].sum()) for mb in mbs]
+    for r, out in enumerate(ranks):
+        for i in range(2):
+            dp_gates(torch, out["steps"][i], refs[i], noise,
+                     f"data parallel (b), rank {r} of {DP_RANKS} gloo ranks on cuda:0, train step {i + 1}")
+        dp_gates(torch, out["wholescene"], ws, noise,
+                 f"data parallel (b), rank {r}, one whole-scene update ({len(mbs)} micro-batches of "
+                 f"{DP_WS_BATCH}, {masks} real rows)")
+        if out["wholescene"]["count"] != ws["count"]:
+            raise RuntimeError("data parallel (b): the ranks counted other points than the single process")
+        ms, bare = np.median(out["step_ms"]), np.median(out["step_ms_no_all_reduce"])
+        print(f"data parallel (b), rank {r}: step of {DP_BATCH // DP_RANKS} x {NPOINTS} a rank, ms median (min, "
+              f"max) of {DP_TIMED}: {ms:.2f} ({out['step_ms'][0]:.2f}, {out['step_ms'][-1]:.2f}); every "
+              f"all-reduce a no-op: {bare:.2f}; the all-reduces' share {(ms - bare) / ms:.3f}; {card}", flush=True)
+    for k, v in ranks[0]["steps"][1]["params"].items():
+        if not torch.equal(v, ranks[1]["steps"][1]["params"][k]):
+            raise RuntimeError(f"data parallel (b): the ranks' parameters differ after two steps ({k})")
+    # (c)
+    run_dir = pathlib.Path(ranks[0]["run_dir"])
+    if run_dir.parent != tmp / "train0" or (tmp / "train1").exists():
+        raise RuntimeError(f"data parallel (c): rank 0 ran in {run_dir}, or rank 1 wrote a run dir")
+    scalars = json.loads((run_dir / "tensorboard" / "all_scalars.json").read_text())
+    losses = [v for _, v in scalars["train/loss"]] + [v for _, v in scalars["val/loss"]]
+    if len(scalars["train/loss"]) != DP_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"data parallel (c): losses {losses}, not {DP_EPOCHS} epochs of finite values")
+    print(f"data parallel (c): train_torch.train on {DP_RANKS} ranks, {DP_SCENES} scenes, batch {DP_BATCH}, "
+          f"{DP_EPOCHS} epochs in {[round(out['train_s'], 2) for out in ranks]} s; losses {losses}; launches "
+          f"{[out['launches'] for out in ranks]}; rank 0 alone wrote a run dir", flush=True)
+    # (d)
+    eval_torch = load_script("eval_torch")
+    single = eval_torch.evaluate(eval_torch.parse_args([
+        "--folder", str(tmp / "eval_run"), "--device", "cuda", "--synthetic", "--synthetic_scenes",
+        str(DP_EVAL_SCENES), "--batch_size", str(BATCH)]))
+    if ranks[0]["report"] != single.format_table() or ranks[1]["report"] is not None:
+        raise RuntimeError("data parallel (d): the merged report differs from the single-process report")
+    if ranks[0]["eval_scenes"] != [r.scene_id for r in single.scenes]:
+        raise RuntimeError(f"data parallel (d): merged scenes {ranks[0]['eval_scenes']}")
+    plys = sorted(map(str, (tmp / "eval_run" / "preds").glob("*.ply")))
+    if len(plys) != DP_EVAL_SCENES or plys != sorted(w for out in ranks for w in out["written"]):
+        raise RuntimeError(f"data parallel (d): PLY files {plys}")
+    print(f"data parallel (d): {DP_EVAL_SCENES} scenes on {DP_RANKS} ranks ({[len(o['written']) for o in ranks]} "
+          f"each): the merged report equals the single-process report; {len(plys)} PLY files; eval launches "
+          f"{[out['eval_launches'] for out in ranks]}; the spawned ranks took {spawned_s:.1f} s", flush=True)
+    total = dict(launches)
+    for out in ranks:
+        for part in ("launches", "eval_launches"):
+            for k, n in out[part].items():
+                total[k] += n
+    return {"launches": total}
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2567,6 +2913,9 @@ def main() -> int:
     lap(start, "phase 25")
     tally(multiview(torch))  # phase 26
     lap(start, "phase 26")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 27
+        tally(data_parallel(torch, pathlib.Path(tmp)))
+    lap(start, "phase 27")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -44,32 +44,38 @@ def save_checkpoint(
     *,
     epoch: int,
     best: dict[str, Any] | None = None,
+    generators: list[torch.Tensor] | None = None,
 ) -> pathlib.Path:
     """Write a TrainState (engine/train_state.py) as `<name>.pt`,
-    `<name>.train.pt` and `<name>.meta.json`."""
+    `<name>.train.pt` and `<name>.meta.json`. generators: every rank's
+    Dropout generator state in a data-parallel run, in rank order."""
     directory = pathlib.Path(directory)
     path = save_state_dict(directory, name, state.model.state_dict())
-    torch.save(
-        {
-            "optimizer": state.optimizer.state_dict(),
-            "step": state.step,
-            "generator": state.generator.get_state(),
-        },
-        directory / f"{name}.train.pt",
-    )
+    train = {
+        "optimizer": state.optimizer.state_dict(),
+        "step": state.step,
+        "generator": state.generator.get_state(),
+    }
+    if generators is not None:
+        train["generators"] = generators
+    torch.save(train, directory / f"{name}.train.pt")
     meta = {"epoch": epoch, "best": best or {}}
     (directory / f"{name}.meta.json").write_text(json.dumps(meta, indent=2))
     return path
 
 
-def restore_checkpoint(directory: str | pathlib.Path, name: str, state) -> dict[str, Any]:
+def restore_checkpoint(directory: str | pathlib.Path, name: str, state, rank: int = 0) -> dict[str, Any]:
     """Load a checkpoint into an existing TrainState in place; returns the
-    meta dict ("epoch", "best")."""
+    meta dict ("epoch", "best"). rank: the rank whose Dropout generator
+    state to restore; a rank the checkpoint holds none for (a run resumed
+    on more ranks) keeps its generator as seeded."""
     directory = pathlib.Path(directory)
     state.model.load_state_dict(load_state_dict(directory, name), strict=True)
     train = torch.load(directory / f"{name}.train.pt", map_location="cpu", weights_only=True)
     state.optimizer.load_state_dict(train["optimizer"])
     state.step = int(train["step"])
-    state.generator.set_state(train["generator"])
+    generators = train.get("generators") or [train["generator"]]
+    if rank < len(generators):
+        state.generator.set_state(generators[rank])
     meta_path = directory / f"{name}.meta.json"
     return json.loads(meta_path.read_text()) if meta_path.exists() else {}

@@ -21,8 +21,13 @@ scene_fn on each finished scene. On the card the uploads run on a side
 stream from pinned memory, and predictions come home through pinned buffers
 and CUDA events; on the CPU every copy is synchronous.
 
-The JAX evaluator's data-parallel mesh is not ported (ROADMAP queue 1,
-item 12).
+Data parallelism is across processes (scripts/eval_torch.py --num_devices,
+--dist_*): each rank evaluates its own strided shard of the scenes
+(unequal shards: every scene is covered) on its own card, and
+merge_scene_results gathers the per-scene results, float64, in the
+dataset's order. The JAX evaluator also splits each batch's rows over a
+mesh of one process's devices (evaluator.py:184, :289); a rank of the port
+drives one device, so that split has no counterpart here.
 """
 
 from __future__ import annotations
@@ -93,6 +98,19 @@ def unpack_scene_results(rows: np.ndarray, scene_ids: list[str] | None = None,
             miou_mask=v[5],
         ))
     return out
+
+
+def merge_scene_results(ctx, results: list[SceneResult], num_classes: int = NUM_CLASSES) -> list[SceneResult]:
+    """Every rank's per-scene results, on every rank, in the order of the
+    dataset that the ranks shard with strided_shard(..., equalize=False):
+    rank p's i-th scene is scene p + i * ranks. ctx: a
+    parallel.ProcessContext; every rank calls this (the JAX CLI's
+    allgather_ragged of pack_scene_results)."""
+    index = ctx.process_id + ctx.num_processes * np.arange(len(results), dtype=np.float64)
+    rows = ctx.allgather_ragged(np.concatenate([index[:, None], pack_scene_results(results, num_classes)], 1))
+    ids = [sid for part in ctx.allgather_object([r.scene_id for r in results]) for sid in part]
+    order = np.argsort(rows[:, 0], kind="stable")
+    return unpack_scene_results(rows[order, 1:], [ids[i] for i in order], num_classes)
 
 
 @dataclasses.dataclass

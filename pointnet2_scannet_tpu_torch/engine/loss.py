@@ -9,6 +9,7 @@ so a padded trailing batch gives the loss of the ragged batch it stands for.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def softmax_ce_integer(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -40,3 +41,30 @@ def weighted_cross_entropy(
     m = row_mask[:, None]
     denom = torch.clamp(row_mask.sum(), min=1.0) * ce.shape[-1]
     return (ce * weights * m).sum() / denom
+
+
+def weighted_cross_entropy_sharded(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    weights: torch.Tensor,
+    row_mask: torch.Tensor | None,
+    group,
+) -> torch.Tensor:
+    """This rank's share of weighted_cross_entropy over the global batch of
+    a data-parallel run (the JAX package's weighted_cross_entropy_sharded,
+    loss.py:64-81): the local weighted sum over the global count, the rows
+    (or points) counted across the ranks of group. The shares sum over the
+    ranks to the global loss, so each rank's backward of its share, summed
+    over the ranks, is the global gradient.
+
+    Without a row_mask, the local mean times n_local / n_global, the same
+    quotient, which one rank computes as weighted_cross_entropy does."""
+    ce = softmax_ce_integer(logits, labels)
+    if row_mask is None:
+        n = torch.tensor(float(ce.numel()), dtype=ce.dtype, device=ce.device)
+        total = n.clone()
+        dist.all_reduce(total, group=group)
+        return (ce * weights).mean() * (n / total)
+    rows = row_mask.sum().detach().clone()
+    dist.all_reduce(rows, group=group)
+    return (ce * weights * row_mask[:, None]).sum() / (torch.clamp(rows, min=1.0) * ce.shape[-1])

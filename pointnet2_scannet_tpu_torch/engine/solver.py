@@ -27,10 +27,21 @@ resident_train_step gathers its batch there. Where the store cannot serve
 the budget of _device_store_budget) it prints a WARNING and trains on the
 host path, with the same math.
 
-The JAX package's meshes (dp, dp x tp), multi-process runs and row-sharded
-store are not ported (ROADMAP queue 1, item 12). The train step runs once
-per batch: --fused_steps K is recorded in the config and gives the same
-math per step as K steps fused (CUDA graphs are item 12).
+With a process_ctx of several ranks (parallel/distributed.py) the Solver
+trains data-parallel, one rank a device (the JAX package's multi-process
+Solver, solver.py:104-150): the datasets are this rank's scene shard and
+the loaders assemble its batch_size / ranks rows of each global batch; the
+steps of parallel/step.py sum the BatchNorm statistics, the gradients, the
+loss and the confusion over the ranks; validation sums its voxel metrics
+over the ranks; only the coordinator writes the run dir (config.json,
+checkpoints, logs, best.txt) and prints; a resume restores every rank from
+the coordinator's run dir. The whole-scene Solver does not shard scenes:
+every rank walks the same scenes and takes its rows of each micro-batch.
+The JAX package's dp x tp mesh, row-sharded resident store and fused steps
+(CUDA graphs) are not ported (ROADMAP queue 1, item 12): the device store
+trains single-process only, and the train step runs once per batch
+(--fused_steps K is recorded in the config and gives the same math per
+step as K steps fused).
 """
 
 from __future__ import annotations
@@ -51,6 +62,12 @@ from pointnet2_scannet_tpu_torch.engine import metrics as M
 from pointnet2_scannet_tpu_torch.engine import train_state as ts
 from pointnet2_scannet_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
 from pointnet2_scannet_tpu_torch.engine.logging import ScalarLogger
+from pointnet2_scannet_tpu_torch.parallel.distributed import ProcessContext, dropout_seed
+from pointnet2_scannet_tpu_torch.parallel.step import (
+    make_shardmap_accum_step,
+    make_shardmap_eval_step,
+    make_shardmap_train_step,
+)
 from pointnet2_scannet_tpu_torch.utils.eta import decode_eta
 
 ITER_REPORT = (
@@ -92,8 +109,20 @@ def _trace(trace_dir: str | pathlib.Path, device: torch.device):
     return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(trace_dir)))
 
 
+class _NullLogger:
+    """A non-coordinator rank's logger: it writes nothing."""
+
+    def add_scalars(self, *args) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Solver:
-    """Trains a PointNet2SemSeg on chunked scenes on one device."""
+    """Trains a PointNet2SemSeg on chunked scenes on one device, or on each
+    rank's device of a data-parallel run (process_ctx; the model built with
+    bn_group=process_ctx.group)."""
 
     def __init__(
         self,
@@ -106,6 +135,7 @@ class Solver:
         device: torch.device | str,
         trace_dir: str | pathlib.Path | None = None,
         compute_voxel_metrics: bool = True,
+        process_ctx: ProcessContext | None = None,
     ):
         self.config = config
         self.trace_dir = trace_dir  # execution only: never written into the run config
@@ -116,21 +146,36 @@ class Solver:
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.output_dir = pathlib.Path(output_dir)
-        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.ctx = process_ctx or ProcessContext.single(self.device)
+        if self.ctx.is_coordinator:
+            self.output_dir.mkdir(parents=True, exist_ok=True)
         self.num_classes = config.model.num_classes
 
         tc = config.train
+        ranks = self.ctx.num_processes
+        if tc.batch_size % ranks:
+            raise ValueError(f"global batch_size {tc.batch_size} not divisible by {ranks} ranks")
+        self.local_batch_size = tc.batch_size // ranks
+        group = self.ctx.group
+        self.parallel_strategy = "process_dp" if group is not None else "single"
+        self._train_step = make_shardmap_train_step(model, group, num_classes=self.num_classes)
+        self._eval_step = make_shardmap_eval_step(model, group, num_classes=self.num_classes)
         self.device_store = self._device_store_gate(tc.device_store, train_dataset)
         self._make_loaders(train_dataset, val_dataset, tc)
+        # a rank with more steps than another would wait in a collective forever
+        self.ctx.assert_uniform(len(self.train_loader), "train steps per epoch")
+        if self.val_loader is not None:
+            self.ctx.assert_uniform(len(self.val_loader), "val steps per epoch")
         schedule = ts.make_lr_schedule(tc.lr, tc.decay_step, tc.decay_factor, len(self.train_loader))
         self.state = ts.create_train_state(
-            self.model, schedule, weight_decay=tc.weight_decay, seed=tc.seed
+            self.model, schedule, weight_decay=tc.weight_decay, seed=dropout_seed(tc.seed, self.ctx.process_id)
         )
         self.store = self._upload_store(train_dataset) if self.device_store else None
-        self.logger = ScalarLogger(self.output_dir)
+        self.logger = ScalarLogger(self.output_dir) if self.ctx.is_coordinator else _NullLogger()
         self.best = {"epoch": -1, "voxel_miou": -1.0}
         self._global_iter = 0
-        config.save(self.output_dir / "config.json")
+        if self.ctx.is_coordinator:
+            config.save(self.output_dir / "config.json")
 
     def _device_store_gate(self, wanted: bool, train_dataset) -> bool:
         """Whether this run trains from the device-resident store: only
@@ -140,6 +185,9 @@ class Solver:
             return False
         if not hasattr(train_dataset, "get_item_resident"):
             reason = "the train dataset has no resident mode (chunked training only)"
+        elif self.ctx.group is not None:
+            reason = ("data-parallel ranks hold their own scene shards; the row-sharded store is "
+                      "ROADMAP queue 1, item 12")
         else:
             nbytes = store_nbytes(train_dataset.store, self.config.data)
             budget = _device_store_budget(self.device)
@@ -148,7 +196,7 @@ class Solver:
                 "(set PN2_DEVICE_STORE_BUDGET_GB to raise)"
             )
         if reason is not None:
-            print(f"WARNING: device_store disabled: {reason}", flush=True)
+            self.ctx.say(f"WARNING: device_store disabled: {reason}", flush=True)
             return False
         train_dataset.resident = True
         return True
@@ -175,19 +223,20 @@ class Solver:
         steps of an epoch."""
         # train: drop the ragged last batch (zero rows would enter the
         # BatchNorm statistics); val: pad it and mask the pad rows out
+        # a data-parallel rank assembles its batch_size / ranks rows of each batch
+        B = self.local_batch_size
         self.train_loader = (
-            ResidentBatchLoader(train_dataset, tc.batch_size, seed=tc.seed, shuffle=tc.shuffle)
+            ResidentBatchLoader(train_dataset, B, seed=tc.seed, shuffle=tc.shuffle)
             if self.device_store
-            else BatchLoader(train_dataset, tc.batch_size, seed=tc.seed, drop_last=True,
-                             shuffle=tc.shuffle)
+            else BatchLoader(train_dataset, B, seed=tc.seed, drop_last=True, shuffle=tc.shuffle)
         )
         if len(self.train_loader) == 0:
             raise ValueError(
                 f"training dataset ({len(train_dataset)} items) yields zero batches at "
-                f"batch_size={tc.batch_size} with drop_last; reduce batch_size or add scenes"
+                f"batch_size={B} with drop_last; reduce batch_size or add scenes"
             )
         self.val_loader = (
-            BatchLoader(val_dataset, tc.batch_size, seed=tc.seed, pad_last=True)
+            BatchLoader(val_dataset, B, seed=tc.seed, pad_last=True)
             if val_dataset is not None
             else None
         )
@@ -207,8 +256,10 @@ class Solver:
 
     def resume(self) -> int:
         """Restore model, optimizer, step, Dropout generator and best metrics
-        from this run dir's model_last; returns the epoch to continue from."""
-        meta = restore_checkpoint(self.output_dir, "model_last", self.state)
+        from this run dir's model_last (every rank from the coordinator's run
+        dir, so every rank starts from the same parameters); returns the
+        epoch to continue from."""
+        meta = restore_checkpoint(self.output_dir, "model_last", self.state, self.ctx.process_id)
         if meta.get("best"):
             self.best = meta["best"]
         start_epoch = int(meta.get("epoch", -1)) + 1
@@ -216,7 +267,12 @@ class Solver:
         return start_epoch
 
     def _save(self, name: str, epoch: int) -> None:
-        save_checkpoint(self.output_dir, name, self.state, epoch=epoch, best=self.best)
+        """Every rank's Dropout generator state goes to the coordinator, which
+        writes the checkpoint (every rank calls this: one collective)."""
+        generators = self.ctx.allgather_object(self.state.generator.get_state())
+        if self.ctx.is_coordinator:
+            save_checkpoint(self.output_dir, name, self.state, epoch=epoch, best=self.best,
+                            generators=generators if self.ctx.group is not None else None)
 
     # ------------------------------------------------------------------ train
 
@@ -227,7 +283,8 @@ class Solver:
         t_start = time.time()
         for epoch in range(start_epoch, epochs):
             self._start_epoch(epoch, epochs)
-            if self.trace_dir is not None and epoch == min(start_epoch + 1, epochs - 1):
+            if (self.trace_dir is not None and epoch == min(start_epoch + 1, epochs - 1)
+                    and self.ctx.is_coordinator):
                 print(f"capturing profiler trace -> {self.trace_dir}", flush=True)
                 with _trace(self.trace_dir, self.device):
                     train_stats = self._run_train_epoch(epoch, epochs, verbose, t_start)
@@ -239,11 +296,12 @@ class Solver:
             if self.val_loader is not None:
                 val_stats = self._run_val_epoch()
                 self.logger.add_scalars("val", val_stats, epoch)
-                if val_stats["voxel_miou"] > self.best["voxel_miou"]:
+                # the coordinator decides, so every rank joins the same saves
+                if self.ctx.broadcast_object(val_stats["voxel_miou"] > self.best["voxel_miou"]):
                     self.best = {"epoch": epoch, **val_stats}
-                    print(BEST_REPORT.format(voxel_miou=val_stats["voxel_miou"], epoch=epoch), flush=True)
+                    self.ctx.say(BEST_REPORT.format(voxel_miou=val_stats["voxel_miou"], epoch=epoch), flush=True)
                     self._save("model_best", epoch)
-                print(
+                self.ctx.say(
                     EPOCH_REPORT.format(
                         epoch=epoch + 1, epochs=epochs, train_loss=train_stats["loss"],
                         val_loss=val_stats["loss"], val_point_miou=val_stats["point_miou"],
@@ -255,9 +313,10 @@ class Solver:
             self._save("model_last", epoch)
         if epochs <= start_epoch:  # nothing to train: model_last must still exist
             self._save("model_last", start_epoch - 1)
-        (self.output_dir / "best.txt").write_text(
-            "\n".join(f"{k}: {v}" for k, v in self.best.items())
-        )
+        if self.ctx.is_coordinator:
+            (self.output_dir / "best.txt").write_text(
+                "\n".join(f"{k}: {v}" for k, v in self.best.items())
+            )
         self.logger.close()
         return self.best
 
@@ -277,7 +336,7 @@ class Solver:
             stats = (
                 ts.resident_train_step(self.state, self.store, batch, num_classes=self.num_classes)
                 if self.device_store
-                else ts.train_step(self.state, batch, num_classes=self.num_classes)
+                else self._train_step(self.state, batch)
             )
             losses.append(stats["loss"])
             cms.append(stats["confusion"])
@@ -298,7 +357,7 @@ class Solver:
         iters_left = (epochs - epoch) * iters - (it + 1)
         mean_iter = (time.time() - t_start) / max(self._global_iter + it + 1, 1)
         eta = decode_eta(mean_iter * iters_left)
-        print(
+        self.ctx.say(
             ITER_REPORT.format(
                 epoch=epoch + 1, epochs=epochs, iter=it + 1, iters=iters, loss=loss,
                 point_acc=pm["point_acc"], point_miou=pm["point_miou"], fetch=fetch, step=step,
@@ -322,11 +381,11 @@ class Solver:
         losses, cms, voxel = [], [], []
         batches = prefetch_to_device(iter(self.val_loader), device=self.device, keep_host=True)
         for host, batch in batches:
-            out = ts.eval_step(self.model, batch, num_classes=self.num_classes)
+            out = self._eval_step(self.model, batch)
             losses.append(out["loss"])
             cms.append(out["confusion"])
             if self.compute_voxel_metrics:
-                voxel.append(self._voxel_metrics(*_real_rows(host, out["preds"])))
+                voxel.append(self._voxel_metrics(*_real_rows(host, self.ctx.local_rows(out["preds"]))))
         if not cms:
             raise RuntimeError("validation produced no batches; check batch_size vs dataset size")
         return self._val_stats(losses, cms, voxel)
@@ -338,28 +397,33 @@ class Solver:
         )
         return voxacc, cali, np.sum(voxmiou * miou_mask) / max(np.sum(miou_mask), 1)
 
-    @staticmethod
-    def _val_stats(losses: list, cms: list, voxel: list) -> dict:
+    def _val_stats(self, losses: list, cms: list, voxel: list, *, local_voxel: bool = True) -> dict:
         """Validation stats: the mean loss, the point metrics of the summed
-        confusion matrices, and the voxel metrics averaged over their sets;
-        with no voxel sets (compute_voxel_metrics=False), voxel_miou is the
-        point mIoU, which model_best then gates on."""
+        confusion matrices (both already the global batches'), and the
+        voxel metrics averaged over their sets, summed over the ranks where
+        each rank holds its own sets (local_voxel); with no voxel sets
+        (compute_voxel_metrics=False), voxel_miou is the point mIoU, which
+        model_best then gates on."""
         stats = {"loss": float(torch.stack(losses).mean())}
         stats.update(M.confusion_to_point_metrics(torch.stack(cms).sum(0).cpu().numpy()))
-        if not voxel:
+        # each column summed as np.mean sums it (pairwise), so one rank averages as np.mean
+        sums = np.array([*(np.sum(col) for col in zip(*voxel)), len(voxel)] if voxel else np.zeros(4),
+                        np.float64)
+        if local_voxel:
+            sums = self.ctx.sum_across_processes(sums)
+        if sums[3] == 0:
             stats["voxel_miou"] = stats["point_miou"]
             return stats
-        accs, cali, mious = zip(*voxel)
-        stats["voxel_acc"] = float(np.mean(accs))
-        stats["voxel_acc_calibrated"] = float(np.mean(cali))
-        stats["voxel_miou"] = float(np.mean(mious))
+        stats["voxel_acc"] = float(sums[0] / sums[3])
+        stats["voxel_acc_calibrated"] = float(sums[1] / sums[3])
+        stats["voxel_miou"] = float(sums[2] / sums[3])
         return stats
 
 
-def _real_rows(host: dict, preds: torch.Tensor):
+def _real_rows(host: dict, preds: np.ndarray):
     """(coords (n, 3), preds, targets, weights) of a batch's real rows' points."""
     real = host["row_mask"] > 0
-    return (host["points"][real][..., :3].reshape(-1, 3), preds.cpu().numpy()[real].reshape(-1),
+    return (host["points"][real][..., :3].reshape(-1, 3), preds[real].reshape(-1),
             host["labels"][real].reshape(-1), host["weights"][real].reshape(-1))
 
 
@@ -406,7 +470,19 @@ class WholeSceneSolver(Solver):
     epoch redraws the training columns' resampling (set_epoch(epoch + 1));
     validation keeps epoch 0's tiling and computes each scene's voxel
     metrics over the whole scene. train_dataset and val_dataset are
-    WholeSceneDatasets; in the ITER report one iter is one scene."""
+    WholeSceneDatasets; in the ITER report one iter is one scene.
+
+    Data-parallel: every rank walks the same scenes (one update a scene is
+    the recipe's semantics) and feeds its rows of each micro-batch
+    (ProcessContext.place_from_global); the accumulated gradients, loss,
+    count and confusion are summed over the ranks once a scene, and
+    validation gathers each micro-batch's predictions, so every rank
+    computes the same scene metrics."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._accum_step, self._apply_accum = make_shardmap_accum_step(
+            self.model, self.ctx.group, num_classes=self.num_classes)
 
     def _make_loaders(self, train_dataset, val_dataset, tc) -> None:
         self.train_loader = _SceneBatchIterator(train_dataset, tc.batch_size)
@@ -425,10 +501,13 @@ class WholeSceneSolver(Solver):
             t_iter = time.time()
             fetch_times.append(t_iter - last)
             loss_sum = count = cm = 0
-            for mb in prefetch_to_device(micro_batches, device=self.device):
-                out = ts.grad_accum_step(self.state, mb, num_classes=self.num_classes)
+            local = (self.ctx.place_from_global(mb) for mb in micro_batches)
+            for mb in prefetch_to_device(local, device=self.device):
+                out = self._accum_step(self.state, mb)
                 loss_sum, count, cm = loss_sum + out["loss_sum"], count + out["count"], cm + out["confusion"]
-            ts.apply_accumulated(self.state, count)
+            totals = ts.sum_over_ranks({"loss_sum": loss_sum, "count": count, "confusion": cm}, self.ctx.group)
+            loss_sum, count, cm = totals["loss_sum"], totals["count"], totals["confusion"]
+            self._apply_accum(self.state, count)
             losses.append(float(loss_sum) / max(float(count), 1.0))  # settles the scene's step
             cms.append(cm)
             if verbose and (it + 1) % verbose == 0:
@@ -443,14 +522,17 @@ class WholeSceneSolver(Solver):
         losses, cms, voxel = [], [], []
         for _, micro_batches in self.val_loader.scenes():
             rows = []
-            for host, mb in prefetch_to_device(micro_batches, device=self.device, keep_host=True):
-                out = ts.eval_step(self.model, mb, num_classes=self.num_classes)
+            mbs = list(micro_batches)
+            local = (self.ctx.place_from_global(mb) for mb in mbs)
+            for host, mb in zip(mbs, prefetch_to_device(local, device=self.device)):
+                out = self._eval_step(self.model, mb)
                 losses.append(out["loss"])
                 cms.append(out["confusion"])
                 if self.compute_voxel_metrics:
-                    rows.append(_real_rows(host, out["preds"]))
+                    # the scene's metrics need every rank's rows of the micro-batch
+                    rows.append(_real_rows(host, self.ctx.all_rows(out["preds"].cpu().numpy())))
             if rows:
                 voxel.append(self._voxel_metrics(*map(np.concatenate, zip(*rows))))
         if not cms:
             raise RuntimeError("validation produced no micro-batches")
-        return self._val_stats(losses, cms, voxel)
+        return self._val_stats(losses, cms, voxel, local_voxel=False)

@@ -13,6 +13,17 @@ Whole-scene training takes one optimizer step per scene: grad_accum_step per
 micro-batch of the scene's columns, then apply_accumulated. With the
 device-resident scene store, resident_train_step assembles its batch on the
 device first.
+
+group (the JAX steps' axis_name): a data-parallel run's process group. Each
+rank runs the step on its rows of the global batch with a model built with
+bn_group=group; the loss is each rank's share of the global loss
+(engine/loss.weighted_cross_entropy_sharded) and the gradients are summed
+over the ranks in one all-reduce after the backward, so every rank applies
+the single-process gradient of the global batch. The JAX package's
+shard_map step sums its gradients once more after differentiating through
+a summed loss and so scales them by the device count (ROADMAP, latent
+reference issues); the port does not. Loss, point counts and confusion
+matrices come back summed over the ranks.
 """
 
 from __future__ import annotations
@@ -21,10 +32,16 @@ import dataclasses
 from collections.abc import Callable
 
 import torch
+import torch.distributed as dist
 
 from pointnet2_scannet_tpu_torch.data.resident import materialize_batch
-from pointnet2_scannet_tpu_torch.engine.loss import softmax_ce_integer, weighted_cross_entropy
+from pointnet2_scannet_tpu_torch.engine.loss import (
+    softmax_ce_integer,
+    weighted_cross_entropy,
+    weighted_cross_entropy_sharded,
+)
 from pointnet2_scannet_tpu_torch.engine.metrics import confusion_matrix
+from pointnet2_scannet_tpu_torch.parallel.distributed import all_reduce_grads
 
 
 def make_lr_schedule(
@@ -73,23 +90,30 @@ def create_train_state(
     )
 
 
-def train_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes: int) -> dict:
+def train_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes: int,
+               group=None) -> dict:
     """One optimizer step on a batch of "points", "labels", "weights" and an
     optional "row_mask". Returns {"loss", "confusion"} as tensors on the
-    batch's device; nothing waits for the host."""
+    batch's device; nothing waits for the host. group: see the module
+    docstring (train_state.py:78-135 with axis_name)."""
     model = state.model
     model.train()
     _set_lr(state)
     row_mask = batch.get("row_mask")
     logits = model(batch["points"], state.generator)
-    loss = weighted_cross_entropy(logits, batch["labels"], batch["weights"], row_mask)
+    if group is None:
+        loss = weighted_cross_entropy(logits, batch["labels"], batch["weights"], row_mask)
+    else:
+        loss = weighted_cross_entropy_sharded(logits, batch["labels"], batch["weights"], row_mask, group)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if group is not None:
+        all_reduce_grads(model.parameters(), group)
     state.optimizer.step()
     state.step += 1
     with torch.no_grad():
         cm = confusion_matrix(logits.argmax(dim=-1), batch["labels"], num_classes, row_mask)
-    return {"loss": loss.detach(), "confusion": cm}
+    return sum_over_ranks({"loss": loss.detach(), "confusion": cm}, group)
 
 
 def resident_train_step(state: TrainState, store: dict, batch: dict[str, torch.Tensor], *,
@@ -111,7 +135,13 @@ def grad_accum_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_cl
     (sum(row_mask) * points per row), "confusion" (masked)} as tensors on
     the batch's device; nothing waits for the host. The Dropout mask comes
     from state.generator's stream (the JAX package folds the step and the
-    micro-batch index into its key: the draws cannot match)."""
+    micro-batch index into its key: the draws cannot match).
+
+    In a data-parallel run (a model built with bn_group) each rank runs this
+    on its rows of the micro-batch and the MaskedBatchNorm statistics cover
+    every rank's; the sums stay local here and are summed over the ranks
+    once a scene, by the caller and by apply_accumulated (the JAX
+    package's shard_map step sums them every micro-batch: the same sums)."""
     model = state.model
     model.train()
     labels, row_mask = batch["labels"], batch["row_mask"]
@@ -125,12 +155,16 @@ def grad_accum_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_cl
             "confusion": cm}
 
 
-def apply_accumulated(state: TrainState, total_count: torch.Tensor | float) -> None:
+def apply_accumulated(state: TrainState, total_count: torch.Tensor | float, group=None) -> None:
     """One optimizer step from the accumulated sum-gradients, each divided by
     total_count (the gradient of the scene's mean loss), at the learning
     rate of this step on the schedule; then the gradients are cleared for
-    the next scene (the JAX package's apply_accumulated)."""
+    the next scene (the JAX package's apply_accumulated). group: the
+    gradients are summed over its ranks first, and total_count must be the
+    global count."""
     _set_lr(state)
+    if group is not None:
+        all_reduce_grads(state.model.parameters(), group)
     with torch.no_grad():
         for p in state.model.parameters():
             p.grad.div_(total_count)
@@ -146,13 +180,26 @@ def _set_lr(state: TrainState) -> None:
 
 
 @torch.no_grad()
-def eval_step(model: torch.nn.Module, batch: dict[str, torch.Tensor], *, num_classes: int) -> dict:
+def eval_step(model: torch.nn.Module, batch: dict[str, torch.Tensor], *, num_classes: int,
+              group=None) -> dict:
     """Forward with the running BatchNorm statistics and no Dropout. Returns
-    {"loss", "confusion", "preds"} on the batch's device."""
+    {"loss", "confusion", "preds"} on the batch's device; with a group the
+    loss and confusion are the global batch's and preds this rank's rows."""
     model.eval()
     row_mask = batch.get("row_mask")
     logits = model(batch["points"])
-    loss = weighted_cross_entropy(logits, batch["labels"], batch["weights"], row_mask)
+    if group is None:
+        loss = weighted_cross_entropy(logits, batch["labels"], batch["weights"], row_mask)
+    else:
+        loss = weighted_cross_entropy_sharded(logits, batch["labels"], batch["weights"], row_mask, group)
     preds = logits.argmax(dim=-1)
     cm = confusion_matrix(preds, batch["labels"], num_classes, row_mask)
-    return {"loss": loss, "confusion": cm, "preds": preds}
+    return {**sum_over_ranks({"loss": loss, "confusion": cm}, group), "preds": preds}
+
+
+def sum_over_ranks(out: dict[str, torch.Tensor], group) -> dict[str, torch.Tensor]:
+    """Each tensor of out summed over the ranks of group (None: as it is)."""
+    if group is not None:
+        for t in out.values():
+            dist.all_reduce(t, group=group)
+    return out

@@ -19,6 +19,14 @@ runs the JAX package's MaskedBatchNorm instead (layers.py:27-91): batch
 statistics over the real rows only, with the two-pass variance, normalised
 in that module's own order.
 
+With a process group (bn_group, the counterpart of the JAX modules'
+bn_axis_name), train mode takes its statistics over the global batch of a
+data-parallel run: flax's BatchNorm(axis_name=...) averages each rank's mean
+and mean of squares over the ranks, MaskedBatchNorm sums its weighted sums.
+The all-reduce is differentiable (parallel/distributed.all_reduce_sum: its
+backward sums the cotangents over the ranks), so every rank's gradient is
+its share of the global one.
+
 A compute dtype (dtype=torch.bfloat16) follows flax's dtype semantics, not
 torch.autocast: the parameters stay float32; each Linear casts its input,
 weight and bias to the compute dtype (flax's promote_dtype) and returns it;
@@ -33,10 +41,12 @@ import math
 from collections.abc import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from pointnet2_scannet_tpu_torch import ops
+from pointnet2_scannet_tpu_torch.parallel.distributed import all_reduce_sum
 
 # flax's he_normal draws a normal truncated at two standard deviations and
 # divides by this constant, the std of the standard normal truncated there
@@ -59,7 +69,8 @@ class PointwiseMLP(nn.Module):
     Parameters are named dense_{i} and bn_{i}, after the JAX package's tree.
     last_act=False leaves the final layer without ReLU (a head's logits).
     dtype: the compute dtype, the JAX module's dtype field (None: compute
-    in the input's dtype).
+    in the input's dtype). bn_group: the process group whose ranks' batches
+    the train-mode BatchNorm statistics cover (None: this rank's alone).
     """
 
     def __init__(
@@ -70,6 +81,7 @@ class PointwiseMLP(nn.Module):
         bn: bool = True,
         last_act: bool = True,
         dtype: torch.dtype | None = None,
+        bn_group=None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
@@ -77,6 +89,7 @@ class PointwiseMLP(nn.Module):
         self.bn = bn
         self.last_act = last_act
         self.dtype = dtype
+        self.bn_group = bn_group
         c = in_channels
         for i, w in enumerate(self.widths):
             self.add_module(f"dense_{i}", nn.Linear(c, w, bias=not bn, device=device))
@@ -158,27 +171,31 @@ class PointwiseMLP(nn.Module):
         if self.bn:
             bn = getattr(self, f"bn_{i}")
             if self.training and row_mask is not None:
-                x = masked_batch_norm(x, bn, row_mask, self.dtype)
+                x = masked_batch_norm(x, bn, row_mask, self.dtype, self.bn_group)
             else:
-                x = _batch_norm(x, bn, self.training, self.dtype)
+                x = _batch_norm(x, bn, self.training, self.dtype, self.bn_group)
         if self.last_act or i < len(self.widths) - 1:
             x = torch.relu(x)
         return x
 
 
 def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
-                dtype: torch.dtype | None = None) -> torch.Tensor:
+                dtype: torch.dtype | None = None, group=None) -> torch.Tensor:
     """flax nn.BatchNorm over the last axis; in train mode it also moves
     bn's running statistics (in place, outside autograd). The result is
     cast to dtype where one is given (a bfloat16 x normalises in float32,
-    x - mean promoting)."""
+    x - mean promoting). group: flax's axis_name, the mean and the mean of
+    squares averaged over its ranks (equal batches on every rank)."""
     if not train:
         mean, var = bn.running_mean, bn.running_var
     else:
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = tuple(range(x.dim() - 1))
-        mean = xs.mean(dims)
-        var = torch.clamp((xs * xs).mean(dims) - mean * mean, min=0.0)
+        mean, mean2 = xs.mean(dims), (xs * xs).mean(dims)
+        if group is not None:
+            stats = all_reduce_sum(torch.cat([mean, mean2]), group) / dist.get_world_size(group)
+            mean, mean2 = stats[: mean.numel()], stats[mean.numel() :]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = BN_MOMENTUM
             bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
@@ -189,7 +206,7 @@ def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
 
 
 def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tensor,
-                      dtype: torch.dtype | None = None) -> torch.Tensor:
+                      dtype: torch.dtype | None = None, group=None) -> torch.Tensor:
     """The JAX package's train-mode MaskedBatchNorm over the last axis: each
     leading row weighs by its 0/1 row_mask (B,), so zero-padded rows leave
     the batch statistics exactly. The weighted mean over max(sum(mask) *
@@ -201,16 +218,26 @@ def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tenso
     the JAX module casts to float32 whatever x's dtype, which leaves a
     float64 step float32-accurate; the port keeps float64 in float64 and
     rounds like the JAX module in float32. Returns dtype, or x's dtype
-    where none is given (the JAX module's out_dtype)."""
+    where none is given (the JAX module's out_dtype). group: the JAX
+    module's axis_name: wsum and the first sum, then the second, summed over
+    its ranks, so the statistics are the global batch's even where ranks
+    hold unequal real rows (or none)."""
     dt = torch.promote_types(x.dtype, torch.float32)
     xs = x.to(dt)
     mask = row_mask.to(dt)
     w = mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
     spatial = float(math.prod(x.shape[1:-1])) if x.dim() > 2 else 1.0
     dims = tuple(range(x.dim() - 1))
-    wsum = torch.clamp(mask.sum() * spatial, min=1e-6)
-    mean = (xs * w).sum(dims) / wsum
-    var = torch.clamp(((xs - mean).square() * w).sum(dims) / wsum, min=0.0)
+    wsum, s1 = mask.sum() * spatial, (xs * w).sum(dims)
+    if group is not None:
+        sums = all_reduce_sum(torch.cat([wsum.reshape(1), s1]), group)
+        wsum, s1 = sums[0], sums[1:]
+    wsum = torch.clamp(wsum, min=1e-6)
+    mean = s1 / wsum
+    s2 = ((xs - mean).square() * w).sum(dims)
+    if group is not None:
+        s2 = all_reduce_sum(s2, group)
+    var = torch.clamp(s2 / wsum, min=0.0)
     with torch.no_grad():
         m = BN_MOMENTUM
         bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)

@@ -10,7 +10,8 @@ Both follow the JAX package's models/modules.py; every level, however small,
 goes through the port's ops and so through the CUDA kernels on the card.
 With a compute dtype (bfloat16), the set abstraction casts its input
 features to it before grouping (xyz stays float32, so FPS, the ball queries
-and 3-NN see what they see in a float32 model), and every MLP computes in it.
+and 3-NN see what they see in a float32 model), and every MLP computes in it. bn_group (the JAX modules' bn_axis_name)
+reaches every MLP's BatchNorm (models/layers.py).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class SetAbstraction(nn.Module):
         use_xyz: bool = True,
         bn: bool = True,
         dtype: torch.dtype | None = None,
+        bn_group=None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
@@ -52,7 +54,7 @@ class SetAbstraction(nn.Module):
         self.dtype = dtype
         for s, widths in enumerate(mlps):
             self.add_module(f"mlp_{s}", PointwiseMLP(
-                in_channels + 3 * use_xyz, widths, bn=bn, dtype=dtype, device=device))
+                in_channels + 3 * use_xyz, widths, bn=bn, dtype=dtype, bn_group=bn_group, device=device))
 
     def _mlps(self) -> list[PointwiseMLP]:
         return [getattr(self, f"mlp_{s}") for s in range(len(self.radii))]
@@ -131,10 +133,11 @@ class FeaturePropagation(nn.Module):
         *,
         bn: bool = True,
         dtype: torch.dtype | None = None,
+        bn_group=None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
-        self.mlp = PointwiseMLP(in_channels, mlp, bn=bn, dtype=dtype, device=device)
+        self.mlp = PointwiseMLP(in_channels, mlp, bn=bn, dtype=dtype, bn_group=bn_group, device=device)
 
     def forward(
         self,

@@ -103,7 +103,10 @@ class PointNet2SemSeg(nn.Module):
 
     Built on the CPU, initialised from `generator` (flax's he_normal, zero
     biases, identity BatchNorm), then moved to `device`; the module starts in
-    eval mode. dtype: the compute dtype (None, or torch.bfloat16).
+    eval mode. dtype: the compute dtype (None, or torch.bfloat16). bn_group:
+    the process group of a data-parallel run (the JAX model's bn_axis_name):
+    train-mode BatchNorm statistics cover its ranks' global batch; None
+    (one device) keeps them local.
     """
 
     def __init__(
@@ -111,29 +114,32 @@ class PointNet2SemSeg(nn.Module):
         spec: PointNet2Spec,
         *,
         dtype: torch.dtype | None = None,
+        bn_group=None,
         device: torch.device | str | None = None,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
+        self.bn_group = bn_group
         c = spec.input_channels
         for lvl in range(len(spec.npoints)):
             sa = SetAbstraction(
                 spec.npoints[lvl], spec.radii[lvl], spec.nsamples[lvl],
-                spec.sa_mlps[lvl], c, use_xyz=spec.use_xyz, bn=spec.bn, dtype=dtype,
+                spec.sa_mlps[lvl], c, use_xyz=spec.use_xyz, bn=spec.bn, dtype=dtype, bn_group=bn_group,
             )
             self.add_module(f"sa_{lvl}", sa)
             c = sa.out_channels
         for lvl in reversed(range(len(spec.fp_mlps))):
             fp = FeaturePropagation(
-                spec.fp_mlps[lvl], c + spec.skip_channels[lvl], bn=spec.bn, dtype=dtype
+                spec.fp_mlps[lvl], c + spec.skip_channels[lvl], bn=spec.bn, dtype=dtype, bn_group=bn_group
             )
             self.add_module(f"fp_{lvl}", fp)
             c = spec.fp_mlps[lvl][-1]
-        self.cls_fc = PointwiseMLP(c, spec.cls_fc, bn=spec.bn, dtype=dtype)
+        self.cls_fc = PointwiseMLP(c, spec.cls_fc, bn=spec.bn, dtype=dtype, bn_group=bn_group)
         self.cls_out = PointwiseMLP(
-            spec.cls_fc[-1], (spec.num_classes,), bn=spec.bn, last_act=False, dtype=dtype
+            spec.cls_fc[-1], (spec.num_classes,), bn=spec.bn, last_act=False, dtype=dtype,
+            bn_group=bn_group,
         )
         for m in self.modules():
             if isinstance(m, PointwiseMLP):
@@ -189,21 +195,23 @@ def get_model(
     use_xyz: bool = True,
     bn: bool = True,
     dtype: torch.dtype | None = None,
+    bn_group=None,
     *,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> PointNet2SemSeg:
     """Factory with the JAX package's get_model arguments and defaults (MSG
-    unless is_msg=False; dtype None, or torch.bfloat16)."""
+    unless is_msg=False; dtype None, or torch.bfloat16; bn_group, the JAX
+    bn_axis_name, None)."""
     spec = dataclasses.replace(
         (msg_spec if is_msg else ssg_spec)(num_classes, input_channels), use_xyz=use_xyz, bn=bn
     )
-    return PointNet2SemSeg(spec, dtype=dtype, device=device, generator=generator)
+    return PointNet2SemSeg(spec, dtype=dtype, bn_group=bn_group, device=device, generator=generator)
 
 
 def model_from_config(cfg, **kwargs) -> PointNet2SemSeg:
     """get_model for a RunConfig: its model fields, input channels and
-    compute dtype; kwargs (device, generator) pass through."""
+    compute dtype; kwargs (bn_group, device, generator) pass through."""
     return get_model(
         num_classes=cfg.model.num_classes,
         is_msg=cfg.model.is_msg,

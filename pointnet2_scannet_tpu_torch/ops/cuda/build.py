@@ -128,14 +128,21 @@ def _build(target: pathlib.Path) -> None:
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
 
 
+def ensure_built() -> pathlib.Path:
+    """The library's path, built first where it is missing (not loaded). A
+    data-parallel host runs this on one rank while the others wait
+    (parallel/distributed.build_once_per_host), so N ranks start one build."""
+    path = library_path()
+    if not path.exists():
+        _build(path)
+    return path
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     if _lib is None:
-        path = library_path()
-        if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(ensure_built()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

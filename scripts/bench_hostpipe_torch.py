@@ -6,6 +6,10 @@ One JSON line a probe, each with the card's name and power limit
   1. store load: --scenes scenes of --points points written as .npy files
      (bench_torch.fast_scene, cached under --store), then
      SceneStore.from_npy_dir's wall and the RSS it added;
+  2. sharded loading: rank 0's shard of 2 (SceneStore.from_npy_dir_sharded,
+     with the streaming pass over every scene's labels for the whole
+     split's class weights), its wall and whether its weights equal the
+     whole store's;
   3. one cold chunk regeneration over every scene, and one host BatchLoader
      epoch (assembly, augmentation, collation; no device);
   4. unless --host_only: the chunked SSG Solver for --epochs epochs (no
@@ -13,8 +17,6 @@ One JSON line a probe, each with the card's name and power limit
      its wait for its chunks at its start (the join of the background
      regeneration), each regeneration's wall, the ITER fetch, the store's
      flatten and upload, and points/s over the epochs after the first.
-
-Probe 2 (sharded loading across processes) waits for ROADMAP item 12.
 
   python scripts/bench_hostpipe_torch.py --device_store          # the card
   python scripts/bench_hostpipe_torch.py --host_only
@@ -91,6 +93,13 @@ def run(args, store_dir: pathlib.Path) -> None:
     store = SceneStore.from_npy_dir(ids, store_dir)
     emit("hostpipe_store_load_wall", time.perf_counter() - t0, "sec", scenes=len(ids),
          rss_gb=rss_gb() - rss0)
+
+    # 2. a data-parallel rank's load: its shard, the whole split's weights
+    t0 = time.perf_counter()
+    shard = SceneStore.from_npy_dir_sharded(ids, store_dir, process_id=0, num_processes=2)
+    emit("hostpipe_sharded_load_wall", time.perf_counter() - t0, "sec", shard_scenes=len(shard.scene_ids),
+         weights_match=bool(np.allclose(shard.label_weights, store.label_weights)))
+    del shard
 
     # 3. the host's per-epoch work
     cfg = DataConfig(npoints=args.npoints, use_color=True, use_normal=True)

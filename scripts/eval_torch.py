@@ -13,9 +13,15 @@ and voxel mIoU) and the per-class table, and write them to
   python scripts/eval_torch.py --folder runs/X --data_dir D --val_list L --device cpu
 
 The run dir holds config.json and <checkpoint>.pt (scripts/train_torch.py
-writes both; scripts/jax_to_torch.py converts a JAX run dir). Data-parallel
-and multi-host evaluation (--num_devices above 1, --dist_*) raise
-NotImplementedError: ROADMAP queue 1, item 12.
+writes both; scripts/jax_to_torch.py converts a JAX run dir).
+
+Data-parallel evaluation: --num_devices N spawns N ranks on this host (one
+card each; CPU ranks with --device cpu), --dist_coordinator host:port
+--dist_nprocs N --dist_pid P (or --dist_auto) joins ranks started by hand.
+Each rank evaluates its own strided shard of the scenes; rank 0 merges the
+per-scene results, prints the report and writes eval_report.txt.
+
+  python scripts/eval_torch.py --folder runs/X --synthetic --synthetic_scenes 8 --num_devices 2
 """
 
 from __future__ import annotations
@@ -26,41 +32,42 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# flag -> (is it set?, what it asks for, ROADMAP queue 1 item)
-_UNPORTED = (
-    ("num_devices", lambda v: v is not None and v > 1, "data-parallel evaluation", 12),
-    ("dist_coordinator", lambda v: v is not None, "multi-host evaluation", 12),
-    ("dist_nprocs", lambda v: v != 1, "multi-host evaluation", 12),
-    ("dist_pid", lambda v: v != 0, "multi-host evaluation", 12),
-    ("dist_auto", lambda v: v, "multi-host evaluation", 12),
-)
-
-
-def load(args, scene_ids=None):
+def load(args, scene_ids=None, ctx=None):
     """(run dir, WholeSceneDataset, WholeSceneEvaluator) for the run dir,
     scenes and device that args name; scene_ids, where given, replace the
-    val list."""
-    for flag, is_set, what, item in _UNPORTED:
-        if is_set(getattr(args, flag)):
-            raise NotImplementedError(f"--{flag}: {what} is not ported yet (ROADMAP queue 1, item {item})")
+    val list. ctx: a data-parallel rank's parallel.ProcessContext, whose
+    strided shard of the scenes the dataset holds (every scene covered:
+    shards may differ by one); None: every scene, on --device."""
     import torch
 
     from pointnet2_scannet_tpu_torch.data import SceneStore, WholeSceneDataset, make_synthetic_store
     from pointnet2_scannet_tpu_torch.engine.evaluator import WholeSceneEvaluator
     from pointnet2_scannet_tpu_torch.engine.export import load_run_model
+    from pointnet2_scannet_tpu_torch.parallel import ProcessContext
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available (use --device cpu)")
+    ctx = ctx or ProcessContext.single(device)
     run_dir = pathlib.Path(args.folder)
     model, cfg = load_run_model(run_dir, args.checkpoint)
     if args.synthetic:
-        store = make_synthetic_store(args.synthetic_scenes, seed=1000)
+        store = make_synthetic_store(args.synthetic_scenes, seed=1000).shard(
+            ctx.process_id, ctx.num_processes, equalize=False)
     else:
         if scene_ids is None:
             list_path = pathlib.Path(args.val_list or cfg.paths.val_list)
             scene_ids = [l.strip() for l in list_path.read_text().splitlines() if l.strip()]
-        store = SceneStore.from_npy_dir(
+        store = SceneStore.from_npy_dir_sharded(
+            scene_ids,
+            args.data_dir or cfg.paths.preprocessed_dir,
+            cfg.paths.multiview_h5 if cfg.data.use_multiview else None,
+            process_id=ctx.process_id,
+            num_processes=ctx.num_processes,
+            is_weighting=cfg.data.is_weighting,
+            equalize=False,
+            ctx=ctx,
+        ) if ctx.num_processes > 1 else SceneStore.from_npy_dir(
             scene_ids,
             args.data_dir or cfg.paths.preprocessed_dir,
             cfg.paths.multiview_h5 if cfg.data.use_multiview else None,
@@ -68,7 +75,7 @@ def load(args, scene_ids=None):
         )
     evaluator = WholeSceneEvaluator(
         model,
-        device=device,
+        device=ctx.device,
         batch_size=args.batch_size,
         num_classes=cfg.model.num_classes,
         ring_slots=args.eval_ring,
@@ -77,10 +84,38 @@ def load(args, scene_ids=None):
     return run_dir, WholeSceneDataset(store, cfg.data, seed=0), evaluator
 
 
+def run(entry, args):
+    """entry(args, ctx) in this process, or on each of --num_devices spawned
+    ranks (returns None then)."""
+    from pointnet2_scannet_tpu_torch.parallel.distributed import cli_context, cli_ranks, shutdown, spawn_cli
+
+    n = cli_ranks(args)
+    if n > 1:
+        spawn_cli(entry, args, n)
+        return None
+    ctx = cli_context(args)
+    out = entry(args, ctx)
+    shutdown(ctx)
+    return out
+
+
 def evaluate(args):
-    """Evaluate every scene; print and write the report, and return it."""
-    run_dir, dataset, evaluator = load(args)
-    report = evaluator.evaluate(dataset)
+    """Evaluate every scene; print and write the report, and return it (the
+    coordinator's; None on the other ranks)."""
+    return run(evaluate_rank, args)
+
+
+def evaluate_rank(args, ctx):
+    from pointnet2_scannet_tpu_torch.engine.evaluator import merge_scene_results
+
+    run_dir, dataset, evaluator = load(args, ctx=ctx)
+    if ctx.num_processes == 1:
+        report = evaluator.evaluate(dataset)
+    else:
+        local = evaluator.evaluate(dataset).scenes if len(dataset) else []
+        report = evaluator.aggregate(merge_scene_results(ctx, local, evaluator.num_classes))
+        if not ctx.is_coordinator:
+            return None
     print()
     print(report.format_table())
     (run_dir / "eval_report.txt").write_text(report.format_table())
@@ -102,11 +137,15 @@ def add_flags(p: argparse.ArgumentParser, synthetic_scenes: int) -> None:
     p.add_argument("--eval_depth", type=int, default=2, help="device batches in flight")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the CUDA kernels) or cpu (their plain versions)")
-    p.add_argument("--num_devices", type=int, default=None, help="not ported (item 12): 1 or unset")
-    p.add_argument("--dist_coordinator", type=str, default=None, help="not ported (item 12)")
-    p.add_argument("--dist_nprocs", type=int, default=1, help="not ported (item 12)")
-    p.add_argument("--dist_pid", type=int, default=0, help="not ported (item 12)")
-    p.add_argument("--dist_auto", action="store_true", help="not ported (item 12)")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel ranks to spawn on this host, one device each; each takes its "
+                   "shard of the scenes")
+    p.add_argument("--dist_coordinator", type=str, default=None,
+                   help="host:port of rank 0, the same on every rank of a multi-host run")
+    p.add_argument("--dist_nprocs", type=int, default=1, help="ranks of the multi-host run")
+    p.add_argument("--dist_pid", type=int, default=0, help="this process's rank")
+    p.add_argument("--dist_auto", action="store_true",
+                   help="join the ranks of torchrun or SLURM (env://)")
 
 
 def parse_args(argv=None):

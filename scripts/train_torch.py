@@ -25,10 +25,24 @@ best.txt.
       --batch_size 4 --epoch 2 --device cpu
   python scripts/train_torch.py --resume outputs/<run> --epoch 4
 
+Data parallelism, one rank a device (the global --batch_size divides among
+the ranks; BatchNorm statistics, gradients, loss and metrics are summed over
+them, so a step applies the single-process gradient of the global batch):
+--num_devices N spawns N ranks on this host (NCCL, one card each; gloo CPU
+ranks with --device cpu); --dist_coordinator host:port --dist_nprocs N
+--dist_pid P joins ranks started by hand on several hosts, --dist_auto the
+ranks of torchrun or SLURM (env://). Only rank 0 prints and writes the run
+dir; a resume restores every rank from it.
+
+  python scripts/train_torch.py --synthetic --use_color --use_normal --num_devices 4
+  python scripts/train_torch.py --synthetic --synthetic_scenes 8 --npoints 256 \\
+      --batch_size 4 --epoch 2 --device cpu --num_devices 2
+  torchrun --nproc_per_node 4 scripts/train_torch.py --synthetic --dist_auto
+
 --trace DIR writes a torch.profiler trace (Chrome / TensorBoard format: host
 activity and, on a GPU, the card's kernels) of one train epoch into DIR, the
 second when there is one. The JAX package's execution flags that have no
-counterpart here yet raise NotImplementedError naming their ROADMAP item;
+counterpart here yet (--tp) raise NotImplementedError naming their ROADMAP item;
 --fused_steps is recorded and the port runs one step per batch, the same
 math per step.
 
@@ -48,12 +62,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 # flag -> (is it set?, what it asks for, ROADMAP queue 1 item)
 _UNPORTED = (
-    ("num_devices", lambda v: v is not None and v > 1, "data parallelism over several devices", 12),
-    ("tp", lambda v: v is not None and v > 1, "tensor parallelism", 12),
-    ("dist_coordinator", lambda v: v is not None, "multi-host training", 12),
-    ("dist_nprocs", lambda v: v != 1, "multi-host training", 12),
-    ("dist_pid", lambda v: v != 0, "multi-host training", 12),
-    ("dist_auto", lambda v: v, "multi-host training", 12),
+    ("tp", lambda v: v is not None and v > 1, "tensor parallelism (the dp x tp mesh)", 12),
 )
 
 
@@ -63,6 +72,19 @@ def check_ported(args) -> None:
             raise NotImplementedError(
                 f"--{flag}: {what} is not ported yet (ROADMAP queue 1, item {item})"
             )
+
+
+def main(args):
+    """The CLI: train in this process, or spawn --num_devices ranks on this
+    host and train in each (returns None then: the run dir is rank 0's)."""
+    from pointnet2_scannet_tpu_torch.parallel.distributed import cli_ranks, spawn_cli
+
+    check_ported(args)
+    n = cli_ranks(args)
+    if n == 1:
+        return train(args)
+    spawn_cli(train, args, n)
+    return None
 
 
 def build_config(args):
@@ -119,40 +141,68 @@ def build_config(args):
     )
 
 
-def make_stores(cfg):
+def make_stores(cfg, ctx):
+    """(train store, val store): this rank's scene shards in a chunked
+    data-parallel run (the class weights the whole split's), every scene
+    otherwise (whole-scene ranks walk the same scenes)."""
     from pointnet2_scannet_tpu_torch.data.scene_store import SceneStore
     from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_store
 
+    shard = ctx.num_processes > 1 and not cfg.train.wholescene
     if cfg.train.synthetic:
         n = cfg.train.synthetic_scenes
-        return make_synthetic_store(n, seed=0), make_synthetic_store(max(n // 4, 1), seed=1000)
+        stores = make_synthetic_store(n, seed=0), make_synthetic_store(max(n // 4, 1), seed=1000)
+        if not shard:
+            return stores
+        for name, store in zip(("train", "val"), stores):
+            _warn_dropped(ctx, len(store), name)
+        return tuple(s.shard(ctx.process_id, ctx.num_processes) for s in stores)
     train_ids = [l.strip() for l in open(cfg.paths.train_list) if l.strip()]
     val_ids = [l.strip() for l in open(cfg.paths.val_list) if l.strip()]
     if cfg.train.debug:  # train and validate on one scene
         train_ids = train_ids[:1]
         val_ids = train_ids
     mv = cfg.paths.multiview_h5 if cfg.data.use_multiview else None
-    make = lambda ids: SceneStore.from_npy_dir(  # noqa: E731
-        ids, cfg.paths.preprocessed_dir, mv, is_weighting=cfg.data.is_weighting
-    )
+    if shard:
+        for name, ids in (("train", train_ids), ("val", val_ids)):
+            _warn_dropped(ctx, len(ids), name)
+        make = lambda ids: SceneStore.from_npy_dir_sharded(  # noqa: E731
+            ids, cfg.paths.preprocessed_dir, mv, process_id=ctx.process_id,
+            num_processes=ctx.num_processes, is_weighting=cfg.data.is_weighting, ctx=ctx,
+        )
+    else:
+        make = lambda ids: SceneStore.from_npy_dir(  # noqa: E731
+            ids, cfg.paths.preprocessed_dir, mv, is_weighting=cfg.data.is_weighting
+        )
     return make(train_ids), make(val_ids)
 
 
-def _device(name: str):
-    import torch
-
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available (use --device cpu)")
-    return device
+def _warn_dropped(ctx, count: int, name: str) -> None:
+    if count % ctx.num_processes:
+        ctx.say(f"data parallel: dropping {count % ctx.num_processes} trailing {name} scene(s) so that "
+                f"every rank holds as many", flush=True)
 
 
-def train(args) -> tuple[pathlib.Path, dict]:
-    """Train (or resume) a run; returns (run dir, best val metrics)."""
+def train(args, ctx=None) -> tuple[pathlib.Path, dict]:
+    """Train (or resume) a run; returns (run dir, best val metrics). ctx: this
+    rank's parallel.ProcessContext; None joins the ranks that the --dist_*
+    flags name (or none)."""
     check_ported(args)
     if args.device_store and args.no_device_store:
         raise SystemExit("--device_store and --no_device_store conflict")
-    device = _device(args.device)
+    from pointnet2_scannet_tpu_torch.parallel.distributed import cli_context, cli_ranks, shutdown
+
+    if ctx is not None:
+        return _train(args, ctx)
+    if cli_ranks(args) > 1:
+        raise ValueError("--num_devices above 1: main() spawns the ranks, and train() runs one")
+    ctx = cli_context(args)
+    out = _train(args, ctx)
+    shutdown(ctx)  # after every rank is done with the coordinator's files
+    return out
+
+
+def _train(args, ctx) -> tuple[pathlib.Path, dict]:
     import torch
 
     from pointnet2_scannet_tpu_torch.config import RunConfig
@@ -177,6 +227,8 @@ def train(args) -> tuple[pathlib.Path, dict]:
                 )
         # execution flags may change at a resume: --epoch extends the run
         overrides = {}
+        if args.num_devices is not None or ctx.num_processes > 1:
+            overrides["num_devices"] = ctx.num_processes
         if args.verbose is not None:
             overrides["verbose"] = args.verbose
         if args.device_store:  # the same math as the host path
@@ -189,13 +241,16 @@ def train(args) -> tuple[pathlib.Path, dict]:
             cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **overrides))
     else:
         cfg = build_config(args)
-        stamp = time.strftime("%Y-%m-%d_%H-%M-%S")
+        if ctx.num_processes > 1:
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, num_devices=ctx.num_processes))
+        stamp = ctx.broadcast_object(time.strftime("%Y-%m-%d_%H-%M-%S"))  # the coordinator's
         if args.tag:
             stamp += "_" + args.tag.upper()
         output_dir = pathlib.Path(cfg.paths.output_root) / stamp
-        output_dir.mkdir(parents=True, exist_ok=True)
+        if ctx.is_coordinator:  # no other rank writes the run dir
+            output_dir.mkdir(parents=True, exist_ok=True)
 
-    train_store, val_store = make_stores(cfg)
+    train_store, val_store = make_stores(cfg, ctx)
     seed = cfg.train.seed
     if cfg.train.wholescene:  # one gradient-accumulated update per scene
         train_ds = WholeSceneDataset(train_store, cfg.data, seed=seed)
@@ -206,27 +261,33 @@ def train(args) -> tuple[pathlib.Path, dict]:
         val_ds = ChunkedSceneDataset(val_store, cfg.data, phase="val", seed=seed + 1)
         solver_cls = Solver
         step = f"one step per batch (fused_steps {cfg.train.fused_steps} recorded)"
-    model = model_from_config(cfg, generator=torch.Generator().manual_seed(seed))
-    solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device, trace_dir=args.trace)
+    # every rank draws the same initial weights
+    model = model_from_config(cfg, generator=torch.Generator().manual_seed(seed), bn_group=ctx.group)
+    device = ctx.device
+    solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device, trace_dir=args.trace,
+                        process_ctx=ctx)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    print(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}, "
-          f"compute dtype {cfg.model.compute_dtype}", flush=True)
+    ctx.say(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}, "
+            f"compute dtype {cfg.model.compute_dtype}", flush=True)
+    ctx.say(f"parallel strategy: {solver.parallel_strategy} (mesh size {ctx.num_processes}, "
+            f"processes {ctx.num_processes})", flush=True)
     if solver.device_store:
         rows, width = solver.store["points"].shape
         print(f"device_store: {rows} rows x {width} on {device}, flattened in "
               f"{solver.store_flatten_s:.2f} s, uploaded in {solver.store_upload_s:.2f} s", flush=True)
-    info = {
-        **vars(args),
-        "num_train_scenes": len(train_store),
-        "num_val_scenes": len(val_store),
-        "num_params": sum(p.numel() for p in model.parameters()),
-    }
-    (output_dir / "info.json").write_text(json.dumps(info, indent=2, default=str))
+    if ctx.is_coordinator:
+        info = {
+            **vars(args),
+            "num_train_scenes": len(train_store),
+            "num_val_scenes": len(val_store),
+            "num_params": sum(p.numel() for p in model.parameters()),
+        }
+        (output_dir / "info.json").write_text(json.dumps(info, indent=2, default=str))
 
     start_epoch = solver.resume() if args.resume else 0
-    print(f"training -> {output_dir} (from epoch {start_epoch})", flush=True)
+    ctx.say(f"training -> {output_dir} (from epoch {start_epoch})", flush=True)
     best = solver(start_epoch=start_epoch)
-    print("best:", best, flush=True)
+    ctx.say("best:", best, flush=True)
     return output_dir, best
 
 
@@ -258,7 +319,9 @@ def parse_args(argv=None):
     p.add_argument("--use_normal", action="store_true")
     p.add_argument("--use_multiview", action="store_true")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="1 only; more devices are ROADMAP item 12")
+                   help="data-parallel ranks to spawn on this host, one device each (NCCL between "
+                   "cards, gloo between CPU ranks with --device cpu); the global --batch_size "
+                   "divides among them")
     p.add_argument("--tp", type=int, default=None, help="1 only (ROADMAP item 12)")
     p.add_argument("--trace", type=str, default=None, metavar="DIR",
                    help="capture a torch.profiler trace (Chrome/TensorBoard format) of one train "
@@ -286,14 +349,17 @@ def parse_args(argv=None):
     p.add_argument("--synthetic_scenes", type=int, default=8)
     p.add_argument("--resume", type=str, default=None,
                    help="run output dir to resume from (restores the full train state)")
-    p.add_argument("--dist_coordinator", type=str, default=None, help="not ported yet (ROADMAP item 12)")
-    p.add_argument("--dist_nprocs", type=int, default=1, help="1 only (ROADMAP item 12)")
-    p.add_argument("--dist_pid", type=int, default=0, help="0 only (ROADMAP item 12)")
-    p.add_argument("--dist_auto", action="store_true", help="not ported yet (ROADMAP item 12)")
+    p.add_argument("--dist_coordinator", type=str, default=None,
+                   help="host:port of rank 0, the same on every rank of a multi-host run")
+    p.add_argument("--dist_nprocs", type=int, default=1, help="ranks of the multi-host run")
+    p.add_argument("--dist_pid", type=int, default=0, help="this process's rank")
+    p.add_argument("--dist_auto", action="store_true",
+                   help="join the ranks of torchrun or SLURM (env://: MASTER_ADDR, MASTER_PORT, "
+                   "WORLD_SIZE, RANK)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (the CUDA kernels) or cpu (their plain versions)")
     return p.parse_args(argv)
 
 
 if __name__ == "__main__":
-    train(parse_args())
+    main(parse_args())

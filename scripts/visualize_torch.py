@@ -3,8 +3,9 @@
 The port's counterpart of scripts/visualize.py: whole-scene prediction of
 one scene (--scene_id) or of every val scene, through WholeSceneEvaluator
 on --device, then coordinate dedup and palette colours, written as ascii
-PLY to <folder>/preds/<scene_id>.ply. The flags and their refusals are
-scripts/eval_torch.py's.
+PLY to <folder>/preds/<scene_id>.ply. The flags are scripts/eval_torch.py's:
+with --num_devices or --dist_* each rank predicts and writes its own
+strided shard of the scenes.
 
   python scripts/visualize_torch.py --folder runs/X --synthetic
   python scripts/visualize_torch.py --folder runs/X --data_dir D --scene_id scene0011_00 --device cpu
@@ -22,16 +23,21 @@ import eval_torch  # noqa: E402
 
 
 def visualize(args) -> list:
-    """Write one PLY a scene; returns (path, points) per scene."""
+    """Write one PLY a scene; returns (path, points) per scene (of rank 0's
+    scenes in a data-parallel run, which returns None with --num_devices)."""
+    return eval_torch.run(visualize_rank, args)
+
+
+def visualize_rank(args, ctx) -> list:
     import numpy as np
 
     from pointnet2_scannet_tpu_torch.config import PALETTE
     from pointnet2_scannet_tpu_torch.engine.metrics import filter_points
     from pointnet2_scannet_tpu_torch.utils.ply import write_ply_points
 
-    run_dir, dataset, evaluator = eval_torch.load(args, [args.scene_id] if args.scene_id else None)
+    run_dir, dataset, evaluator = eval_torch.load(args, [args.scene_id] if args.scene_id else None, ctx)
     preds_dir = run_dir / "preds"
-    preds_dir.mkdir(exist_ok=True)
+    preds_dir.mkdir(exist_ok=True)  # every rank's scenes go into the run dir
     palette = np.asarray(PALETTE, np.uint8)
 
     def write_scene(scene_id, coords, labels, weights, preds):

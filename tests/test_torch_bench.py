@@ -160,8 +160,12 @@ def test_bench_hostpipe_torch_runs_its_probes_on_the_cpu(tmp_path):
     with contextlib.redirect_stdout(out):
         hostpipe.main(argv)
     rows = {r["metric"]: r for r in map(json.loads, out.getvalue().splitlines())}
-    assert list(rows) == ["hostpipe_scene_gen_wall", "hostpipe_store_load_wall", "hostpipe_chunk_regen_wall",
-                          "hostpipe_collate_epoch_wall", "hostpipe_train_points_per_sec"]
+    assert list(rows) == ["hostpipe_scene_gen_wall", "hostpipe_store_load_wall", "hostpipe_sharded_load_wall",
+                          "hostpipe_chunk_regen_wall", "hostpipe_collate_epoch_wall",
+                          "hostpipe_train_points_per_sec"]
+    # probe 2: rank 0's shard of 2 with the whole split's class weights
+    assert rows["hostpipe_sharded_load_wall"]["shard_scenes"] == 4
+    assert rows["hostpipe_sharded_load_wall"]["weights_match"] is True
     assert all((r["device"], r["power_limit"]) == ("cpu", None) and r["value"] > 0 for r in rows.values())
     assert len(list((tmp_path / "scenes").glob("*.npy"))) == 8
     train = rows["hostpipe_train_points_per_sec"]
@@ -172,5 +176,5 @@ def test_bench_hostpipe_torch_runs_its_probes_on_the_cpu(tmp_path):
     with contextlib.redirect_stdout(out):  # the scenes are cached: no generation, no Solver
         hostpipe.main([*argv[:-1], "--host_only"])
     metrics = [json.loads(line)["metric"] for line in out.getvalue().splitlines()]
-    assert metrics == ["hostpipe_store_load_wall", "hostpipe_chunk_regen_wall", "hostpipe_collate_epoch_wall",
-                       "hostpipe_peak_rss"]
+    assert metrics == ["hostpipe_store_load_wall", "hostpipe_sharded_load_wall", "hostpipe_chunk_regen_wall",
+                       "hostpipe_collate_epoch_wall", "hostpipe_peak_rss"]

@@ -360,12 +360,16 @@ def test_train_eval_visualize_chain(tmp_path):
 
 
 @pytest.mark.parametrize("script", ["eval_torch", "visualize_torch"])
-@pytest.mark.parametrize("flag", [["--num_devices", "2"], ["--dist_coordinator", "localhost:1234"],
-                                  ["--dist_nprocs", "2"], ["--dist_pid", "1"], ["--dist_auto"]])
+@pytest.mark.parametrize("flag", [["--num_devices", "64", "--device", "cuda"],
+                                  ["--dist_coordinator", "localhost:1234", "--num_devices", "2"],
+                                  ["--dist_nprocs", "2", "--num_devices", "2"],
+                                  ["--dist_pid", "1", "--num_devices", "2"], ["--dist_auto", "--num_devices", "2"]])
 def test_data_parallel_and_multi_host_flags_raise(tmp_path, script, flag):
+    # data-parallel evaluation is ported (tests/test_torch_parallel_cli.py);
+    # what it refuses: more ranks than cards, --num_devices beside --dist_*
     mod = _script(script)
     entry = mod.evaluate if script == "eval_torch" else mod.visualize
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="ranks on this host but only|cannot be combined with --dist_"):
         entry(mod.parse_args(["--folder", str(tmp_path), "--device", "cpu", "--synthetic", *flag]))
 
 

@@ -134,6 +134,7 @@ def test_port_imports_without_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pointnet2_scannet_tpu')]\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 20, mods\n"
+        "assert {'pointnet2_scannet_tpu_torch.parallel.distributed', 'pointnet2_scannet_tpu_torch.parallel.step'} <= set(mods)\n"
         "print('ok', len(mods))\n"
     )
     out = subprocess.run(

@@ -154,17 +154,19 @@ def test_msg_run_trains_and_infer_torch_serves_it(tmp_path):
 
 @pytest.mark.parametrize(
     "flag",
-    # whole-scene training is ported; over several devices it is not
-    [["--use_wholescene", "--num_devices", "2"], ["--num_devices", "2"],
-     ["--tp", "2"], ["--dist_coordinator", "localhost:1234"], ["--dist_nprocs", "2"],
-     ["--dist_auto"]],
+    # data parallelism is ported (tests/test_torch_parallel_cli.py); --tp
+    # (dp x tp) is not, and is refused alone and beside every dp flag
+    [["--use_wholescene", "--tp", "2"], ["--num_devices", "2", "--tp", "2"],
+     ["--tp", "2"], ["--dist_coordinator", "localhost:1234", "--tp", "2"],
+     ["--dist_nprocs", "2", "--tp", "2"], ["--dist_auto", "--tp", "2"]],
     ids=lambda f: f[0].lstrip("-"),
 )
 def test_unported_flags_raise_with_their_roadmap_item(flag, tmp_path):
     train_torch = _script("train_torch")
     args = train_torch.parse_args([*BASE, "--output_root", str(tmp_path), *flag])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d+"):
-        train_torch.train(args)
+    for entry in (train_torch.main, train_torch.train):
+        with pytest.raises(NotImplementedError, match=r"--tp: .*ROADMAP queue 1, item 12"):
+            entry(args)
     assert not any(tmp_path.iterdir())  # raised before anything was written
 
 
