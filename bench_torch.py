@@ -21,10 +21,11 @@ model's weights from torch.Generator().manual_seed(0). Other fields:
   ssg_bf16_points_per_sec,        dtype=torch.bfloat16): float32 parameters,
   msg_bf16_points_per_sec,        Adam state and loss), SSG and MSG, the
   msg_bf16_step_ms[_min|_max]     same way on the same inputs
-  step_ms_bf16_per_dispatch       step_ms_bf16 itself: the port runs one step
-                                  a dispatch (bench.py's K-step fusion has no
-                                  counterpart here)
-  train_repeats, fused_steps      3; 1 (the port runs one step a dispatch)
+  step_ms_bf16_per_dispatch       step_ms_bf16 itself: these cells time one
+                                  eager step a dispatch (the fused steps'
+                                  CUDA graph of K steps, bench.py's K-step
+                                  fusion, is timed by chip_smoke.py phase 28)
+  train_repeats, fused_steps      3; 1 (one eager step a dispatch)
   model_tflops_fwd                bench.py's analytic forward matmul FLOPs of
                                   the SSG model at B 32 x 8192 (TF)
   mfu_f32                         3 x those FLOPs / SSG step / the card's

@@ -234,7 +234,28 @@
     scenes: the merged report equal to the single-process report on the
     card, and one PLY a scene. NCCL across two or more cards is not run
     here (one card).
-28. Print one JSON line of kernel results (time, plain time, the card's bound
+28. The fused steps (parallel/step.make_fused_train_step: FUSED_K train
+    steps as one CUDA graph launch). (a) SSG float32 at 32 x 8192, Dropout
+    0.5: from one seeded state, one launch and 8 eager steps over the same
+    batches agree bit for bit (8 losses, 8 confusions, every parameter and
+    BatchNorm statistic, Adam's moments and step counts, the Dropout
+    generator), twice (the capturing call, then a plain replay); the capture
+    counts 8 times an eager step's launches; a torch.profiler trace of the
+    replay names the path's hand-written kernels (a, b, d, h, i) and no
+    other, none more often than the capture counted (fewer only where the
+    profiler dropped events, which the line reports). (b) The same for MSG (c in
+    place of b), SSG bfloat16 (d and h on bfloat16 rows) and the
+    device-resident store (d on store rows, with augmentation). (c) ms a
+    step, eager against the graph, median (min, max) of 3 windows of 24
+    steps; the capture's time and its pool's MiB. (d) One NCCL rank: (a)'s
+    gates with the BatchNorm and gradient all-reduces captured in the graph,
+    and (c)'s timing over windows of 8 steps. (e) Two gloo ranks sharing the
+    card, each training from its own scene shard's device store with
+    --fused_steps 8 (eager under gloo): no WARNING, the eager mode line,
+    losses equal bit for bit to the data-parallel host path's. (f) Phase 10's SSG run through
+    train_torch.py at batch 4 (an epoch one group of 8) with --fused_steps
+    8, then a resume: the mode line and the capture line in both.
+29. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -242,7 +263,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26 and 27 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27 and 28 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -368,6 +389,21 @@ DP_WS_COLUMNS, DP_WS_BATCH = 20, 16
 # would lie within twice that of each other
 DP_GRAD_BOUND = 2 * TRAIN_GRAD_VS_CPU
 DP_WARM, DP_TIMED = 2, 5
+# phase 28, the fused steps: K steps a CUDA graph launch (the train CLI's
+# default); the timing windows (steps a window, windows; one NCCL rank's
+# windows shorter); the two gloo ranks' store runs and the train CLI run,
+# at batch 4 over phase 10's 32 scenes so that an epoch is one group of K
+# (16 scenes a rank: one group), the ranks' scenes of FUSED_DP_POINTS
+FUSED_K = 8
+FUSED_WINDOW_STEPS, FUSED_WINDOWS, FUSED_NCCL_WINDOW_STEPS = 24, 3, 8
+FUSED_SCENES, FUSED_BATCH, FUSED_DP_POINTS = 32, 4, 30_000
+# the hand-written kernels a replay's trace may name, by TPU kernel letter
+# (b and c share ball_scan.cuh's kernels: one radius row, or two)
+TRACE_LETTERS = (("a", r"fps(_cluster)?_kernel\b"), ("b", r"ball_query_(resident|tiled)_kernel<1>"),
+                 ("c", r"ball_query_(resident|tiled)_kernel<2>"), ("d", r"gather_kernel\b"),
+                 ("h", r"block_kernel\b"), ("i", r"three_nn_kernel\b"))
+LETTER_KERNEL = {"a": "furthest_point_sample", "b": "ball_query", "c": "ball_query_multi", "d": "gather",
+                 "h": "scatter_add", "i": "three_nn"}
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
 
@@ -2757,6 +2793,389 @@ def data_parallel(torch, tmp: pathlib.Path) -> dict:
     return {"launches": total}
 
 
+def fused_batches(k: int, batch: int, seed: int) -> list:
+    """k host batches of full-width random columns (xyz in a 1.5 m cube,
+    6 feature channels, 20 classes, per-point weights)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"points": np.concatenate([rng.uniform(0, 1.5, (batch, NPOINTS, 3)),
+                                       rng.uniform(-1, 1, (batch, NPOINTS, 6))], -1).astype(np.float32),
+             "labels": rng.integers(0, 20, (batch, NPOINTS)).astype(np.int32),
+             "weights": rng.uniform(0.5, 2.0, (batch, NPOINTS)).astype(np.float32),
+             "row_mask": np.ones(batch, np.float32)} for _ in range(k)]
+
+
+def resident_store(torch) -> dict:
+    """A device store of 2 x FUSED_K x BATCH full-width random columns."""
+    import numpy as np
+
+    cols = fused_batches(2 * FUSED_K, BATCH, 0)
+    return {"points": torch.from_numpy(np.concatenate([c["points"].reshape(-1, 9) for c in cols])).cuda(),
+            "labels": torch.from_numpy(np.concatenate([c["labels"].reshape(-1) for c in cols])).cuda(),
+            "wtable": torch.linspace(0.5, 2.0, 20, device="cuda")}
+
+
+def resident_batches(store: dict, k: int, seed: int) -> list:
+    """k resident batches naming BATCH x NPOINTS rows of store each, with
+    augmentation parameters (rotations about z, translations, scales)."""
+    import numpy as np
+
+    rows = store["points"].shape[0]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        angle = rng.uniform(-0.1, 0.1, BATCH)
+        rot = np.zeros((BATCH, 3, 3), np.float32)
+        rot[:, 0, 0] = rot[:, 1, 1] = np.cos(angle)
+        rot[:, 0, 1], rot[:, 1, 0], rot[:, 2, 2] = -np.sin(angle), np.sin(angle), 1.0
+        out.append({"idx": rng.integers(0, rows, (BATCH, NPOINTS)).astype(np.int32),
+                    "row_mask": np.ones(BATCH, np.float32), "rot": rot,
+                    "trans": rng.uniform(-0.5, 0.5, (BATCH, 3)).astype(np.float32),
+                    "scale": rng.uniform(0.95, 1.05, BATCH).astype(np.float32)})
+    return out
+
+
+def whole_state(state) -> dict:
+    """Everything a train step changes: parameters and BatchNorm statistics,
+    Adam's moments and step counts, the Dropout generator, the step count."""
+    opt = state.optimizer
+    return {"model": {k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            "adam": {f"{i}.{k}": v.clone() for i, p in enumerate(state.model.parameters())
+                     for k, v in opt.state[p].items()},
+            "generator": state.generator.get_state(), "step": state.step}
+
+
+def state_differs(torch, got: dict, want: dict) -> list:
+    differ = [f"model.{k}" for k, v in want["model"].items() if not torch.equal(got["model"][k], v)]
+    differ += [f"adam.{k}" for k, v in want["adam"].items() if not torch.equal(got["adam"][k], v)]
+    if not torch.equal(got["generator"], want["generator"]) or got["step"] != want["step"]:
+        differ.append("generator or step")
+    return differ
+
+
+def csrc_kernels() -> set:
+    """The names of the __global__ functions in csrc/."""
+    import re
+
+    csrc = ROOT / "pointnet2_scannet_tpu_torch" / "csrc"
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)")
+    return {m for f in sorted(csrc.glob("*.cu*")) for m in pattern.findall(f.read_text())}
+
+
+def replay_kernels(torch, fn) -> dict:
+    """The hand-written kernels that one call of fn launches on the card, by
+    TPU kernel letter, from a torch.profiler trace ("other:<name>" for a
+    csrc/ kernel outside TRACE_LETTERS; PyTorch's own kernels are left out)."""
+    import collections
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    ours = csrc_kernels()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.match(r"void \(anonymous namespace\)::(.*)", e.name)
+        if m is None or re.match(r"\w+", m.group(1)).group(0) not in ours:
+            continue
+        letters = [c for c, pattern in TRACE_LETTERS if re.match(pattern, m.group(1))]
+        out[letters[0] if letters else "other:" + m.group(1).split("(")[0]] += 1
+    return dict(out)
+
+
+def fused_vs_eager(torch, kind: str, *, dtype=None, resident: bool = False, group=None) -> dict:
+    """Phase 28 (a), (b), (d): from one seeded state, FUSED_K eager steps and
+    one CUDA graph launch of the fused step over the same BATCH x NPOINTS
+    batches (Dropout 0.5) must agree bit for bit: losses, confusions, every
+    parameter and BatchNorm statistic, Adam's moments and step counts, the
+    Dropout generator; the capture must count FUSED_K times an eager step's
+    launches; a second group's launch, traced by torch.profiler, must equal
+    FUSED_K more eager steps and launch the path's hand-written kernels and
+    no other, none more often than the capture counted. Returns the states, the
+    fused step and this run's launches (the warm-up's and the capture's)."""
+    from pointnet2_scannet_tpu_torch.data.pipeline import HostGroup
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.parallel.step import make_fused_train_step, make_resident_fused_train_step
+
+    name = (f"{kind.upper()} {'bfloat16' if dtype is not None else 'float32'}{', device store' * resident}"
+            f"{', one NCCL rank' * (group is not None)}")
+    eager, graph = (bench_torch.fresh_state(kind, "cuda", 0.5, dtype=dtype, bn_group=group) for _ in range(2))
+    fused = (make_resident_fused_train_step if resident else make_fused_train_step)(
+        graph.model, group, num_classes=20, log=print)
+    if fused.mode != "graph":
+        raise RuntimeError(f"fused steps {name}: mode {fused.mode}, not one CUDA graph")
+    store = None
+    per_step = run_launches = None
+    for group_index in range(2):
+        if resident:
+            store = store or resident_store(torch)
+            batches = resident_batches(store, FUSED_K, group_index)
+        else:
+            batches = fused_batches(FUSED_K, BATCH, group_index)
+        want = []
+        for i, b in enumerate(batches):
+            if i == 1 and per_step is None:
+                per_step = kernels.launch_counts()
+            if i == 0:
+                kernels.reset_launch_counts()
+            b = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+            want.append(ts.resident_train_step(eager, store, b, num_classes=20, group=group) if resident
+                        else ts.train_step(eager, b, num_classes=20, group=group))
+        host = HostGroup(batches, pin=True)
+        call = (lambda: fused(graph, store, host)) if resident else (lambda: fused(graph, host))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        if group_index == 0:
+            got = call()
+            torch.cuda.synchronize()
+            run_launches = kernels.launch_counts()
+        else:
+            box = {}
+            traced = replay_kernels(torch, lambda: box.update(got=call()))
+            got = box["got"]
+        differ = state_differs(torch, whole_state(graph), whole_state(eager))
+        if not (torch.equal(got["loss"], torch.stack([w["loss"] for w in want]))
+                and torch.equal(got["confusion"], torch.stack([w["confusion"] for w in want]))) or differ:
+            raise RuntimeError(f"fused steps {name}, group {group_index + 1}: the graph launch differs from "
+                               f"{FUSED_K} eager steps (losses {got['loss'].tolist()} against "
+                               f"{[float(w['loss']) for w in want]}; tensors {differ[:6]})")
+    capture = fused.captures[0]
+    if capture["launches"] != {k: FUSED_K * n for k, n in per_step.items()}:
+        raise RuntimeError(f"fused steps {name}: the capture counted {capture['launches']}, not {FUSED_K} x "
+                           f"an eager step's {per_step}")
+    # the path's kernels and no other; none more often than the capture
+    # recorded (fewer: events the profiler dropped, reported)
+    want_letters = {c: capture["launches"][k] for c, k in LETTER_KERNEL.items() if capture["launches"][k]}
+    if set(traced) != set(want_letters) or any(traced[c] > n for c, n in want_letters.items()):
+        raise RuntimeError(f"fused steps {name}: one replay launched the hand-written kernels {traced}, not "
+                           f"the capture's {want_letters}")
+    dropped = {c: n - traced[c] for c, n in want_letters.items() if traced[c] < n}
+    print(f"fused steps {name} (K {FUSED_K}, {BATCH} x {NPOINTS}, Dropout 0.5): two CUDA graph launches "
+          f"each equal bit for bit to {FUSED_K} eager steps (losses, confusions, {len(want_letters)} kernels' "
+          f"path, {sum(1 for _ in graph.model.parameters())} parameters, BatchNorm statistics, Adam state, "
+          f"generator); capture {capture['seconds']:.2f} s (warm-up included), pool "
+          f"{capture['pool_bytes'] / 2**20:.1f} MiB; capture counts {FUSED_K} x an eager step's {per_step}; one "
+          f"replay's trace {traced} (events the profiler dropped: {dropped or 'none'})", flush=True)
+    return {"eager": eager, "graph": graph, "fused": fused, "store": store,
+            "launches": run_launches}
+
+
+def fused_timing(torch, run: dict, group=None) -> dict:
+    """Phase 28 (c), (d): ms a step, eager (one train_step on a device
+    batch) against the graph (one launch of FUSED_K steps fed from a pinned
+    host group, as the Solver feeds it, / FUSED_K): FUSED_WINDOWS windows of
+    FUSED_WINDOW_STEPS steps each (FUSED_NCCL_WINDOW_STEPS with a group),
+    CUDA events."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.data.pipeline import HostGroup
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    batches = fused_batches(FUSED_K, BATCH, 7)
+    host = HostGroup(batches, pin=True)
+    device = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in batches]
+    steps = FUSED_WINDOW_STEPS if group is None else FUSED_NCCL_WINDOW_STEPS
+    i = iter(range(10**9))
+    eager = bench_torch.timed_windows(
+        lambda: ts.train_step(run["eager"], device[next(i) % FUSED_K], num_classes=20, group=group), "cuda",
+        steps, FUSED_WINDOWS, 2)
+    graph = [ms / FUSED_K for ms in bench_torch.timed_windows(
+        lambda: run["fused"](run["graph"], host), "cuda", steps // FUSED_K, FUSED_WINDOWS, 1)]
+    out = {"eager": eager, "graph": graph}
+    print("fused steps timing" + (" (one NCCL rank)" if group is not None else "") + ", ms a step of "
+          f"{BATCH} x {NPOINTS}, median (min, max) of {FUSED_WINDOWS} windows of {steps} steps: "
+          + "; ".join(f"{k} {np.median(v):.3f} ({v[0]:.3f}, {v[-1]:.3f})" for k, v in out.items())
+          + f"; {bench_torch.card_line()}", flush=True)
+    return out
+
+
+def fused_dp_rank(rank: int, port: int, tmp: str) -> None:
+    """Phase 28 (e) on one of DP_RANKS gloo ranks sharing cuda:0: the
+    chunked Solver over this rank's shard of FUSED_SCENES scenes (global
+    batch FUSED_BATCH, augmentation off, one epoch: one group a rank) on the
+    host path, then from the rank's device store with --fused_steps
+    FUSED_K; writes the per-step losses, the output and the launches to
+    <tmp>/fused_rank<rank>.pt."""
+    import contextlib
+    import io
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from pointnet2_scannet_tpu_torch.config import DataConfig, RunConfig, TrainConfig
+    from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.engine.solver import Solver
+    from pointnet2_scannet_tpu_torch.models import get_model
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.parallel.distributed import initialize_distributed, shutdown
+
+    tmp = pathlib.Path(tmp)
+    ctx = initialize_distributed(f"127.0.0.1:{port}", DP_RANKS, rank, device="cuda", backend="gloo")
+    shard = bench_torch.solver_store(FUSED_SCENES, FUSED_DP_POINTS).shard(rank, DP_RANKS)
+    got, step = {}, ts.train_step
+    for path in ("host", "resident"):
+        losses = []
+
+        def recorded(state, batch, **kwargs):  # the fused steps and resident_train_step call it too
+            out = step(state, batch, **kwargs)
+            losses.append(out["loss"])
+            return out
+
+        cfg = RunConfig(tag="chip_smoke", data=DataConfig(npoints=NPOINTS, use_color=True, use_normal=True,
+                                                          augment=False),
+                        train=TrainConfig(batch_size=FUSED_BATCH, epochs=1, verbose=0, seed=0,
+                                          device_store=path == "resident",
+                                          fused_steps=FUSED_K if path == "resident" else 1))
+        ds = ChunkedSceneDataset(shard, cfg.data, phase="train", seed=0)
+        model = get_model(20, is_msg=False, input_channels=6, bn_group=ctx.group,
+                          generator=torch.Generator().manual_seed(0))
+        log = io.StringIO()
+        ts.train_step = recorded
+        try:
+            with contextlib.redirect_stdout(log):
+                solver = Solver(model, ds, None, cfg, tmp / f"fused_{path}", device=ctx.device, process_ctx=ctx)
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                solver()
+                torch.cuda.synchronize()
+        finally:
+            ts.train_step = step
+        got[path] = {"losses": torch.stack(losses).cpu(), "log": log.getvalue(), "launches": kernels.launch_counts(),
+                     "device_store": solver.device_store, "steps": solver.state.step,
+                     "mode": solver._fused_step.describe(FUSED_K) if solver._fused_step is not None else None}
+        check_launches(got[path]["launches"], "ssg", True, f"two-rank {path} Solver, rank {rank}")
+        del solver, model
+    torch.save(got, tmp / f"fused_rank{rank}.pt")
+    shutdown(ctx)
+
+
+def fused_cli(torch, tmp: pathlib.Path) -> dict:
+    """Phase 28 (f): phase 10's SSG run through train_torch.py at batch
+    FUSED_BATCH (an epoch of FUSED_SCENES scenes is one group of FUSED_K),
+    --fused_steps FUSED_K, 1 epoch, then a resume for a second: the mode line
+    and the capture line in both, finite losses, the kernels of the path."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    train_torch = load_script("train_torch")
+    argv = ["--synthetic", "--synthetic_scenes", str(FUSED_SCENES), "--batch_size", str(FUSED_BATCH),
+            "--npoints", str(NPOINTS), "--use_color", "--use_normal", "--verbose", str(FUSED_K), "--device",
+            "cuda", "--tag", "chip_smoke_fused", "--output_root", str(tmp / "fused_cli")]
+    line = (f"{FUSED_SCENES // FUSED_BATCH} steps per epoch, fused_steps {FUSED_K}: one CUDA graph per "
+            f"{FUSED_K} steps")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    logs, run_dir = [], None
+    for extra in (["--epoch", "1", "--fused_steps", str(FUSED_K)], ["--epoch", "2", "--resume", "RUN"]):
+        log = io.StringIO()
+        extra = [str(run_dir) if a == "RUN" else a for a in extra]
+        with contextlib.redirect_stdout(log):
+            run_dir, _ = train_torch.train(train_torch.parse_args(argv + extra))
+        logs.append(log.getvalue())
+        print(log.getvalue(), end="", flush=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launches(launches, "ssg", True, "--fused_steps training and its resume")
+    losses = [float(m) for log in logs for m in re.findall(r"done: train loss (\S+)", log)]
+    for what, log in zip(("run", "resume"), logs):
+        if line not in log or f"captured {FUSED_K} train steps as one CUDA graph" not in log:
+            raise RuntimeError(f"train_torch.py --fused_steps {FUSED_K} ({what}) printed no '{line}' or no capture")
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"--fused_steps training: train losses {losses}, not 2 epochs of finite values")
+    print(f"fused steps (f): train_torch.py --fused_steps {FUSED_K}, then --resume: '{line}' both times; "
+          f"train losses {losses}; launches {launches}", flush=True)
+    return {"launches": launches}
+
+
+def fused_steps(torch, tmp: pathlib.Path) -> dict:
+    """Phase 28; returns the launches of its main-path runs."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pointnet2_scannet_tpu_torch.parallel import initialize_distributed
+    from pointnet2_scannet_tpu_torch.parallel.distributed import free_port, shutdown, spawn
+
+    t0 = time.perf_counter()
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    def part(what: str) -> None:
+        print(f"phase 28 {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a), (c)
+    run = fused_vs_eager(torch, "ssg")
+    add(run["launches"])
+    part("(a)")
+    fused_timing(torch, run)
+    del run
+    part("(c)")
+    # (b)
+    for kind, dtype, resident in (("msg", None, False), ("ssg", torch.bfloat16, False), ("ssg", None, True)):
+        add(fused_vs_eager(torch, kind, dtype=dtype, resident=resident)["launches"])
+        part(f"(b) {kind} {dtype} {'resident' * resident}")
+    torch.cuda.empty_cache()
+    # (d) one NCCL rank (env://), its all-reduces captured in the graph
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1", "RANK": "0"}
+    os.environ.update(env)
+    try:
+        ctx = initialize_distributed(None, auto=True, device="cuda")
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    if dist.get_backend(ctx.group) != "nccl":
+        raise RuntimeError(f"the one-rank group runs {dist.get_backend(ctx.group)}, not NCCL")
+    run = fused_vs_eager(torch, "ssg", group=ctx.group)
+    add(run["launches"])
+    part("(d)'s check")
+    fused_timing(torch, run, ctx.group)
+    del run
+    shutdown(ctx)
+    part("(d)")
+    torch.cuda.empty_cache()
+    # (e) two gloo ranks sharing the card, each with its own device store
+    spawn(fused_dp_rank, DP_RANKS, (free_port(), str(tmp)), timeout=300)
+    ranks = [torch.load(tmp / f"fused_rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    mode = f"fused_steps {FUSED_K}: {FUSED_K} eager steps per group (gloo)"
+    for r, got in enumerate(ranks):
+        host, res = got["host"], got["resident"]
+        if not res["device_store"] or "WARNING" in res["log"] or res["mode"] != mode:
+            raise RuntimeError(f"fused steps (e), rank {r}: device_store {res['device_store']}, mode {res['mode']}, "
+                               f"log {res['log'][-300:]!r}")
+        if not torch.equal(res["losses"], host["losses"]) or res["steps"] != FUSED_K or host["steps"] != FUSED_K:
+            raise RuntimeError(f"fused steps (e), rank {r}: losses {res['losses'].tolist()} against the host "
+                               f"path's {host['losses'].tolist()}")
+        add(res["launches"])
+        add(host["launches"])
+    if not torch.equal(ranks[0]["resident"]["losses"], ranks[1]["resident"]["losses"]):
+        raise RuntimeError("fused steps (e): the ranks' global losses differ")
+    print(f"fused steps (e): {DP_RANKS} gloo ranks on cuda:0, each from its own device store ({FUSED_SCENES} "
+          f"scenes of {FUSED_DP_POINTS} points, global batch {FUSED_BATCH}): no WARNING, '{mode}', {ranks[0]['resident']['steps']} steps with "
+          f"losses equal bit for bit to the data-parallel host path's {ranks[0]['host']['losses'].tolist()}; "
+          f"launches {[got['resident']['launches'] for got in ranks]}", flush=True)
+    part("(e)")
+    # (f)
+    add(fused_cli(torch, tmp)["launches"])
+    print(f"phase 28 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": total}
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2916,6 +3335,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 27
         tally(data_parallel(torch, pathlib.Path(tmp)))
     lap(start, "phase 27")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 28
+        tally(fused_steps(torch, pathlib.Path(tmp)))
+    lap(start, "phase 28")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -254,6 +254,8 @@ cudaError_t launch_fps(const T* xyz, int B, int N, int npoint, int skip, int clu
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  // a stream capture records this launch, cluster dimension included, as a
+  // kernel node (the fused train steps' CUDA graphs at rows past 16384)
   err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<T, PPT>, xyz, N, share, npoint, skip, out);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -2,6 +2,9 @@
 // cudaFuncSetAttribute costs the host more time than launching a small
 // kernel, so each launch site keeps what it has already set in a static
 // array of its own (one entry per device) and calls it only to go higher.
+// Under CUDA graph capture (the fused train steps) no call is made: their
+// warm-up runs every launch at the captured shapes before the capture, so
+// the capture finds each limit raised already.
 #pragma once
 
 #include <cuda_runtime.h>

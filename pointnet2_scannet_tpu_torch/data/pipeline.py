@@ -9,10 +9,19 @@ with the step that runs on it: a background thread pins each host batch and
 copies it on a side CUDA stream, recording an event; the consumer makes its
 current stream wait on that event before it touches the batch. On the CPU it
 is a plain pass-through that wraps the arrays as tensors.
+
+prefetch_groups feeds the fused steps (parallel/step.make_fused_train_step):
+a background thread stacks each K host batches into one HostGroup, a single
+(pinned, on a card) buffer that holds every array of the group at its
+GroupLayout offsets, and hands the epoch's leftover batches over one at a
+time. The consumer copies a group into the CUDA graph's input slots, which
+share the layout, with one non_blocking copy on its own stream, so the copy
+is ordered before the graph's launch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from collections.abc import Iterator
@@ -116,6 +125,109 @@ def prefetch_to_device(
             yield (item, placed) if keep_host else placed
         return
 
+    def copies(copy_stream: torch.cuda.Stream):
+        with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+            for item in iterator:
+                placed = {
+                    k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
+                    for k, v in item.items()
+                }
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+                yield item, placed, ready
+
+    for item, placed, ready in _background(copies(torch.cuda.Stream(device))):
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(ready)
+        for t in placed.values():
+            t.record_stream(stream)  # allocated on the side stream, used here
+        yield (item, placed) if keep_host else placed
+
+_ALIGN = 256  # bytes: every array of a group starts on this boundary
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupLayout:
+    """Where each array of a K-stacked group lies in one flat byte buffer:
+    (name, shape with the leading K, torch dtype, byte offset) per array,
+    in the order of the batch's keys."""
+
+    fields: tuple[tuple[str, tuple[int, ...], torch.dtype, int], ...]
+    nbytes: int
+
+    @classmethod
+    def of(cls, shapes: dict[str, tuple[tuple[int, ...], torch.dtype]]) -> "GroupLayout":
+        fields, offset = [], 0
+        for name, (shape, dtype) in shapes.items():
+            fields.append((name, tuple(shape), dtype, offset))
+            size = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+            offset += -(-size // _ALIGN) * _ALIGN
+        return cls(tuple(fields), offset)
+
+    @property
+    def k(self) -> int:
+        return self.fields[0][1][0]
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Each array as a view of the flat uint8 buffer."""
+        out = {}
+        for name, shape, dtype, offset in self.fields:
+            size = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+            out[name] = flat[offset : offset + size].view(dtype).view(shape)
+        return out
+
+
+class HostGroup:
+    """K host batches stacked into one host buffer (pinned with pin=True):
+    layout, buffer (flat uint8), arrays (name -> (K, ...) tensor views of
+    buffer). Every batch must have the same keys, shapes and dtypes."""
+
+    def __init__(self, batches: list[dict[str, np.ndarray]], *, pin: bool = False):
+        first = batches[0]
+        self.layout = GroupLayout.of({
+            name: ((len(batches),) + a.shape, torch.from_numpy(np.ascontiguousarray(a[:0])).dtype)
+            for name, a in first.items()})
+        self.buffer = torch.empty(self.layout.nbytes, dtype=torch.uint8, pin_memory=pin)
+        self.arrays = self.layout.views(self.buffer)
+        for name, view in self.arrays.items():
+            np.stack([b[name] for b in batches], out=view.numpy())
+
+    @property
+    def k(self) -> int:
+        return self.layout.k
+
+    def to(self, device: torch.device | str) -> dict[str, torch.Tensor]:
+        """The group's arrays on device, moved by one copy of the buffer
+        (non_blocking from pinned memory, on the current stream)."""
+        return self.layout.views(self.buffer.to(device, non_blocking=True))
+
+
+def prefetch_groups(iterator, k: int, *, device: torch.device | str) -> Iterator:
+    """Yield each k batches of `iterator` as one HostGroup, then the leftover
+    (fewer than k) batches as host batches, one at a time (the JAX
+    package's Solver._fused_group_stream). On a CUDA device a background
+    thread stacks the groups into pinned buffers, PREFETCH of them ahead;
+    on the CPU they are stacked in line."""
+    device = torch.device(device)
+
+    def groups():
+        buf = []
+        for batch in iterator:
+            buf.append(batch)
+            if len(buf) == k:
+                yield HostGroup(buf, pin=device.type == "cuda")
+                buf = []
+        yield from buf
+
+    if device.type != "cuda":
+        yield from groups()
+        return
+    yield from _background(groups())
+
+
+def _background(iterator) -> Iterator:
+    """The items of iterator, produced by a background thread up to PREFETCH
+    ahead; an exception there is raised here."""
     q: queue.Queue = queue.Queue(maxsize=PREFETCH)
     done = object()
     stop = threading.Event()
@@ -130,26 +242,19 @@ def prefetch_to_device(
                 continue
         return False
 
-    def producer(copy_stream: torch.cuda.Stream):
+    def producer():
         try:
-            with torch.cuda.device(device), torch.cuda.stream(copy_stream):
-                for item in iterator:
-                    placed = {
-                        k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
-                            device, non_blocking=True
-                        )
-                        for k, v in item.items()
-                    }
-                    ready = torch.cuda.Event()
-                    ready.record(copy_stream)
-                    if not put((item, placed, ready)):
-                        return
+            for item in iterator:
+                if not put(item):
+                    return
         except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
             errors.append(e)
         finally:
+            if hasattr(iterator, "close"):  # a generator's cleanup runs on this thread
+                iterator.close()
             put(done)
 
-    thread = threading.Thread(target=producer, args=(torch.cuda.Stream(device),), daemon=True)
+    thread = threading.Thread(target=producer, daemon=True)
     thread.start()
     try:
         while True:
@@ -158,12 +263,7 @@ def prefetch_to_device(
                 if errors:
                     raise errors[0]
                 return
-            item, placed, ready = got
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(ready)
-            for t in placed.values():
-                t.record_stream(stream)  # allocated on the side stream, used here
-            yield (item, placed) if keep_host else placed
+            yield got
     finally:
         stop.set()
         thread.join(timeout=10)

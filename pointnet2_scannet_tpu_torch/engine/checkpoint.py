@@ -52,7 +52,7 @@ def save_checkpoint(
     directory = pathlib.Path(directory)
     path = save_state_dict(directory, name, state.model.state_dict())
     train = {
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": _portable(state.optimizer.state_dict()),
         "step": state.step,
         "generator": state.generator.get_state(),
     }
@@ -64,6 +64,31 @@ def save_checkpoint(
     return path
 
 
+def _portable(optimizer_state: dict) -> dict:
+    """An optimizer state_dict whose learning rates are floats (a capturable
+    optimizer holds its rate as a device tensor), so that a run resumes on
+    either device."""
+    for group in optimizer_state["param_groups"]:
+        if torch.is_tensor(group["lr"]):
+            group["lr"] = float(group["lr"])
+    return optimizer_state
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """Load a saved optimizer state into optimizer, keeping this optimizer's
+    mode (capturable on a card, with its learning-rate tensor; foreach)
+    whatever the saving run's: each step count then lies on the device that
+    mode wants."""
+    kept = [{k: g[k] for k in ("lr", "capturable", "foreach")} for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, keep in zip(optimizer.param_groups, kept):
+        group.update(keep)
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(p.device if group["capturable"] else "cpu")
+
+
 def restore_checkpoint(directory: str | pathlib.Path, name: str, state, rank: int = 0) -> dict[str, Any]:
     """Load a checkpoint into an existing TrainState in place; returns the
     meta dict ("epoch", "best"). rank: the rank whose Dropout generator
@@ -72,7 +97,7 @@ def restore_checkpoint(directory: str | pathlib.Path, name: str, state, rank: in
     directory = pathlib.Path(directory)
     state.model.load_state_dict(load_state_dict(directory, name), strict=True)
     train = torch.load(directory / f"{name}.train.pt", map_location="cpu", weights_only=True)
-    state.optimizer.load_state_dict(train["optimizer"])
+    _load_optimizer(state.optimizer, train["optimizer"])
     state.step = int(train["step"])
     generators = train.get("generators") or [train["generator"]]
     if rank < len(generators):

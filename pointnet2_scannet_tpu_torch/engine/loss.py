@@ -58,10 +58,13 @@ def weighted_cross_entropy_sharded(
     over the ranks, is the global gradient.
 
     Without a row_mask, the local mean times n_local / n_global, the same
-    quotient, which one rank computes as weighted_cross_entropy does."""
+    quotient, which one rank computes as weighted_cross_entropy does.
+
+    Capture-safe: the counts are made and summed on the device (a fill, not
+    a copy from host memory), so the step can run inside a CUDA graph."""
     ce = softmax_ce_integer(logits, labels)
     if row_mask is None:
-        n = torch.tensor(float(ce.numel()), dtype=ce.dtype, device=ce.device)
+        n = torch.full((), ce.numel(), dtype=ce.dtype, device=ce.device)
         total = n.clone()
         dist.all_reduce(total, group=group)
         return (ce * weights).mean() * (n / total)

@@ -37,11 +37,22 @@ over the ranks; only the coordinator writes the run dir (config.json,
 checkpoints, logs, best.txt) and prints; a resume restores every rank from
 the coordinator's run dir. The whole-scene Solver does not shard scenes:
 every rank walks the same scenes and takes its rows of each micro-batch.
-The JAX package's dp x tp mesh, row-sharded resident store and fused steps
-(CUDA graphs) are not ported (ROADMAP queue 1, item 12): the device store
-trains single-process only, and the train step runs once per batch
-(--fused_steps K is recorded in the config and gives the same math per
-step as K steps fused).
+With the device store each rank flattens and uploads its own scene shard's
+rows and its ResidentBatchLoader names only those, so the store's capacity
+grows with the ranks (the JAX package's row-sharded store) and each step
+gathers locally, with no exchange; the budget rule applies to the largest
+rank's store, decided alike on every rank. The JAX package's dp x tp mesh
+is not ported (ROADMAP queue 1, item 12).
+
+With config.train.fused_steps K > 1 the chunked Solver trains K batches a
+call of parallel/step.make_fused_train_step (or its resident form; the JAX
+package's _run_train_epoch_fused): one CUDA graph launch a group on a card
+with no group or an NCCL group, K eager steps on the CPU and under gloo,
+the same math as K single steps; the epoch's leftover (len % K) batches
+take one step each. The ITER line's fetch is a group's wait / K and its
+step one settled launch / K, timed once a report window; the stats stay on
+the device until a report. Whole-scene training is not fused (the JAX
+Solver's `fusable`).
 """
 
 from __future__ import annotations
@@ -55,7 +66,13 @@ import torch
 
 from pointnet2_scannet_tpu_torch.config import RunConfig
 from pointnet2_scannet_tpu_torch.data.chunks import ChunkedSceneDataset
-from pointnet2_scannet_tpu_torch.data.pipeline import BatchLoader, prefetch_to_device
+from pointnet2_scannet_tpu_torch.data.pipeline import (
+    BatchLoader,
+    HostGroup,
+    prefetch_groups,
+    prefetch_to_device,
+    to_device,
+)
 from pointnet2_scannet_tpu_torch.data.resident import ResidentBatchLoader, flatten_store, store_nbytes
 from pointnet2_scannet_tpu_torch.data.wholescene import WholeSceneDataset
 from pointnet2_scannet_tpu_torch.engine import metrics as M
@@ -64,6 +81,8 @@ from pointnet2_scannet_tpu_torch.engine.checkpoint import restore_checkpoint, sa
 from pointnet2_scannet_tpu_torch.engine.logging import ScalarLogger
 from pointnet2_scannet_tpu_torch.parallel.distributed import ProcessContext, dropout_seed
 from pointnet2_scannet_tpu_torch.parallel.step import (
+    make_fused_train_step,
+    make_resident_fused_train_step,
     make_shardmap_accum_step,
     make_shardmap_eval_step,
     make_shardmap_train_step,
@@ -171,6 +190,12 @@ class Solver:
             self.model, schedule, weight_decay=tc.weight_decay, seed=dropout_seed(tc.seed, self.ctx.process_id)
         )
         self.store = self._upload_store(train_dataset) if self.device_store else None
+        # fused multi-step dispatch: K steps a call, the same math per step
+        self.fused_steps = max(int(tc.fused_steps or 1), 1)
+        self._fused_step = None
+        if self.fused_steps > 1 and isinstance(self.train_loader, (BatchLoader, ResidentBatchLoader)):
+            make = make_resident_fused_train_step if self.device_store else make_fused_train_step
+            self._fused_step = make(model, group, num_classes=self.num_classes, log=self.ctx.say)
         self.logger = ScalarLogger(self.output_dir) if self.ctx.is_coordinator else _NullLogger()
         self.best = {"epoch": -1, "voxel_miou": -1.0}
         self._global_iter = 0
@@ -180,19 +205,23 @@ class Solver:
     def _device_store_gate(self, wanted: bool, train_dataset) -> bool:
         """Whether this run trains from the device-resident store: only
         where it was asked for and can serve; otherwise a WARNING line says
-        why and the host path trains (the same math)."""
+        why and the host path trains (the same math). In a data-parallel run
+        each rank's store is its shard's, the budget holds the largest of
+        them, and every rank reaches the same verdict (one rank on the
+        resident path and another on the host path would deadlock in their
+        collectives): one exchange of each rank's (bytes, budget), one
+        WARNING from the coordinator."""
         if not wanted:
             return False
         if not hasattr(train_dataset, "get_item_resident"):
             reason = "the train dataset has no resident mode (chunked training only)"
-        elif self.ctx.group is not None:
-            reason = ("data-parallel ranks hold their own scene shards; the row-sharded store is "
-                      "ROADMAP queue 1, item 12")
         else:
-            nbytes = store_nbytes(train_dataset.store, self.config.data)
-            budget = _device_store_budget(self.device)
+            blocks = self.ctx.allgather_object((store_nbytes(train_dataset.store, self.config.data),
+                                                _device_store_budget(self.device)))
+            nbytes, budget = max(b[0] for b in blocks), min(b[1] for b in blocks)
+            whose = "" if len(blocks) == 1 else f" on rank {[b[0] for b in blocks].index(nbytes)}"
             reason = None if nbytes <= budget else (
-                f"flat store needs {nbytes / 2**30:.2f} GiB > budget {budget / 2**30:.1f} GiB "
+                f"flat store needs {nbytes / 2**30:.2f} GiB{whose} > budget {budget / 2**30:.1f} GiB "
                 "(set PN2_DEVICE_STORE_BUDGET_GB to raise)"
             )
         if reason is not None:
@@ -320,7 +349,16 @@ class Solver:
         self.logger.close()
         return self.best
 
+    def _single_step(self, batch: dict) -> dict:
+        """One train step on a device batch (host or resident)."""
+        if self.device_store:
+            return ts.resident_train_step(self.state, self.store, batch, num_classes=self.num_classes,
+                                          group=self.ctx.group)
+        return self._train_step(self.state, batch)
+
     def _run_train_epoch(self, epoch, epochs, verbose, t_start):
+        if self._fused_step is not None:
+            return self._run_train_epoch_fused(epoch, epochs, verbose, t_start)
         losses, cms = [], []
         fetch_times, step_times = [], []
         iters = len(self.train_loader)
@@ -333,11 +371,7 @@ class Solver:
             if timed:  # one settled step per report window, not the queue
                 _sync(self.device)
                 t_step = time.time()
-            stats = (
-                ts.resident_train_step(self.state, self.store, batch, num_classes=self.num_classes)
-                if self.device_store
-                else self._train_step(self.state, batch)
-            )
+            stats = self._single_step(batch)
             losses.append(stats["loss"])
             cms.append(stats["confusion"])
             if timed:
@@ -349,6 +383,48 @@ class Solver:
             last = time.time()
         self._global_iter += iters
         return self._epoch_stats(float(torch.stack(losses).mean()) if losses else float("nan"), cms)
+
+    def _run_train_epoch_fused(self, epoch, epochs, verbose, t_start):
+        """A train epoch of K steps a call (the JAX package's
+        _run_train_epoch_fused): groups of K, then the leftover batches one
+        step each. fetch: a group's host wait / K; step: one settled launch
+        / K, timed once a report window; the stats are read on the host only
+        at a report."""
+        losses, cms, fetch_times, step_times = [], [], [], []
+        iters = len(self.train_loader)
+        it_done = 0
+        last = time.time()
+        for item in prefetch_groups(iter(self.train_loader), self.fused_steps, device=self.device):
+            now = time.time()
+            k = item.k if isinstance(item, HostGroup) else 1
+            fetch_times.append((now - last) / k)
+            # the group whose end crosses a report boundary is the one timed
+            timed = bool(verbose) and (it_done + k) // verbose > it_done // verbose
+            if timed:
+                _sync(self.device)
+                t_step = time.time()
+            if k > 1:
+                args = (self.store, item) if self.device_store else (item,)
+                stats = self._fused_step(self.state, *args)
+            else:
+                stats = self._single_step(to_device(item, self.device))
+            if timed:
+                _sync(self.device)
+                step_times.append((time.time() - t_step) / k)
+            losses.append(stats["loss"].reshape(-1))
+            cms.append(stats["confusion"].reshape(-1, self.num_classes, self.num_classes))
+            it_done += k
+            if timed:
+                window = max(verbose // k, 1)
+                self._report(epoch, epochs, it_done - 1, iters, t_start,
+                             [torch.cat(cms[-window:])[-verbose:].sum(0)],
+                             loss=float(torch.cat(losses)[-verbose:].mean()),
+                             fetch=float(np.mean(fetch_times[-window:])), step=step_times[-1])
+            last = time.time()
+        self._global_iter += iters
+        flat = torch.cat(losses) if losses else None
+        return self._epoch_stats(float(flat.mean()) if flat is not None else float("nan"),
+                                 [torch.cat(cms).sum(0)] if cms else [])
 
     def _report(self, epoch, epochs, it, iters, t_start, cms, *, loss, fetch, step) -> None:
         """An ITER line over the report window: its mean loss, the point

@@ -9,6 +9,14 @@ and the confusion matrix counted on the batch's device. PyTorch runs the step
 eagerly; there is no compiled step to build, so TrainState holds the model
 and optimizer themselves.
 
+On a card the optimizer is Adam with capturable=True and its learning rate
+a device tensor that each step fills from the schedule: the step makes no
+host synchronisation and reads nothing from host memory, so
+parallel/step.make_fused_train_step can capture K of them in one CUDA graph
+(which reads each step's rate from a buffer on the device instead), and the
+eager steps do the same arithmetic as the graph's. On the CPU it is the
+plain Adam with a Python-float rate.
+
 Whole-scene training takes one optimizer step per scene: grad_accum_step per
 micro-batch of the scene's columns, then apply_accumulated. With the
 device-resident scene store, resident_train_step assembles its batch on the
@@ -53,11 +61,18 @@ def make_lr_schedule(
     return lambda step: lr * decay_factor ** (step // transition)
 
 
-def make_optimizer(params, lr: float, weight_decay: float = 0.0) -> torch.optim.Adam:
+def make_optimizer(params, lr: float, weight_decay: float = 0.0, *,
+                   capturable: bool = False) -> torch.optim.Adam:
     """Adam with coupled L2 weight decay (wd * param joins the gradient before
     the moments), which the JAX package writes as add_decayed_weights then
-    adam."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    adam. capturable (parameters on a card): torch's capturable Adam, its
+    step counts and learning rate (a float32 tensor) on the parameters'
+    device."""
+    params = list(params)
+    if capturable:
+        lr = torch.full((), lr, dtype=torch.float32, device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+                            capturable=capturable)
 
 
 @dataclasses.dataclass
@@ -80,25 +95,29 @@ def create_train_state(
     seed: int = 0,
 ) -> TrainState:
     """A state over `model`; the Dropout generator lives on the model's
-    device and is seeded from `seed`."""
+    device and is seeded from `seed`; on a card the optimizer is capturable
+    (the module docstring)."""
     device = next(model.parameters()).device
     return TrainState(
         model=model,
-        optimizer=make_optimizer(model.parameters(), schedule(0), weight_decay),
+        optimizer=make_optimizer(model.parameters(), schedule(0), weight_decay,
+                                 capturable=device.type == "cuda"),
         schedule=schedule,
         generator=torch.Generator(device=device).manual_seed(seed),
     )
 
 
 def train_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes: int,
-               group=None) -> dict:
+               group=None, lr: torch.Tensor | None = None) -> dict:
     """One optimizer step on a batch of "points", "labels", "weights" and an
     optional "row_mask". Returns {"loss", "confusion"} as tensors on the
     batch's device; nothing waits for the host. group: see the module
-    docstring (train_state.py:78-135 with axis_name)."""
+    docstring (train_state.py:78-135 with axis_name). lr: a device tensor
+    holding this step's learning rate (a CUDA graph's, read when the graph
+    replays); None takes state.schedule(state.step)."""
     model = state.model
     model.train()
-    _set_lr(state)
+    _set_lr(state, lr)
     row_mask = batch.get("row_mask")
     logits = model(batch["points"], state.generator)
     if group is None:
@@ -117,11 +136,13 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes
 
 
 def resident_train_step(state: TrainState, store: dict, batch: dict[str, torch.Tensor], *,
-                        num_classes: int) -> dict:
+                        num_classes: int, group=None, lr: torch.Tensor | None = None) -> dict:
     """train_step on the batch that data/resident.materialize_batch gathers
     from the device-resident store (the JAX package's
-    make_resident_train_step); the store is only read."""
-    return train_step(state, materialize_batch(store, batch), num_classes=num_classes)
+    make_resident_train_step); the store is only read. In a data-parallel
+    run the store is this rank's (its scene shard's rows) and so are the
+    batch's rows: the gather is local."""
+    return train_step(state, materialize_batch(store, batch), num_classes=num_classes, group=group, lr=lr)
 
 
 def grad_accum_step(state: TrainState, batch: dict[str, torch.Tensor], *, num_classes: int) -> dict:
@@ -173,10 +194,19 @@ def apply_accumulated(state: TrainState, total_count: torch.Tensor | float, grou
     state.step += 1
 
 
-def _set_lr(state: TrainState) -> None:
-    lr = state.schedule(state.step)
+def _set_lr(state: TrainState, lr: torch.Tensor | None = None) -> None:
+    """This step's learning rate into the optimizer: schedule(step), or the
+    device tensor lr; a capturable optimizer's rate tensor is written in
+    place (a fill, or a copy on the device), so a graph that captured it
+    reads the new value."""
+    value = state.schedule(state.step) if lr is None else lr
     for group in state.optimizer.param_groups:
-        group["lr"] = lr
+        if not torch.is_tensor(group["lr"]):
+            group["lr"] = value
+        elif torch.is_tensor(value):
+            group["lr"].copy_(value)
+        else:
+            group["lr"].fill_(value)
 
 
 @torch.no_grad()

@@ -9,6 +9,14 @@ g) and the scatter-adds (h, f) also count their bfloat16 launches
 public ops in ops/ pick between the two by the tensor's device: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.
+
+The wrappers are safe to capture in a CUDA graph (the fused train steps,
+parallel/step.py): each launches on PyTorch's current stream
+(build.stream_of), allocates only through the caching allocator
+(torch.empty / torch.zeros, from the graph's pool under a capture), takes
+its launch shape from the shapes alone (plan()), and neither synchronises
+nor copies from host memory. A counter counts where Python calls the
+wrapper: a capture counts the launches it records, a replay none.
 """
 
 from __future__ import annotations

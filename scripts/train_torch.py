@@ -6,7 +6,13 @@ semantic-segmentation training of the SSG model, or of the MSG model with
 update per scene, gradients accumulated over micro-batches of --batch_size
 columns), on --device (the hand-written CUDA kernels on a GPU, their plain
 PyTorch versions on the CPU). --device_store trains chunks from a scene
-store uploaded to the device once (each step gathers its batch there).
+store uploaded to the device once (each step gathers its batch there; under
+data parallelism each rank holds its own scene shard's store).
+--fused_steps K (default 8, as scripts/train.py) trains chunks K batches a
+call: on a card one CUDA graph launch runs the K steps (also under NCCL),
+on the CPU and under gloo K eager steps; either is the math of K single
+steps, and the start line names the mode. --fused_steps 1 takes one step a
+call. Whole-scene training is not fused.
 --bf16 computes in bfloat16 (the parameters, optimizer state and
 checkpoints stay float32; the run dir's config.json records the dtype, and
 infer_torch.py, eval_torch.py and visualize_torch.py serve it in bfloat16).
@@ -32,7 +38,8 @@ them, so a step applies the single-process gradient of the global batch):
 ranks with --device cpu); --dist_coordinator host:port --dist_nprocs N
 --dist_pid P joins ranks started by hand on several hosts, --dist_auto the
 ranks of torchrun or SLURM (env://). Only rank 0 prints and writes the run
-dir; a resume restores every rank from it.
+dir; a resume restores every rank from it, and keeps the run's
+--device_store and --fused_steps unless they are given again.
 
   python scripts/train_torch.py --synthetic --use_color --use_normal --num_devices 4
   python scripts/train_torch.py --synthetic --synthetic_scenes 8 --npoints 256 \\
@@ -42,9 +49,7 @@ dir; a resume restores every rank from it.
 --trace DIR writes a torch.profiler trace (Chrome / TensorBoard format: host
 activity and, on a GPU, the card's kernels) of one train epoch into DIR, the
 second when there is one. The JAX package's execution flags that have no
-counterpart here yet (--tp) raise NotImplementedError naming their ROADMAP item;
---fused_steps is recorded and the port runs one step per batch, the same
-math per step.
+counterpart here yet (--tp) raise NotImplementedError naming their ROADMAP item.
 
   python scripts/train_torch.py --synthetic --use_color --use_normal --epoch 2 --trace /tmp/trace
 """
@@ -132,7 +137,7 @@ def build_config(args):
             tp=args.tp if args.tp is not None else 1,
             shuffle=args.shuffle,
             device_store=args.device_store,
-            fused_steps=args.fused_steps,
+            fused_steps=args.fused_steps if args.fused_steps is not None else 8,
             wholescene=args.use_wholescene,
             synthetic=args.synthetic,
             synthetic_scenes=args.synthetic_scenes,
@@ -231,6 +236,8 @@ def _train(args, ctx) -> tuple[pathlib.Path, dict]:
             overrides["num_devices"] = ctx.num_processes
         if args.verbose is not None:
             overrides["verbose"] = args.verbose
+        if args.fused_steps is not None:  # the same math per step
+            overrides["fused_steps"] = args.fused_steps
         if args.device_store:  # the same math as the host path
             overrides["device_store"] = True
         elif args.no_device_store:
@@ -259,22 +266,25 @@ def _train(args, ctx) -> tuple[pathlib.Path, dict]:
     else:
         train_ds = ChunkedSceneDataset(train_store, cfg.data, phase="train", seed=seed)
         val_ds = ChunkedSceneDataset(val_store, cfg.data, phase="val", seed=seed + 1)
-        solver_cls = Solver
-        step = f"one step per batch (fused_steps {cfg.train.fused_steps} recorded)"
+        solver_cls, step = Solver, None
     # every rank draws the same initial weights
     model = model_from_config(cfg, generator=torch.Generator().manual_seed(seed), bn_group=ctx.group)
     device = ctx.device
     solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device, trace_dir=args.trace,
                         process_ctx=ctx)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
+    if step is None:  # the chunked Solver: its fused mode, or one step a call
+        fused = solver._fused_step
+        step = fused.describe(solver.fused_steps) if fused is not None else "one step per batch"
     ctx.say(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}, "
             f"compute dtype {cfg.model.compute_dtype}", flush=True)
     ctx.say(f"parallel strategy: {solver.parallel_strategy} (mesh size {ctx.num_processes}, "
             f"processes {ctx.num_processes})", flush=True)
     if solver.device_store:
         rows, width = solver.store["points"].shape
-        print(f"device_store: {rows} rows x {width} on {device}, flattened in "
-              f"{solver.store_flatten_s:.2f} s, uploaded in {solver.store_upload_s:.2f} s", flush=True)
+        whose = f" (rank 0's scene shard; each rank holds its own)" if ctx.num_processes > 1 else ""
+        ctx.say(f"device_store: {rows} rows x {width} on {device}{whose}, flattened in "
+                f"{solver.store_flatten_s:.2f} s, uploaded in {solver.store_upload_s:.2f} s", flush=True)
     if ctx.is_coordinator:
         info = {
             **vars(args),
@@ -337,9 +347,10 @@ def parse_args(argv=None):
     p.add_argument("--no_device_store", action="store_true",
                    help="at --resume: train on the host path although the saved run used "
                    "--device_store")
-    p.add_argument("--fused_steps", type=int, default=8,
-                   help="recorded in config.json; the port runs one step per batch "
-                   "(the same math per step)")
+    p.add_argument("--fused_steps", type=int, default=None,
+                   help="train steps a call (default 8): one CUDA graph launch on a card (no group or "
+                   "NCCL), K eager steps on the CPU and under gloo, the same math per step; chunked "
+                   "training only; at --resume, overrides the saved setting")
     p.add_argument("--data_dir", type=str, default="data/preprocessed_scenes")
     p.add_argument("--multiview_h5", type=str, default="data/enet_feats.hdf5")
     p.add_argument("--train_list", type=str, default="data/scannetv2_train.txt")

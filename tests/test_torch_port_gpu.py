@@ -1427,3 +1427,86 @@ def test_correspondence_and_fusion_on_the_card_equal_the_cpu(dev):
     _equal(got_p.cpu(), want_p)
     feats = torch.from_numpy(np.random.default_rng(4).normal(size=(8, 32, 41, 16)).astype(np.float32))
     _equal(mv.fuse_scene_features(feats.to(dev), got_v, got_p).cpu(), mv.fuse_scene_features(feats, want_v, want_p))
+
+
+# --- the fused steps: one CUDA graph launch of K steps against K eager steps
+
+
+def _fused_step_batches(k, n=1024, seed=8):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        pc = np.concatenate([rng.uniform(0, 1.5, (2, n, 3)), rng.uniform(-1, 1, (2, n, 6))], -1)
+        out.append({"points": pc.astype(np.float32), "labels": rng.integers(0, 20, (2, n)).astype(np.int32),
+                    "weights": rng.uniform(0.5, 2, (2, n)).astype(np.float32), "row_mask": np.ones(2, np.float32)})
+    return out
+
+
+def _whole_state(state):
+    opt = state.optimizer
+    return ({k: v.clone() for k, v in state.model.state_dict().items()},
+            [{k: v.clone() for k, v in opt.state[p].items()} for p in state.model.parameters()],
+            state.generator.get_state(), state.step)
+
+
+@pytest.mark.parametrize("kind,dtype,resident,n", [("ssg", None, False, 1024), ("msg", None, False, 1024),
+                                                   ("ssg", torch.bfloat16, False, 1024), ("ssg", None, True, 1024),
+                                                   ("ssg", None, False, 20000)],
+                         ids=["ssg", "msg", "ssg-bf16", "ssg-resident", "ssg-fps-cluster"])
+def test_fused_graph_of_two_steps_equals_two_eager_steps(dev, kind, dtype, resident, n):
+    # Dropout on, the rate halving inside the second group; two launches
+    # (capture, then a plain replay), each bit for bit against 2 eager steps;
+    # at 20000 points a row SA1's FPS takes the cluster launch
+    from pointnet2_scannet_tpu_torch.data.pipeline import HostGroup
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.models import msg_spec, ssg_spec
+    from pointnet2_scannet_tpu_torch.parallel.step import make_fused_train_step, make_resident_fused_train_step
+
+    k = 2
+    spec = dataclasses.replace((msg_spec if kind == "msg" else ssg_spec)(20, 6), dropout=0.5)
+    model = PointNet2SemSeg(spec, dtype=dtype, generator=torch.Generator().manual_seed(0))
+    schedule = ts.make_lr_schedule(1e-3, 3, 0.5, 1)
+    eager, graph = (ts.create_train_state(copy.deepcopy(model).to(dev), schedule, seed=4) for _ in range(2))
+    make = make_resident_fused_train_step if resident else make_fused_train_step
+    fused = make(graph.model, None, num_classes=20)
+    assert fused.mode == "graph" and fused.describe(k) == "fused_steps 2: one CUDA graph per 2 steps"
+    store = None
+    if resident:
+        flat = _fused_step_batches(2 * k, n)
+        store = {"points": torch.from_numpy(np.concatenate([b["points"].reshape(-1, 9) for b in flat])).to(dev),
+                 "labels": torch.from_numpy(np.concatenate([b["labels"].reshape(-1) for b in flat])).to(dev),
+                 "wtable": torch.linspace(0.5, 2.0, 20, device=dev)}
+    per_step = None
+    for group in range(2):
+        if resident:
+            rows = np.random.default_rng(group).permutation(2 * k * 2 * n).astype(np.int32)
+            batches = [{"idx": rows[i * 2 * n : (i + 1) * 2 * n].reshape(2, n), "row_mask": np.ones(2, np.float32)}
+                       for i in range(k)]
+        else:
+            batches = _fused_step_batches(k, n, seed=group)
+        kernels.reset_launch_counts()
+        want = []
+        for b in batches:
+            b = {name: torch.from_numpy(v).to(dev) for name, v in b.items()}
+            want.append(ts.resident_train_step(eager, store, b, num_classes=20) if resident
+                        else ts.train_step(eager, b, num_classes=20))
+        per_step = per_step or {name: c // k for name, c in kernels.launch_counts().items()}
+        kernels.reset_launch_counts()
+        host = HostGroup(batches, pin=True)
+        got = fused(graph, store, host) if resident else fused(graph, host)
+        torch.cuda.synchronize()
+        assert torch.equal(got["loss"], torch.stack([w["loss"] for w in want]))
+        assert torch.equal(got["confusion"], torch.stack([w["confusion"] for w in want]))
+        g_model, g_adam, g_gen, g_step = _whole_state(graph)
+        e_model, e_adam, e_gen, e_step = _whole_state(eager)
+        assert g_step == e_step == (group + 1) * k and torch.equal(g_gen, e_gen)
+        for name, v in e_model.items():
+            assert torch.equal(g_model[name], v), name
+        for x, y in zip(g_adam, e_adam):
+            for name, v in y.items():
+                assert torch.equal(x[name], v), name
+    # the capture counted k steps' launches; the replay counted none
+    assert kernels.fps_kernel.plan(n, torch.float32).variant == ("cluster" if n > 16384 else "block")
+    assert len(fused.captures) == 1
+    assert fused.captures[0]["launches"] == {name: k * c for name, c in per_step.items()}
+    assert all(c == 0 for c in kernels.launch_counts().values())
