@@ -255,7 +255,29 @@
     losses equal bit for bit to the data-parallel host path's. (f) Phase 10's SSG run through
     train_torch.py at batch 4 (an epoch one group of 8) with --fused_steps
     8, then a resume: the mode line and the capture line in both.
-29. Print one JSON line of kernel results (time, plain time, the card's bound
+29. The shape families (engine/shape_runs.py), cls and partseg, SSG and
+    MSG, at their published recipes (1024 points; cls batch 32, partseg
+    batch 16; 8 classes or categories). FPS, the ball query (three radii
+    take three launches), the two-radius query (partseg MSG's SA2) and 3-NN
+    (partseg's FP1, FP2) on the families' level clouds, bit for bit against
+    their plain versions, timed beside their bounds; the gather at the SSG
+    forwards' gathers and the scatter-add at their backwards, as phases 3
+    and 4 check them. For each variant:
+    scripts/train_cls_torch.py or train_partseg_torch.py, 2 epochs of 3
+    batches and 1 validation batch, launching exactly its path's kernels (a
+    twice a forward; b, c and i as the spec's levels take them; d; h in
+    training) and no other, its losses finite; scripts/eval_shapes_torch.py
+    on the run, every metric in [0, 1], forward kernels only;
+    scripts/infer_torch.py --export of the run, the artifact's labels on
+    the card equal to Predictor's bit for bit; the steady train step's ms
+    and samples/s. One train step card vs CPU (float64 reference) for cls
+    SSG (8 clouds) and partseg MSG (1 cloud, SA2 on the pregather) under
+    phase 11's bounds, the gradients over all parameters and at the median
+    tensor (a BatchNorm bias whose shift the next train-mode BatchNorm
+    removes has a zero gradient), the CPU's float32 distance floored at
+    SHAPE_GRAD_FLOOR. A --bf16 cls SSG run of 2 steps: finite
+    losses, d and h on bfloat16 rows.
+30. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -263,7 +285,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27 and 28 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28 and 29 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -397,6 +419,26 @@ DP_WARM, DP_TIMED = 2, 5
 FUSED_K = 8
 FUSED_WINDOW_STEPS, FUSED_WINDOWS, FUSED_NCCL_WINDOW_STEPS = 24, 3, 8
 FUSED_SCENES, FUSED_BATCH, FUSED_DP_POINTS = 32, 4, 30_000
+# phase 29, the shape families (engine/shape_runs.py) at their published
+# recipes (1024 points; cls batch 32 over 8 classes, partseg batch 16 over
+# 8 categories): the CLI runs' epochs, train and val batches an epoch; the
+# card-vs-CPU steps' clouds (cls SSG 8: its head's BatchNorm normalises over
+# the batch's vectors alone; partseg MSG 1: over its points); the steady
+# step's warm steps, steps a window and windows
+SHAPE_VARIANTS = (("cls", False), ("cls", True), ("partseg", False), ("partseg", True))
+SHAPE_BATCH = {"cls": 32, "partseg": 16}
+SHAPE_NPOINTS, SHAPE_COUNT = 1024, 8
+SHAPE_EPOCHS, SHAPE_TRAIN_BATCHES, SHAPE_VAL_BATCHES = 2, 3, 1
+SHAPE_CHECK_BATCH = {"cls": 8, "partseg": 1}
+# the families' float32 gradient noise: one near-tie of a max or a ReLU that
+# rounds the other way moves every gradient, 2-4e-3 relative over all
+# parameters, and the CPU's step may land on either side (measured on an
+# H100 against the CPU's float64 step: cls SSG at 8 clouds, card 2.5e-3,
+# CPU 1.4e-5; at 32, 2.4e-3 and 3.1e-3; partseg MSG at 1 cloud, card
+# 9.6e-6, CPU 4.1e-3), so the card's distance is held to TRAIN_GRAD_VS_CPU
+# times the larger of the CPU's and this floor
+SHAPE_GRAD_FLOOR = 5e-3
+SHAPE_WARM, SHAPE_STEPS, SHAPE_WINDOWS = 3, 10, 3
 # the hand-written kernels a replay's trace may name, by TPU kernel letter
 # (b and c share ball_scan.cuh's kernels: one radius row, or two)
 TRACE_LETTERS = (("a", r"fps(_cluster)?_kernel\b"), ("b", r"ball_query_(resident|tiled)_kernel<1>"),
@@ -3176,6 +3218,329 @@ def fused_steps(torch, tmp: pathlib.Path) -> dict:
     return {"launches": total}
 
 
+def shape_spec(kind: str, msg: bool):
+    from pointnet2_scannet_tpu_torch import models
+
+    return {("cls", False): models.cls_ssg_spec, ("cls", True): models.cls_msg_spec,
+            ("partseg", False): models.partseg_ssg_spec, ("partseg", True): models.partseg_msg_spec}[kind, msg]()
+
+
+def shape_counts(kind: str, msg: bool) -> dict:
+    """A forward's launches of a, b, c and i in a shape model, from its spec:
+    FPS a level with centroids, one ball query a radius (a two-radius level
+    one two-radius query), 3-NN an FP level with known points."""
+    spec = shape_spec(kind, msg)
+    levels = [radii for npoint, radii, _, _ in spec.sa_levels if npoint is not None]
+    return {"furthest_point_sample": len(levels),
+            "ball_query": sum(len(r) for r in levels if len(r) != 2),
+            "ball_query_multi": sum(len(r) == 2 for r in levels),
+            "three_nn": len(levels) if kind == "partseg" else 0}
+
+
+def check_shape_launches(launches: dict, kind: str, msg: bool, forwards: int, training: bool,
+                         what: str) -> None:
+    """Phase 29: exactly the path's launches of a, b, c and i for `forwards`
+    forwards, d, h in training, and none of the kernels a switch, a shape or a
+    bench script selects."""
+    want = {k: n * forwards for k, n in shape_counts(kind, msg).items()}
+    wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    stray = sorted(k for k in OFF_BY_DEFAULT if launches[k])
+    if wrong or stray or not launches["gather"] or (launches["scatter_add"] > 0) != training:
+        raise RuntimeError(f"the {what} run launched {launches}; {forwards} forwards want {want}, d, "
+                           f"{'h' if training else 'no h'} and none of {sorted(OFF_BY_DEFAULT)}")
+
+
+def shape_batch(kind: str, b: int, seed: int, augment: bool = True) -> dict:
+    """A numpy batch of the family's recipe (data/shapes.py)."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.data import shapes
+
+    draw = shapes.sample_cls_batch if kind == "cls" else shapes.sample_partseg_batch
+    return draw(np.random.default_rng(seed), b, SHAPE_NPOINTS, SHAPE_COUNT, augment=augment)
+
+
+def check_shape_kernels(torch, tallies) -> None:
+    """Phase 29: a, b, c and i on the families' level clouds (a batch of the
+    recipe's clouds, each level from the plain FPS of the one above), bit for
+    bit against their plain versions, timed beside their bounds; d at the SSG
+    forwards' gathers (centroids, SA1's and SA2's groupings, partseg's FP2
+    and FP1 interpolations) and h at the train steps' backwards of those
+    (SA1 groups the input: no gradient), as phases 3 and 4 check them."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_multi_kernel as bqm
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+    from pointnet2_scannet_tpu_torch.ops.cuda import three_nn_kernel as nn3
+    from pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter import scan_points
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for kind in ("cls", "partseg"):
+        b = SHAPE_BATCH[kind]
+        x = torch.from_numpy(shape_batch(kind, b, 1)["points"][..., :3]).to("cuda").contiguous()
+        xyz = [x]
+        for npoint in (512, 128):
+            n = xyz[-1].shape[1]
+            x = xyz[-1]
+            check(torch, tallies[fps.NAME], kind, f"fps {kind} ({b},{n})->{npoint}",
+                  lambda: fps.furthest_point_sample_cuda(x, npoint),
+                  lambda: fps.furthest_point_sample_plain(x, npoint),
+                  4 * b * (3 * n + npoint), 10 * b * (npoint - 1) * n)
+            idx = fps.furthest_point_sample_plain(x, npoint)
+            gather_check(torch, tallies[ga.NAME], kind, f"gather {kind} centroids ({b},{n},3)x{npoint}", x, idx)
+            xyz.append(ga.gather_plain(x, idx).contiguous())
+        # the SSG forward's groupings (SA1: xyz alone; SA2: xyz and SA1's 128
+        # features) and, for partseg, FP2's and FP1's interpolations
+        backward = []
+        for lvl, (_, (r,), (k,), mlps) in enumerate(shape_spec(kind, False).sa_levels[:2]):
+            nidx = bq.ball_query_plain(r, k, xyz[lvl], xyz[lvl + 1]).reshape(b, -1)
+            src = xyz[lvl] if lvl == 0 else torch.cat(
+                [xyz[lvl], torch.randn((b, xyz[lvl].shape[1], 128), generator=gen, device="cuda")], -1)
+            gather_check(torch, tallies[ga.NAME], kind,
+                         f"gather {kind} SA{lvl + 1} grouping ({b},{src.shape[1]},{src.shape[2]})x{nidx.shape[1]}",
+                         src.contiguous(), nidx)
+            if lvl:
+                backward.append((f"SA{lvl + 1} grouping", nidx, src.shape[1], src.shape[2]))
+        if kind == "partseg":
+            for lvl, c in ((1, 256), (0, 128)):  # FP2 interpolates SA2's 256 features, FP1 FP2's 128
+                nidx = nn3.three_nn_plain(xyz[lvl], xyz[lvl + 1])[1].reshape(b, -1)
+                known = torch.randn((b, xyz[lvl + 1].shape[1], c), generator=gen, device="cuda")
+                gather_check(torch, tallies[ga.NAME], kind,
+                             f"gather {kind} FP{lvl + 1} interpolation ({b},{known.shape[1]},{c})x{nidx.shape[1]}",
+                             known, nidx)
+                backward.append((f"FP{lvl + 1} interpolation", nidx, known.shape[1], c))
+        check_scatter(torch, tallies["scatter_add"], kind, backward)
+        seen = set()
+        for spec in (shape_spec(kind, False), shape_spec(kind, True)):
+            for lvl, (_, radii, ks, _) in enumerate(spec.sa_levels[:2]):
+                x, q = xyz[lvl], xyz[lvl + 1]
+                n, m = x.shape[1], q.shape[1]
+                if len(radii) == 2:
+                    scans = int(torch.maximum(scan_points(torch, x, q, radii[0], ks[0]),
+                                              scan_points(torch, x, q, radii[1], ks[1])).sum())
+                    check(torch, tallies[bqm.NAME], kind, f"ball_query_multi {kind} r={radii} N={n} M={m} ns={ks}",
+                          lambda: bqm.ball_query_multi_cuda(radii, ks, x, q),
+                          lambda: bqm.ball_query_multi_plain(radii, ks, x, q),
+                          4 * b * (3 * n + 3 * m + m * sum(ks)), 10 * scans)
+                    continue
+                for r, k in zip(radii, ks):
+                    if (lvl, r, k) in seen:
+                        continue
+                    seen.add((lvl, r, k))
+                    scans = int(scan_points(torch, x, q, r, k).sum())
+                    check(torch, tallies[bq.NAME], kind, f"ball_query {kind} r={r} ({b},{n})->{m} ns={k}",
+                          lambda: bq.ball_query_cuda(r, k, x, q), lambda: bq.ball_query_plain(r, k, x, q),
+                          4 * b * (3 * n + 3 * m + m * k), 9 * scans)
+        if kind == "partseg":  # FP1 and FP2 interpolate from the level below
+            for lvl in (0, 1):
+                x, q = xyz[lvl], xyz[lvl + 1]
+                n, m = x.shape[1], q.shape[1]
+                check(torch, tallies[nn3.NAME], kind, f"three_nn {kind} ({b},{n},{m})",
+                      lambda: nn3.three_nn_cuda(x, q), lambda: nn3.three_nn_plain(x, q),
+                      4 * b * (3 * n + 3 * m + 6 * n), 9 * b * n * m)
+
+
+def shape_train(torch, tmp: pathlib.Path, kind: str, msg: bool, bf16: bool = False,
+                epochs: int = SHAPE_EPOCHS, train_batches: int = SHAPE_TRAIN_BATCHES) -> dict:
+    """Phase 29: a family's trainer CLI on the card, its launches checked."""
+    import math
+
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    name = f"{kind} {'MSG' if msg else 'SSG'}{' --bf16' * bf16}"
+    argv = ["--batch_size", str(SHAPE_BATCH[kind]), "--npoints", str(SHAPE_NPOINTS), "--epoch", str(epochs),
+            "--train_batches", str(train_batches), "--val_batches", str(SHAPE_VAL_BATCHES), "--verbose", "1",
+            "--tag", "chip_smoke", "--output_root", str(tmp / f"{kind}_{msg}_{bf16}"), "--device", "cuda",
+            *(["--use_msg"] if msg else []), *(["--bf16"] if bf16 else [])]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_dir, last = load_script(f"train_{kind}_torch").main(argv)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches, bf16_launches = kernels.launch_counts(), kernels.bf16_launch_counts()
+    print(f"shape train {name}: launches {launches}, bfloat16 launches {bf16_launches}", flush=True)
+    check_shape_launches(launches, kind, msg, epochs * (train_batches + SHAPE_VAL_BATCHES), True, f"train {name}")
+    check_bf16_launches(bf16_launches, bf16, True, f"shape train {name}")
+    scalars = json.loads((run_dir / "all_scalars.json").read_text())
+    losses = [row["train_loss"] for row in scalars]
+    if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"shape train {name}: train losses {losses}, not {epochs} finite epochs")
+    print(f"shape train {name}: {epochs} epochs of {train_batches} steps of {SHAPE_BATCH[kind]} x "
+          f"{SHAPE_NPOINTS} in {took:.2f} s; last epoch {last}", flush=True)
+    return {"launches": launches, "bf16_launches": bf16_launches, "run_dir": run_dir}
+
+
+def shape_eval_and_serve(torch, tmp: pathlib.Path, kind: str, msg: bool, run_dir: pathlib.Path) -> dict:
+    """Phase 29: eval_shapes_torch.py on a run (metrics in [0, 1]), then
+    infer_torch.py --export of it, the artifact's labels on the card equal
+    to Predictor's; every run launching the forward path's kernels only."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.engine.export import Predictor, ServingPredictor
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    name = f"{kind} {'MSG' if msg else 'SSG'}"
+    total = {k.NAME: 0 for k in kernels.KERNELS}
+
+    def counted(what: str, forwards: int, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check_shape_launches(launches, kind, msg, forwards, False, f"{what} {name}")
+        for k, v in launches.items():
+            total[k] += v
+        return out
+
+    b = SHAPE_BATCH[kind]
+    metrics = counted("eval_shapes_torch", 2, lambda: load_script("eval_shapes_torch").main(
+        ["--folder", str(run_dir), "--batches", "2", "--device", "cuda"]))
+    values = [v for k, v in metrics.items() if k not in ("kind", "per_class", "per_category")]
+    values += list(metrics.get("per_class", {}).values()) + list(metrics.get("per_category", {}).values())
+    if not values or not all(0.0 <= float(v) <= 1.0 for v in values):
+        raise RuntimeError(f"eval_shapes_torch {name}: metrics {metrics} outside [0, 1]")
+    infer_torch = load_script("infer_torch")
+    path = tmp / f"{kind}_{msg}.pt2"
+    kernels.reset_launch_counts()
+    stats = infer_torch.export(infer_torch.parse_args(
+        ["--folder", str(run_dir), "--export", str(path), "--device", "cuda", "--batch_size", str(b)]), run_dir)
+    if any(kernels.launch_counts().values()):  # tracing runs the ops' fake versions
+        raise RuntimeError(f"exporting the {name} run launched {kernels.launch_counts()}")
+    points = shape_batch(kind, 2 * b, 7, augment=False)["points"]
+    served = ServingPredictor.from_artifact(path, devices=["cuda"])
+    got = counted("the artifact", 2, lambda: served.predict(points))
+    want = counted("Predictor", 2, lambda: Predictor.from_run(run_dir, batch_size=b, device="cuda").predict(points))
+    shape = (2 * b,) if kind == "cls" else (2 * b, SHAPE_NPOINTS)
+    if got.shape != shape or not np.array_equal(got, want):
+        raise RuntimeError(f"the {name} artifact's labels {got.shape} differ from Predictor's")
+    print(f"shape eval {name}: {metrics}; artifact {stats['mb']:.1f} MB, {stats['nodes']} nodes, traced in "
+          f"{stats['export_s']:.1f} s; labels {shape} equal to Predictor's", flush=True)
+    return {"launches": total}
+
+
+def shape_model(torch, kind: str, msg: bool, dropout: float | None = None):
+    """A family's model at its recipe from a seeded generator, on the CPU."""
+    import dataclasses
+
+    from pointnet2_scannet_tpu_torch import models
+    from pointnet2_scannet_tpu_torch.data import shapes
+
+    spec = shape_spec(kind, msg)
+    if dropout is not None:
+        spec = dataclasses.replace(spec, dropout=dropout)
+    gen = torch.Generator().manual_seed(0)
+    if kind == "cls":
+        return models.PointNet2Cls(SHAPE_COUNT, spec, generator=gen), SHAPE_COUNT
+    parts = shapes.num_parts_total(SHAPE_COUNT)
+    return models.PointNet2PartSeg(parts, SHAPE_COUNT, spec, generator=gen), parts
+
+
+def shape_step_card_vs_cpu(torch, kind: str, msg: bool) -> dict:
+    """Phase 29: one train step (Dropout off) from the same weights and
+    clouds on the card and on the CPU (float32 both, float64 on the CPU as
+    the reference), under phase 11's bounds: the loss within
+    TRAIN_LOSS_RTOL, the BatchNorm statistics within TRAIN_BN_TOL, the
+    card's gradients no further than TRAIN_GRAD_VS_CPU times the CPU's
+    float32 ones (or SHAPE_GRAD_FLOOR, the larger) from the float64 ones,
+    over all parameters and at the median tensor."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops import tuning
+
+    batch = shape_batch(kind, SHAPE_CHECK_BATCH[kind], 3)
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
+        model, classes = shape_model(torch, kind, msg, dropout=0.0)
+        model.to(device=device, dtype=dtype)
+        state = ts.create_train_state(model, ts.make_lr_schedule(1e-3, 10, 0.7, 1))
+        tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "category"}
+        tensors = {k: v.to(dtype) if v.is_floating_point() else v for k, v in tensors.items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            tuning.reset_route_counts()
+        res = ts.train_step(state, tensors, num_classes=classes)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            pregather = {k: n for k, n in tuning.route_counts.items() if k[0] == "pregather"}
+        out[device, dtype] = (float(res["loss"]), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                              {k: b.cpu() for k, b in model.named_buffers() if b.is_floating_point()})
+    name = f"{kind} {'MSG' if msg else 'SSG'} ({SHAPE_CHECK_BATCH[kind]} x {SHAPE_NPOINTS})"
+    check_shape_launches(launches, kind, msg, 1, True, f"train step {name}")
+    if msg and kind == "partseg" and pregather != {("pregather", 128): 2}:
+        raise RuntimeError(f"the {name} step took the pregather at {pregather}, not at SA2's two scales")
+    ref = out["cpu", torch.float64][1]
+    (cpu_loss, cpu_g, cpu_b), (gpu_loss, gpu_g, gpu_b) = out["cpu", torch.float32], out["cuda", torch.float32]
+    card, cpu = grad_errors(gpu_g, ref), grad_errors(cpu_g, ref)
+    med = len(card) // 2
+    card_all, cpu_all = all_l2(gpu_g, ref), all_l2(cpu_g, ref)
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    bn_err = max(float((gpu_b[k] - b).abs().max()) for k, b in cpu_b.items())
+    print(f"shape train step {name} card vs CPU: launches {launches}, pregathers {pregather}; loss {gpu_loss} "
+          f"vs {cpu_loss} (rel {loss_err:.2e}); BatchNorm stats max abs err {bn_err:.2e}; gradients vs CPU "
+          f"float64, over all parameters / median tensor: card {card_all:.2e} / {card[med][0]:.2e}, CPU float32 "
+          f"{cpu_all:.2e} / {cpu[med][0]:.2e}", flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"shape train step {name}: the card's loss disagrees with the CPU's")
+    if not (card_all <= TRAIN_GRAD_VS_CPU * max(cpu_all, SHAPE_GRAD_FLOOR)
+            and card[med][0] <= TRAIN_GRAD_VS_CPU * max(cpu[med][0], SHAPE_GRAD_FLOOR)):
+        raise RuntimeError(f"shape train step {name}: the card's gradients are further from the float64 "
+                           "reference than the CPU's float32 gradients allow")
+    for k, b in cpu_b.items():
+        torch.testing.assert_close(gpu_b[k], b, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
+    return {"launches": launches}
+
+
+def shape_step_time(torch, kind: str, msg: bool, card: str) -> None:
+    """Phase 29: the steady train step of a family's recipe on the card."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    model, classes = shape_model(torch, kind, msg)
+    model.to("cuda")
+    state = ts.create_train_state(model, ts.make_lr_schedule(1e-3, 10, 0.7, 1))
+    b = SHAPE_BATCH[kind]
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in shape_batch(kind, b, 5).items() if k != "category"}
+    ms = bench_torch.timed_windows(lambda: ts.train_step(state, batch, num_classes=classes), "cuda",
+                                   SHAPE_STEPS, SHAPE_WINDOWS, SHAPE_WARM)
+    print(f"shape train step {kind} {'MSG' if msg else 'SSG'} steady, {b} x {SHAPE_NPOINTS}: "
+          f"{ms[len(ms) // 2]:.3f} ms median of {SHAPE_WINDOWS} windows of {SHAPE_STEPS} (min {ms[0]:.3f}, "
+          f"max {ms[-1]:.3f}), {b / ms[len(ms) // 2] * 1e3:.1f} samples/s; {card}", flush=True)
+
+
+def shape_families(torch, tmp: pathlib.Path, tallies) -> dict:
+    """Phase 29; returns the launches of its main-path runs (the CLIs' runs,
+    the artifacts' and Predictor's batches, the card's checked steps)."""
+    t0 = time.perf_counter()
+    card = bench_torch.card_line()
+    print(f"phase 29, the shape families on {card}", flush=True)
+    check_shape_kernels(torch, tallies)
+    total = {k: 0 for k in tallies}
+    bf16_total: dict = {}
+
+    def add(run: dict) -> None:
+        for k, v in run["launches"].items():
+            total[k] += v
+        for k, v in run.get("bf16_launches", {}).items():
+            bf16_total[k] = bf16_total.get(k, 0) + v
+
+    for kind, msg in SHAPE_VARIANTS:
+        run = shape_train(torch, tmp, kind, msg)
+        add(run)
+        add(shape_eval_and_serve(torch, tmp, kind, msg, run["run_dir"]))
+    add(shape_train(torch, tmp, "cls", False, bf16=True, epochs=1, train_batches=2))
+    # timed before the CPU steps: their worker threads slow the host's launches
+    # (partseg SSG, ~1200 launches in ~20 ms of device time, runs host bound then)
+    for kind, msg in SHAPE_VARIANTS:
+        shape_step_time(torch, kind, msg, card)
+    add(shape_step_card_vs_cpu(torch, "cls", False))
+    add(shape_step_card_vs_cpu(torch, "partseg", True))
+    print(f"phase 29 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": total, "bf16_launches": bf16_total}
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3338,6 +3703,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 28
         tally(fused_steps(torch, pathlib.Path(tmp)))
     lap(start, "phase 28")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 29
+        tally(shape_families(torch, pathlib.Path(tmp), tallies))
+    lap(start, "phase 29")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -8,10 +8,18 @@ export_forward traces the same forward with torch.export into one program
 export_run does both halves for a run dir, and ServingPredictor serves a
 program over ragged column stacks on one device or round-robin over several.
 
+Every model family serves: semantic segmentation (scripts/train_torch.py
+run dirs), and the shape families, classification and part segmentation
+(scripts/train_cls_torch.py, train_partseg_torch.py), told apart by the
+run's config.json (run_kind).
+
 Artifact contract (fixed shapes: one traced program, not a shape family):
-  input   (batch, npoints, channels) float32 point columns
+  input   (batch, npoints, channels) float32 point columns (cls: xyz;
+          partseg: xyz and the category one-hot)
   output  emit="labels": (batch, npoints) int8 (int32 if num_classes > 127)
-          emit="logits": (batch, npoints, num_classes) float32 logits
+          class or part ids; (batch,) class ids for cls
+          emit="logits": (batch, npoints, num_classes) float32 logits;
+          (batch, num_classes) for cls
 
 Where a JAX artifact is self-contained StableHLO, a port artifact calls the
 port's kernels: every kernel of the forward is one pn2:: torch.library op
@@ -48,7 +56,8 @@ _META = "pn2_artifact.json"  # the artifact's extra file: platforms, trace devic
 def build_forward(model: torch.nn.Module, *, emit: str = "labels",
                   num_classes: int = NUM_CLASSES):
     """points (B, N, C) -> labels (B, N) in the narrowest integer dtype, or
-    logits (B, N, num_classes) with emit="logits"."""
+    logits (B, N, num_classes) with emit="logits" (a classifier: (B,) and
+    (B, num_classes))."""
     if emit not in ("labels", "logits"):
         raise ValueError(f"emit must be 'labels' or 'logits', got {emit!r}")
     pred_dtype = pred_transfer_dtype(num_classes)
@@ -71,23 +80,37 @@ def run_kind(raw_config: dict) -> str:
 
 
 def load_run_model(run_dir: str | pathlib.Path, checkpoint: str = "model_best"):
-    """(model on the CPU, RunConfig) of a semantic-segmentation run dir:
-    config.json names the model and its compute dtype, <checkpoint>.pt
-    holds its state_dict (float32 in either dtype), which must fit it
-    exactly. The shape families (cls, partseg) are ROADMAP item 15."""
+    """(model on the CPU, config) of a run dir: config.json names the model
+    and its compute dtype, <checkpoint>.pt holds its state_dict (float32 in
+    either dtype), which must fit it exactly. The config is a RunConfig for
+    a semantic-segmentation run and the flat dict of a shape trainer's
+    config.json for a cls or partseg run (engine/shape_runs.py)."""
     from pointnet2_scannet_tpu_torch.engine.checkpoint import load_state_dict
     from pointnet2_scannet_tpu_torch.models.pointnet2 import model_from_config
 
     run_dir = pathlib.Path(run_dir)
-    kind = run_kind(json.loads((run_dir / "config.json").read_text()))
-    if kind != "semseg":
-        raise ValueError(
-            f"{run_dir} holds a {kind} run; only semseg serves here (the shape "
-            "families are ROADMAP item 15)")
-    cfg = RunConfig.load(run_dir / "config.json")
-    model = model_from_config(cfg)
+    raw = json.loads((run_dir / "config.json").read_text())
+    if run_kind(raw) == "semseg":
+        cfg = RunConfig.load(run_dir / "config.json")
+        model = model_from_config(cfg)
+    else:
+        from pointnet2_scannet_tpu_torch.engine.shape_runs import model_from_flat_config
+
+        cfg = raw
+        model = model_from_flat_config(raw)
     model.load_state_dict(load_state_dict(run_dir, checkpoint), strict=True)
     return model, cfg
+
+
+def serving_shape(cfg) -> tuple[int, int, int]:
+    """(npoints, channels, num_classes) of a load_run_model config: the
+    run's training column size, its input channels (a shape run: xyz, and
+    for partseg the category one-hot) and its output classes (or parts)."""
+    if isinstance(cfg, RunConfig):
+        return cfg.data.npoints, 3 + cfg.data.input_channels, cfg.model.num_classes
+    if run_kind(cfg) == "partseg":
+        return int(cfg["npoints"]), 3 + int(cfg["categories"]), int(cfg["num_parts"])
+    return int(cfg["npoints"]), 3, int(cfg["classes"])
 
 
 def _pad(columns: np.ndarray, shape: tuple[int, int], batch_size: int) -> tuple[np.ndarray, int]:
@@ -121,6 +144,8 @@ class Predictor:
         emit: str = "labels",
         num_classes: int = NUM_CLASSES,
     ):
+        from pointnet2_scannet_tpu_torch.models import PointNet2Cls
+
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
@@ -128,6 +153,7 @@ class Predictor:
         self.channels = channels
         self.emit = emit
         self.num_classes = num_classes
+        self.pointwise = not isinstance(model, PointNet2Cls)  # a classifier emits a row a column
         self._fwd = build_forward(self.model, emit=emit, num_classes=num_classes)
 
     @classmethod
@@ -141,23 +167,24 @@ class Predictor:
         emit: str = "labels",
         device: torch.device | str = "cuda",
     ) -> "Predictor":
-        """A semantic-segmentation run dir: config.json + <checkpoint>.pt."""
+        """A run dir of any family: config.json + <checkpoint>.pt."""
         model, cfg = load_run_model(run_dir, checkpoint)
+        run_npoints, channels, num_classes = serving_shape(cfg)
         return cls(
             model,
             batch_size=batch_size,
-            npoints=npoints if npoints is not None else cfg.data.npoints,
-            channels=3 + cfg.data.input_channels,
+            npoints=npoints if npoints is not None else run_npoints,
+            channels=channels,
             device=device,
             emit=emit,
-            num_classes=cfg.model.num_classes,
+            num_classes=num_classes,
         )
 
     def predict(self, columns: np.ndarray) -> np.ndarray:
         """(S, npoints, channels) float32 -> outputs with leading S."""
         columns, s = _pad(columns, (self.npoints, self.channels), self.batch_size)
         if s == 0:
-            tail = (self.npoints,) if self.emit == "labels" else (self.npoints, self.num_classes)
+            tail = (self.npoints,) * self.pointwise + (self.num_classes,) * (self.emit == "logits")
             dtype = pred_transfer_dtype(self.num_classes) if self.emit == "labels" else torch.float32
             return torch.zeros((0, *tail), dtype=dtype).numpy()
         b = self.batch_size
@@ -281,17 +308,19 @@ def export_run(
     emit: str = "labels",
     platforms: list[str] | None = None,
 ) -> Exported:
-    """Export a semantic-segmentation run dir (config.json + <checkpoint>.pt)
-    at the run's training npoints unless given. A cls or partseg run dir
-    raises (ROADMAP item 15)."""
+    """Export a run dir of any family (config.json + <checkpoint>.pt) at
+    the run's training npoints unless given: a labels artifact emits (B,
+    npoints) class or part ids for the segmentation families and (B,) class
+    ids for cls."""
     model, cfg = load_run_model(run_dir, checkpoint)
+    run_npoints, channels, num_classes = serving_shape(cfg)
     return export_forward(
         model,
         batch_size=batch_size,
-        npoints=npoints if npoints is not None else cfg.data.npoints,
-        channels=3 + cfg.data.input_channels,
+        npoints=npoints if npoints is not None else run_npoints,
+        channels=channels,
         emit=emit,
-        num_classes=cfg.model.num_classes,
+        num_classes=num_classes,
         platforms=platforms,
     )
 

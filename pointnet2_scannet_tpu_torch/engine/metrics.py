@@ -124,6 +124,35 @@ def compute_scene_metrics(coords, preds, targets, weights, num_classes: int = NU
     return _acc_from(*front, num_classes), _miou_from(*front, num_classes)
 
 
+def instance_part_miou(preds, labels, category, offsets, sizes) -> tuple[float, dict[int, list[float]]]:
+    """ShapeNet-part-style instance-average mIoU (the JAX package's
+    metrics.py:228-270).
+
+    preds / labels: (B, N) int GLOBAL part ids; category: (B,) int; the
+    parts of category c occupy global ids [offsets[c], offsets[c] +
+    sizes[c]). Per shape: the IoU of each of its category's parts (a part
+    absent from both labels and predictions counts as IoU 1), averaged over
+    the category's parts. Predictions are the unrestricted global argmax: a
+    prediction outside the shape's block counts against the union of its
+    point's true part. Returns (mean over shapes, per-category list of
+    per-shape IoUs), so callers aggregate across batches shape by shape."""
+    preds, labels, category = np.asarray(preds), np.asarray(labels), np.asarray(category)
+    shape_ious: list[float] = []
+    per_cat: dict[int, list[float]] = {}
+    for i in range(preds.shape[0]):
+        c = int(category[i])
+        lo = int(offsets[c])
+        part_ious = []
+        for p in range(lo, lo + int(sizes[c])):
+            gt, pd = labels[i] == p, preds[i] == p
+            union = np.logical_or(gt, pd).sum()
+            part_ious.append(1.0 if union == 0 else float(np.logical_and(gt, pd).sum() / union))
+        iou = float(np.mean(part_ious))
+        shape_ious.append(iou)
+        per_cat.setdefault(c, []).append(iou)
+    return (float(np.mean(shape_ious)) if shape_ious else 0.0), per_cat
+
+
 def confusion_to_point_metrics(cm) -> dict[str, float]:
     """Point accuracy, mean per-class accuracy and mIoU from a confusion
     matrix (rows = target class), averaged over the classes seen."""

@@ -9,7 +9,15 @@ modules after that tree, so each scope maps to a dotted prefix:
     params     .../bn_0/{scale, bias}                -> .../bn_0.{weight, bias}
     batch_stats .../bn_0/{mean, var}                 -> .../bn_0.{running_mean, running_var}
 
-and the same for fp_{k}/mlp, cls_fc and cls_out. Values come back as numpy
+and the same for fp_{k}/mlp, cls_fc and cls_out; of the shape families'
+trees (models/pointnet2_cls.py, pointnet2_partseg.py), sa{k}/mlp_{s},
+fp{k}/mlp, head_fc and head_out the same way, and a classifier's FC blocks
+
+    params     fc1/fc/{kernel, bias}                 -> fc1.fc.{weight, bias}
+    params     fc1/bn/{scale, bias}                   -> fc1.bn.{weight, bias}
+    batch_stats fc1/bn/{mean, var}                    -> fc1.bn.{running_mean, running_var}
+
+(bn_pre likewise, and head). Values come back as numpy
 arrays; load them with model.load_state_dict({k: torch.from_numpy(v)},
 strict=True) or engine/checkpoint.save_state_dict.
 
@@ -41,8 +49,21 @@ if TYPE_CHECKING:
     from pointnet2_scannet_tpu_torch.models.pointnet2 import PointNet2Spec
 
 
-def _scopes(spec: PointNet2Spec) -> Iterator[tuple[tuple[str, ...], int]]:
-    """(scope, number of layers) of every PointwiseMLP in the model."""
+def _scopes(spec) -> Iterator[tuple[tuple[str, ...], int]]:
+    """(scope, number of layers) of every PointwiseMLP in the model: of a
+    segmentation model (PointNet2Spec), a shape classifier (PointNet2ClsSpec,
+    whose head is FC blocks, _fc_scopes) or a part segmenter
+    (PointNet2PartSegSpec), told apart by their fields."""
+    if hasattr(spec, "sa_levels"):  # the shape families
+        for k, (_, _, _, mlps) in enumerate(spec.sa_levels):
+            for s, widths in enumerate(mlps):
+                yield (f"sa{k + 1}", f"mlp_{s}"), len(widths)
+        if hasattr(spec, "fp_mlps"):  # part segmentation: fp{n}..fp1, then the head
+            for j, widths in enumerate(spec.fp_mlps):
+                yield (f"fp{len(spec.sa_levels) - j}", "mlp"), len(widths)
+            yield ("head_fc",), 1
+            yield ("head_out",), 1
+        return
     for k, level in enumerate(spec.sa_mlps):
         for s, widths in enumerate(level):
             yield (f"sa_{k}", f"mlp_{s}"), len(widths)
@@ -50,6 +71,14 @@ def _scopes(spec: PointNet2Spec) -> Iterator[tuple[tuple[str, ...], int]]:
         yield (f"fp_{k}", "mlp"), len(widths)
     yield ("cls_fc",), len(spec.cls_fc)
     yield ("cls_out",), 1
+
+
+def _fc_scopes(spec) -> list[str]:
+    """The FC blocks of a shape classifier's head (fc1.., head): a Dense fc
+    and a BatchNorm bn (bn_pre when pre-activated), or none."""
+    if not hasattr(spec, "fc_widths"):
+        return []
+    return [f"fc{j + 1}" for j in range(len(spec.fc_widths))] + ["head"]
 
 
 def _node(tree, scope):
@@ -138,28 +167,39 @@ def save_torch_pointnet2(path, state_dict, spec: PointNet2Spec) -> None:
                 for k, v in export_torch_pointnet2(state_dict, spec).items()}, path)
 
 
-def state_dict_from_jax(variables, spec: PointNet2Spec) -> dict[str, np.ndarray]:
-    """{"params", "batch_stats"} (numpy or jax arrays) -> port state_dict of
-    freshly allocated, writable numpy arrays."""
+def state_dict_from_jax(variables, spec) -> dict[str, np.ndarray]:
+    """{"params", "batch_stats"} (numpy or jax arrays) of a segmentation
+    model, a shape classifier or a part segmenter (spec: PointNet2Spec,
+    PointNet2ClsSpec or PointNet2PartSegSpec) -> port state_dict of freshly
+    allocated, writable numpy arrays. A classifier's FC block fc{j} maps
+    fc1/fc/kernel -> fc1.fc.weight and fc1/bn (or bn_pre) -> fc1.bn (bn_pre)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: dict[str, np.ndarray] = {}
+
+    def dense_into(name: str, dense) -> None:
+        out[f"{name}.weight"] = np.array(np.asarray(dense["kernel"], np.float32).T, order="C")
+        if "bias" in dense:
+            out[f"{name}.bias"] = np.array(dense["bias"], np.float32)
+
+    def bn_into(name: str, bn, sbn) -> None:
+        out[f"{name}.weight"] = np.array(bn["scale"], np.float32)
+        out[f"{name}.bias"] = np.array(bn["bias"], np.float32)
+        out[f"{name}.running_mean"] = np.array(sbn["mean"], np.float32)
+        out[f"{name}.running_var"] = np.array(sbn["var"], np.float32)
+        out[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
+
     for scope, n_layers in _scopes(spec):
         pnode = _node(params, scope)
         prefix = ".".join(scope)
         for i in range(n_layers):
-            dense = pnode[f"dense_{i}"]
-            kernel = np.asarray(dense["kernel"], np.float32)
-            out[f"{prefix}.dense_{i}.weight"] = np.array(kernel.T, order="C")
-            if "bias" in dense:
-                out[f"{prefix}.dense_{i}.bias"] = np.array(dense["bias"], np.float32)
+            dense_into(f"{prefix}.dense_{i}", pnode[f"dense_{i}"])
             if f"bn_{i}" in pnode:
-                bn = pnode[f"bn_{i}"]
-                sbn = _node(stats, scope)[f"bn_{i}"]
-                base = f"{prefix}.bn_{i}"
-                out[f"{base}.weight"] = np.array(bn["scale"], np.float32)
-                out[f"{base}.bias"] = np.array(bn["bias"], np.float32)
-                out[f"{base}.running_mean"] = np.array(sbn["mean"], np.float32)
-                out[f"{base}.running_var"] = np.array(sbn["var"], np.float32)
-                out[f"{base}.num_batches_tracked"] = np.array(0, np.int64)
+                bn_into(f"{prefix}.bn_{i}", pnode[f"bn_{i}"], _node(stats, scope)[f"bn_{i}"])
+    for scope in _fc_scopes(spec):
+        pnode = params[scope]
+        dense_into(f"{scope}.fc", pnode["fc"])
+        for bn in ("bn_pre", "bn"):
+            if bn in pnode:
+                bn_into(f"{scope}.{bn}", pnode[bn], stats[scope][bn])
     return out

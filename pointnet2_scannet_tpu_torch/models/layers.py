@@ -1,5 +1,6 @@
 """Pointwise MLP: Linear (no bias under BatchNorm), BatchNorm, ReLU; its
-layer 0 can also run before the neighbourhood gather (pregather).
+layer 0 can also run before the neighbourhood gather (pregather). FC: the
+same block on (B, C) vectors, the classification head's.
 
 Channels-last: a 1x1 convolution over (B, N, C) or (B, M, K, C) is a Linear
 on the last axis. BatchNorm follows flax's nn.BatchNorm, which the JAX
@@ -177,6 +178,72 @@ class PointwiseMLP(nn.Module):
         if self.last_act or i < len(self.widths) - 1:
             x = torch.relu(x)
         return x
+
+
+class FC(nn.Module):
+    """Linear(+BatchNorm)(+ReLU) on (B, C) vectors, the JAX package's FC
+    (layers.py:295-341), the classification head's block.
+
+    The Linear (fc) has a bias only without BatchNorm. preact=True runs the
+    BatchNorm (bn_pre, over the input's channels) and the ReLU before the
+    Linear; otherwise they follow it (bn, over its outputs). The Linear and
+    the BatchNorm compute as PointwiseMLP's do: with a compute dtype the
+    Linear's input, weight and bias are cast to it, and the BatchNorm takes
+    its statistics over the batch axis in float32 and casts its result.
+    bn_group: the process group of a data-parallel run, whose ranks' global
+    batch the train-mode statistics cover (the JAX FC takes no axis name, so
+    under the JAX package's shard_map step each device normalises its own
+    rows; the port keeps the dp step equal to the global batch's).
+    """
+
+    def __init__(
+        self,
+        in_size: int,
+        out_size: int,
+        *,
+        bn: bool = False,
+        preact: bool = False,
+        activation: bool = True,
+        dtype: torch.dtype | None = None,
+        bn_group=None,
+        device: torch.device | str | None = None,
+    ):
+        super().__init__()
+        self.use_bn = bn
+        self.preact = preact
+        self.activation = activation
+        self.dtype = dtype
+        self.bn_group = bn_group
+        if bn and preact:
+            self.bn_pre = nn.BatchNorm1d(in_size, eps=BN_EPS, device=device)
+        self.fc = nn.Linear(in_size, out_size, bias=not bn, device=device)
+        if bn and not preact:
+            self.bn = nn.BatchNorm1d(out_size, eps=BN_EPS, device=device)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """He-normal weight, zero bias, identity BatchNorm."""
+        he_normal_(self.fc.weight, generator)
+        if self.fc.bias is not None:
+            nn.init.zeros_(self.fc.bias)
+        for name in ("bn_pre", "bn"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters()
+
+    def _bn_act(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        if self.use_bn:
+            x = _batch_norm(x, getattr(self, name), self.training, self.dtype, self.bn_group)
+        return torch.relu(x) if self.activation else x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.preact:
+            x = self._bn_act(x, "bn_pre")
+        dt = self.dtype
+        if dt is None:
+            x = self.fc(x)
+        else:
+            bias = self.fc.bias.to(dt) if self.fc.bias is not None else None
+            x = F.linear(x.to(dt), self.fc.weight.to(dt), bias)
+        return x if self.preact else self._bn_act(x, "bn")
 
 
 def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,

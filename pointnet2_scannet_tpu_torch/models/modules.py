@@ -28,7 +28,8 @@ from pointnet2_scannet_tpu_torch.ops import tuning
 
 class SetAbstraction(nn.Module):
     """Set abstraction with one MLP per grouping scale (mlp_{s}); npoint=None
-    groups all points."""
+    groups all points (no radius or nsample, one MLP) and returns no
+    new_xyz, as the JAX module does."""
 
     def __init__(
         self,
@@ -45,7 +46,8 @@ class SetAbstraction(nn.Module):
         device: torch.device | str | None = None,
     ):
         super().__init__()
-        if not len(radii) == len(nsamples) == len(mlps) > 0:
+        scales = 1 if npoint is None else len(radii)  # group-all: one MLP, no radius
+        if not (len(radii) == len(nsamples) and len(mlps) == scales > 0):
             raise ValueError(f"one radius, nsample and MLP per scale: {radii}, {nsamples}, {mlps}")
         self.npoint = npoint
         self.radii = tuple(float(r) for r in radii)
@@ -57,7 +59,7 @@ class SetAbstraction(nn.Module):
                 in_channels + 3 * use_xyz, widths, bn=bn, dtype=dtype, bn_group=bn_group, device=device))
 
     def _mlps(self) -> list[PointwiseMLP]:
-        return [getattr(self, f"mlp_{s}") for s in range(len(self.radii))]
+        return [getattr(self, f"mlp_{s}") for s in range(max(len(self.radii), 1))]
 
     @property
     def out_channels(self) -> int:

@@ -342,14 +342,18 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), timeout: float | None = N
             p.join()
 
 
+def dist_flags_set(args) -> bool:
+    """Whether a CLI's --dist_* flags join ranks (args: --dist_*)."""
+    return (args.dist_coordinator is not None or args.dist_nprocs != 1 or args.dist_pid != 0
+            or args.dist_auto)
+
+
 def cli_ranks(args) -> int:
     """The ranks that a CLI's --num_devices spawns on this host (1: none),
     after its refusals: --num_devices with a --dist_* flag, more ranks than
     the host has cards. args: --num_devices, --dist_*, --device."""
     n = args.num_devices or 1
-    dist_set = (args.dist_coordinator is not None or args.dist_nprocs != 1 or args.dist_pid != 0
-                or args.dist_auto)
-    if n > 1 and dist_set:
+    if n > 1 and dist_flags_set(args):
         raise ValueError("--num_devices cannot be combined with --dist_*: --num_devices spawns the ranks "
                          "of one host, --dist_* joins ranks started by hand or by a launcher")
     if n > 1 and torch.device(args.device).type == "cuda":

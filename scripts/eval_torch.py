@@ -51,6 +51,8 @@ def load(args, scene_ids=None, ctx=None):
     ctx = ctx or ProcessContext.single(device)
     run_dir = pathlib.Path(args.folder)
     model, cfg = load_run_model(run_dir, args.checkpoint)
+    if isinstance(cfg, dict):
+        raise SystemExit(f"{run_dir} is a shape-family run: evaluate it with scripts/eval_shapes_torch.py")
     if args.synthetic:
         store = make_synthetic_store(args.synthetic_scenes, seed=1000).shard(
             ctx.process_id, ctx.num_processes, equalize=False)

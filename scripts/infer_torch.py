@@ -15,7 +15,11 @@ a palette PLY with --write_ply.
   python scripts/infer_torch.py --folder runs/X --export m.pt2 [--platforms cpu cuda]
   python scripts/infer_torch.py --folder runs/X --from_artifact m.pt2 --synthetic
 
-An artifact fixes --batch_size, --npoints and --emit when it is exported.
+--export takes a run dir of any family: semantic segmentation, and the
+shape families of scripts/train_cls_torch.py ((B,) class ids) and
+train_partseg_torch.py ((B, N) part ids, the category one-hot in the
+input's last channels); scene inference serves semantic-segmentation runs
+only. An artifact fixes --batch_size, --npoints and --emit when it is exported.
 It calls the port's kernels (pn2:: ops), so serving from it imports this
 package and builds the kernels on the card. --num_devices N round-robins
 the batches over N cards (from the run dir, through an artifact exported
@@ -122,15 +126,17 @@ def infer(args) -> dict:
 
     t_start = time.perf_counter()
     run_dir = pathlib.Path(args.folder)
+    if args.export:  # every family
+        return export(args, run_dir)
     kind = run_kind(json.loads((run_dir / "config.json").read_text()))
     if kind != "semseg":
         raise SystemExit(
             f"--folder points at a {kind} run: scene inference is a semantic-"
-            "segmentation flow, and the port serves no shape-family model yet "
-            "(ROADMAP item 15)"
+            "segmentation flow. Shape-family runs export serving artifacts "
+            "with --export (all three families) and evaluate with "
+            "scripts/eval_shapes_torch.py; serve artifacts programmatically via "
+            "engine.export.ServingPredictor."
         )
-    if args.export:
-        return export(args, run_dir)
     cfg = RunConfig.load(run_dir / "config.json")
     devices = _devices(args)
     if args.from_artifact:

@@ -15,6 +15,12 @@ unprofiled call (busy time against the CUDA-event time).
   python scripts/profile_torch.py --model ssg
   python scripts/profile_torch.py --model ssg --dtype bfloat16
   python scripts/profile_torch.py --model ssg --mv131   # 131 input channels
+  python scripts/profile_torch.py --model partseg_ssg    # a shape family's recipe
+
+--model cls_ssg, cls_msg, partseg_ssg or partseg_msg profiles a shape
+family (models/pointnet2_cls.py, pointnet2_partseg.py) at its published
+recipe: 1024-point clouds of data/shapes.py, batch 32 (cls, 8 classes) or
+16 (partseg, 8 categories, 17 parts).
 
 --mv131 profiles the multiview recipe: xyz + normal + 128 label-correlated
 multiview channels (data/synthetic.attach_label_multiview) instead of xyz +
@@ -34,6 +40,7 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 BATCH, NPOINTS = 32, 8192
+SHAPE_BATCH, SHAPE_NPOINTS = {"cls": 32, "partseg": 16}, 1024
 STEPS = 3  # profiled calls of each
 TOP = 20  # ops listed
 
@@ -55,6 +62,27 @@ def kernel_class(name: str) -> str:
         if any(k in name for k in keys):
             return cls
     return "other"
+
+
+def shape_inputs(torch, kind: str, dtype=None):
+    """A seeded shape-family model (kind "cls_ssg" .. "partseg_msg") and one
+    train batch of its recipe; returns (model, batch, classes)."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.data import shapes
+    from pointnet2_scannet_tpu_torch.models import get_cls_model, get_partseg_model
+
+    family, variant = kind.split("_")
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    if family == "cls":
+        model = get_cls_model(8, is_msg=variant == "msg", dtype=dtype, generator=gen, device="cuda")
+        batch, classes = shapes.sample_cls_batch(rng, SHAPE_BATCH[family], SHAPE_NPOINTS, 8), 8
+    else:
+        classes = shapes.num_parts_total(8)
+        model = get_partseg_model(classes, 8, is_msg=variant == "msg", dtype=dtype, generator=gen, device="cuda")
+        batch = shapes.sample_partseg_batch(rng, SHAPE_BATCH[family], SHAPE_NPOINTS, 8)
+    return model, {k: torch.from_numpy(v).to("cuda") for k, v in batch.items() if k != "category"}, classes
 
 
 def inputs(torch, kind: str, dtype=None, mv131: bool = False):
@@ -148,7 +176,8 @@ def main(argv=None) -> None:
     import torch
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", choices=("ssg", "msg"), default="msg")
+    p.add_argument("--model", choices=("ssg", "msg", "cls_ssg", "cls_msg", "partseg_ssg", "partseg_msg"),
+                   default="msg")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="the compute dtype (bfloat16: float32 parameters, bfloat16 MLPs and grouping)")
     p.add_argument("--mv131", action="store_true",
@@ -161,18 +190,22 @@ def main(argv=None) -> None:
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
     from pointnet2_scannet_tpu_torch.engine.export import export_forward
 
-    model, batch = inputs(torch, args.model, torch.bfloat16 if args.dtype == "bfloat16" else None, args.mv131)
-    channels = batch["points"].shape[-1]
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+    if "_" in args.model:
+        model, batch, classes = shape_inputs(torch, args.model, dtype)
+    else:
+        (model, batch), classes = inputs(torch, args.model, dtype, args.mv131), 20
+    b, n, channels = batch["points"].shape
     print(f"device: {torch.cuda.get_device_name(0)}; model {args.model.upper()}, "
-          f"{BATCH} x {NPOINTS} x {channels}, compute dtype {args.dtype}", flush=True)
+          f"{b} x {n} x {channels}, compute dtype {args.dtype}", flush=True)
 
     def forward():
         with torch.inference_mode():
             return model(batch["points"]).argmax(-1)
 
     model.eval()
-    program = export_forward(model, batch_size=BATCH, npoints=NPOINTS, channels=channels, emit="logits",
-                             platforms=["cuda"]).program.module()
+    program = export_forward(model, batch_size=b, npoints=n, channels=channels, emit="logits",
+                             num_classes=classes, platforms=["cuda"]).program.module()
 
     def exported_forward():
         with torch.inference_mode():
@@ -185,7 +218,7 @@ def main(argv=None) -> None:
         profile(torch, label, fn, times[len(times) // 2])
 
     state = ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=0)
-    step = lambda: ts.train_step(state, batch, num_classes=20)  # noqa: E731
+    step = lambda: ts.train_step(state, batch, num_classes=classes)  # noqa: E731
     times = event_ms(torch, step, 10)
     print(f"train step: {times[len(times) // 2]:.2f} ms median of 10 (min {times[0]:.2f}, "
           f"max {times[-1]:.2f}); peak device memory "
