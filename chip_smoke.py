@@ -277,7 +277,22 @@
     removes has a zero gradient), the CPU's float32 distance floored at
     SHAPE_GRAD_FLOOR. A --bf16 cls SSG run of 2 steps: finite
     losses, d and h on bfloat16 rows.
-30. Print one JSON line of kernel results (time, plain time, the card's bound
+30. The votenet modules (SetAbstractionVotes, SetAbstractionMSGVotes,
+    LearnableFeaturePropagationMSG) at VoteNet's widths on 8 synthetic
+    scenes of 20 000 points with a height channel: its backbone's four SA
+    levels and its proposal SA on SA2's 1024 seeds of 256 channels, and the
+    JAX msg_spec's SA1 and SA2 as SetAbstractionMSGVotes with an LFP from
+    SA2 back onto SA1. FPS, the single- and two-radius ball queries, the
+    gather and the scatter-add at those shapes, bit for bit against their
+    plain versions and timed beside their bounds; one train-mode forward
+    and backward launching exactly its kernels, finite; the steady train
+    forward, forward and backward, and eval forward; one step of 2 scenes
+    card vs CPU under phase 29's gates (float64 reference). Then
+    scripts/preprocess_torch.py on a synthetic raw scan of 100 000 mesh
+    vertices on the card and with --device cpu (equal but the normals,
+    within 1e-6), and virtual_scan of that scene (modes -1, 2, 4), the
+    card's indices equal to the CPU's.
+31. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -285,7 +300,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28 and 29 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29 and 30 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -439,6 +454,25 @@ SHAPE_CHECK_BATCH = {"cls": 8, "partseg": 1}
 # times the larger of the CPU's and this floor
 SHAPE_GRAD_FLOOR = 5e-3
 SHAPE_WARM, SHAPE_STEPS, SHAPE_WINDOWS = 3, 10, 3
+# phase 30, the votenet modules at VoteNet's widths (Qi et al., ICCV 2019;
+# its models/backbone_module.py and proposal_module.py): scenes of
+# VOTE_POINTS points with one feature channel (height); the backbone's SA1-SA4
+# (npoint, radius, nsample, widths), all with normalize_xyz; the proposal
+# SA on SA2's 1024 seeds of 256 channels (VoteNet's seeds after FP2); the
+# JAX msg_spec's SA1 and SA2 (models/pointnet2.py:79-86) as
+# SetAbstractionMSGVotes, and an LFP from MSG SA2 back onto MSG SA1's points
+# at SA2's radii, nsamples and widths with FP1's (256, 256) as its post_mlp;
+# the card-vs-CPU step's scenes; the timing's warm calls, calls a window and
+# windows; the synthetic raw scan's mesh and the normals' bound card vs CPU
+VOTE_BATCH, VOTE_POINTS, VOTE_CHECK_BATCH = 8, 20_000, 2
+VOTE_SA = ((2048, 0.2, 64, (64, 64, 128)), (1024, 0.4, 32, (128, 128, 256)),
+           (512, 0.8, 16, (128, 128, 256)), (256, 1.2, 16, (128, 128, 256)))
+VOTE_PROPOSAL = (256, 0.3, 16, (128, 128, 128))
+VOTE_MSG = ((1024, (0.05, 0.1), (16, 32), ((16, 16, 32), (32, 32, 64))),
+            (256, (0.1, 0.2), (16, 32), ((64, 64, 128), (64, 96, 128))))
+VOTE_LFP_POST = (256, 256)
+VOTE_WARM, VOTE_STEPS, VOTE_WINDOWS = 2, 5, 3
+PREP_VERTICES, PREP_FACES, PREP_NORMAL_TOL = 100_000, 200_000, 1e-6
 # the hand-written kernels a replay's trace may name, by TPU kernel letter
 # (b and c share ball_scan.cuh's kernels: one radius row, or two)
 TRACE_LETTERS = (("a", r"fps(_cluster)?_kernel\b"), ("b", r"ball_query_(resident|tiled)_kernel<1>"),
@@ -3541,6 +3575,354 @@ def shape_families(torch, tmp: pathlib.Path, tallies) -> dict:
     return {"launches": total, "bf16_launches": bf16_total}
 
 
+def vote_cloud(torch, b: int, seed: int = 0):
+    """b synthetic scenes of VOTE_POINTS points on the card: xyz and the one
+    feature channel, height above the scene's lowest point (VoteNet's)."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_scene
+
+    pts = np.stack([make_synthetic_scene(seed + i, n_points=VOTE_POINTS)[:VOTE_POINTS, :3] for i in range(b)])
+    xyz = torch.from_numpy(pts)
+    return xyz, (xyz[..., 2:3] - xyz[..., 2:3].amin(dim=1, keepdim=True)).contiguous()
+
+
+def vote_modules(torch):
+    """Phase 30's modules on the CPU, weights from a seeded generator."""
+    from pointnet2_scannet_tpu_torch import models
+
+    mods, c = {}, 1
+    for k, (npoint, radius, nsample, widths) in enumerate(VOTE_SA):
+        mods[f"sa{k + 1}"] = models.SetAbstractionVotes(widths, c, npoint=npoint, radius=radius, nsample=nsample,
+                                                         normalize_xyz=True)
+        c = widths[-1]
+    npoint, radius, nsample, widths = VOTE_PROPOSAL
+    mods["proposal"] = models.SetAbstractionVotes(widths, VOTE_SA[1][3][-1], npoint=npoint, radius=radius,
+                                                  nsample=nsample, normalize_xyz=True)
+    c = 1
+    for k, (npoint, radii, nsamples, mlps) in enumerate(VOTE_MSG):
+        mods[f"msg{k + 1}"] = models.SetAbstractionMSGVotes(npoint, radii, nsamples, mlps, c)
+        c = sum(w[-1] for w in mlps)
+    _, radii, nsamples, mlps = VOTE_MSG[1]
+    mods["lfp"] = models.LearnableFeaturePropagationMSG(
+        mlps, radii, nsamples, VOTE_LFP_POST, c, sum(w[-1] for w in VOTE_MSG[0][3]))
+    mods = torch.nn.ModuleDict(mods)
+    gen = torch.Generator().manual_seed(0)
+    for m in mods.modules():
+        if isinstance(m, models.PointwiseMLP):
+            m.reset_parameters(gen)
+    return mods
+
+
+def vote_forward(mods, xyz, feats) -> dict:
+    """The backbone SA1-SA4, the proposal SA on SA2's seeds, MSG SA1-SA2
+    and the LFP from MSG SA2 back onto MSG SA1's points."""
+    l_xyz, l_f = xyz, feats
+    for k in range(len(VOTE_SA)):
+        l_xyz, l_f, _ = mods[f"sa{k + 1}"](l_xyz, l_f)
+        if k == 1:
+            _, proposal, _ = mods["proposal"](l_xyz, l_f)
+    m1_xyz, m1_f, _ = mods["msg1"](xyz, feats)
+    m2_xyz, m2_f, _ = mods["msg2"](m1_xyz, m1_f)
+    return {"sa4": l_f, "proposal": proposal, "lfp": mods["lfp"](m1_xyz, m2_xyz, m1_f, m2_f)}
+
+
+def vote_loss(out: dict):
+    return sum(v.square().mean() for v in out.values())
+
+
+def check_vote_kernels(torch, tallies) -> None:
+    """Phase 30: a, b, c, d and h at the shapes of phase 30's main path (8
+    scenes of 20 000 points), each bit for bit against its plain version,
+    timed beside its bound, as phases 3-5 check them."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_multi_kernel as bqm
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
+    from pointnet2_scannet_tpu_torch.ops.cuda import gather_kernel as ga
+    from pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter import scan_points
+
+    b = VOTE_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    x0 = vote_cloud(torch, b)[0].to("cuda")
+    backward = []
+
+    def level(x, npoint):
+        n = x.shape[1]
+        check(torch, tallies[fps.NAME], "votes", f"fps votes ({b},{n})->{npoint} plan {tuple(fps.plan(n, x.dtype))}",
+              lambda: fps.furthest_point_sample_cuda(x, npoint), lambda: fps.furthest_point_sample_plain(x, npoint),
+              4 * b * (3 * n + npoint), 10 * b * (npoint - 1) * n)
+        idx = fps.furthest_point_sample_plain(x, npoint)
+        gather_check(torch, tallies[ga.NAME], "votes", f"gather votes centroids ({b},{n},3)x{npoint}", x, idx)
+        return ga.gather_plain(x, idx).contiguous()
+
+    def grouping(label, x, c, nidx, grad):
+        src = torch.randn((b, x.shape[1], c), generator=gen, device="cuda")
+        gather_check(torch, tallies[ga.NAME], "votes", f"gather votes {label} ({b},{x.shape[1]},{c})x{nidx.shape[1]}",
+                     src, nidx)
+        if grad:
+            backward.append((f"votes {label}", nidx, x.shape[1], c))
+
+    seeds = None
+    x, c = x0, 1
+    for k, (npoint, radius, nsample, widths) in enumerate((*VOTE_SA, VOTE_PROPOSAL)):
+        name = "proposal" if k == len(VOTE_SA) else f"SA{k + 1}"
+        if name == "proposal":
+            x, c = seeds
+        q = level(x, npoint)
+        n, m = x.shape[1], q.shape[1]
+        scans = int(scan_points(torch, x, q, radius, nsample).sum())
+        check(torch, tallies[bq.NAME], "votes", f"ball_query votes {name} r={radius} ({b},{n})->{m} ns={nsample}",
+              lambda: bq.ball_query_cuda(radius, nsample, x, q), lambda: bq.ball_query_plain(radius, nsample, x, q),
+              4 * b * (3 * n + 3 * m + m * nsample), 9 * scans)
+        if k == 0:
+            check_unique_counts(torch, x, q, radius, nsample)
+        nidx = bq.ball_query_plain(radius, nsample, x, q).reshape(b, -1)
+        grouping(f"{name} xyz grouping", x, 3, nidx, False)
+        grouping(f"{name} feature grouping", x, c, nidx, c != 1)  # SA1 groups the input: no gradient
+        if k == 1:
+            seeds = (q, widths[-1])
+        x, c = q, widths[-1]
+
+    def multi(label, x, q, radii, ks, c, grad):
+        n, m = x.shape[1], q.shape[1]
+        scans = int(torch.maximum(scan_points(torch, x, q, radii[0], ks[0]),
+                                  scan_points(torch, x, q, radii[1], ks[1])).sum())
+        check(torch, tallies[bqm.NAME], "votes", f"ball_query_multi votes {label} r={radii} ({b},{n})->{m} ns={ks}",
+              lambda: bqm.ball_query_multi_cuda(radii, ks, x, q), lambda: bqm.ball_query_multi_plain(radii, ks, x, q),
+              4 * b * (3 * n + 3 * m + m * sum(ks)), 10 * scans)
+        for s, nidx in enumerate(bqm.ball_query_multi_plain(radii, ks, x, q)):
+            grouping(f"{label} scale {s} grouping", x, 3 + c, nidx.reshape(b, -1), grad)
+
+    xs, c = [x0], 1
+    for k, (npoint, radii, ks, mlps) in enumerate(VOTE_MSG):
+        q = level(xs[-1], npoint)
+        multi(f"MSG SA{k + 1}", xs[-1], q, radii, ks, c, k > 0)
+        xs.append(q)
+        c = sum(w[-1] for w in mlps)
+    multi("LFP", xs[2], xs[1], VOTE_MSG[1][1], VOTE_MSG[1][2], c, True)
+    check_scatter(torch, tallies["scatter_add"], "votes", backward)
+
+
+def check_unique_counts(torch, x, q, radius: float, k: int) -> None:
+    """Phase 30: unique_neighbor_count and uniform_resample_neighbors on b's
+    rows from the card at SA1's (radius, K), with two queries more a scene:
+    one at a cluster of exactly K points (K hits) and one far from every
+    point (no hit). Each row must be its distinct hits in ascending order,
+    padded with its first hit (all zeros for no hit), which is what the
+    count reads; the counts equal the CPU's on the plain version's rows; the
+    resampled rows keep each distinct prefix and draw the padding from it."""
+    from pointnet2_scannet_tpu_torch import ops
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+
+    b, n = x.shape[:2]
+    far = x.new_full((b, 1, 3), 1e3)
+    cluster = far - 5e2 + radius / 4 * torch.rand((b, k, 3), generator=torch.Generator(device="cuda").manual_seed(3),
+                                                  device="cuda")
+    xs = torch.cat([x, cluster], dim=1)
+    qs = torch.cat([q, cluster[:, :1], far], dim=1)
+    idx = bq.ball_query_cuda(radius, k, xs, qs)
+    cnt = ops.unique_neighbor_count(idx)
+    slots = torch.arange(k, device="cuda")
+    prefix = slots < cnt[..., None]
+    ascending = (idx[..., 1:] > idx[..., :-1]) | ~prefix[..., 1:]
+    padded = torch.where(prefix, idx, idx[..., :1]) == idx
+    want = ops.unique_neighbor_count(bq.ball_query_plain(radius, k, xs.cpu(), qs.cpu()))
+    out, got = ops.uniform_resample_neighbors(idx, torch.Generator(device="cuda").manual_seed(4))
+    drawn = (out[..., :, None] == torch.where(prefix, idx, -1)[..., None, :]).any(-1)
+    hist = torch.bincount(cnt.flatten(), minlength=k + 1).cpu()
+    print(f"unique counts on b's SA1 rows ({b},{n + k})->{qs.shape[1]} r={radius} K={k}: {int(hist[k])} full, "
+          f"{int(hist[1])} of one, {int(hist[2:k].sum())} between; cluster rows {cnt[:, -2].tolist()}, far rows "
+          f"{cnt[:, -1].tolist()}", flush=True)
+    if not (bool(ascending.all()) and bool(padded.all()) and torch.equal(cnt.cpu(), want)
+            and (cnt[:, -2] == k).all() and (cnt[:, -1] == 1).all() and (idx[:, -1] == 0).all()
+            and torch.equal(got, cnt) and torch.equal(out[prefix], idx[prefix]) and bool(drawn.all())):
+        raise RuntimeError("phase 30: b's rows break unique_neighbor_count's invariant, or the counts or the "
+                           "resampling differ from the CPU's")
+
+
+# phase 30's main-path launches a forward (and its backward): FPS at the
+# five SetAbstractionVotes levels and the two MSG levels; the single-radius
+# query at the five; the two-radius query at the MSG levels and the LFP;
+# the gather at each SetAbstractionVotes level's centroids, grouped xyz and
+# grouped features, at each MSG level's centroids and two groupings, at the
+# LFP's two; the scatter-add under every grouping of a computed feature
+# (SA2-SA4, the proposal, MSG SA2's two, the LFP's two)
+VOTE_LAUNCHES = {"furthest_point_sample": 7, "ball_query": 5, "ball_query_multi": 3, "gather": 23,
+                 "scatter_add": 8}
+
+
+def vote_step(torch, mods, xyz, feats):
+    """One train-mode forward and backward; the outputs and gradients."""
+    for p in mods.parameters():
+        p.grad = None
+    out = vote_forward(mods, xyz, feats)
+    vote_loss(out).backward()
+    return out
+
+
+def votenet(torch, tallies) -> dict:
+    """Phase 30; returns the launches of its main-path run."""
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    t0 = time.perf_counter()
+    card = bench_torch.card_line()
+    print(f"phase 30, the votenet modules at VoteNet's widths on {card}", flush=True)
+    check_vote_kernels(torch, tallies)
+    xyz, feats = (t.to("cuda") for t in vote_cloud(torch, VOTE_BATCH))
+    mods = vote_modules(torch).to("cuda").train()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = vote_step(torch, mods, xyz, feats)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    print(f"votes main path ({VOTE_BATCH} x {VOTE_POINTS}, train forward and backward): launches {launches}, "
+          f"outputs {shapes}", flush=True)
+    want = {k: VOTE_LAUNCHES.get(k, 0) for k in launches}
+    if launches != want:
+        raise RuntimeError(f"phase 30 launched {launches}, not {want}")
+    if not all(bool(v.isfinite().all()) for v in out.values()) or not all(
+            p.grad is not None and bool(p.grad.isfinite().all()) for p in mods.parameters()):
+        raise RuntimeError("phase 30: non-finite outputs or gradients")
+    fwd = bench_torch.timed_windows(lambda: vote_forward(mods, xyz, feats), "cuda", VOTE_STEPS, VOTE_WINDOWS,
+                                    VOTE_WARM)
+    step = bench_torch.timed_windows(lambda: vote_step(torch, mods, xyz, feats), "cuda", VOTE_STEPS,
+                                     VOTE_WINDOWS, VOTE_WARM)
+    print(f"votes steady, {VOTE_BATCH} x {VOTE_POINTS}: train forward {fwd[len(fwd) // 2]:.3f} ms (min {fwd[0]:.3f}, "
+          f"max {fwd[-1]:.3f}), forward and backward {step[len(step) // 2]:.3f} ms (min {step[0]:.3f}, max "
+          f"{step[-1]:.3f}), backward {step[len(step) // 2] - fwd[len(fwd) // 2]:.3f} ms; medians of "
+          f"{VOTE_WINDOWS} windows of {VOTE_STEPS}; {card}", flush=True)
+    with torch.no_grad():
+        mods.eval()
+        evals = bench_torch.timed_windows(lambda: vote_forward(mods, xyz, feats), "cuda", VOTE_STEPS,
+                                          VOTE_WINDOWS, VOTE_WARM)
+    print(f"votes steady eval forward: {evals[len(evals) // 2]:.3f} ms (min {evals[0]:.3f}, max {evals[-1]:.3f})",
+          flush=True)
+    del mods, out
+    vote_card_vs_cpu(torch)
+    prep_and_scan(torch)
+    print(f"phase 30 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches}
+
+
+def vote_card_vs_cpu(torch) -> None:
+    """Phase 30: one train-mode forward and backward of VOTE_CHECK_BATCH
+    scenes on the card against the CPU (float32 both; float64 on the CPU as
+    the reference): the outputs within the port's tolerance, the moved
+    BatchNorm statistics within TRAIN_BN_TOL, the card's gradients no
+    further from the float64 ones than TRAIN_GRAD_VS_CPU times the CPU's
+    float32 ones (or SHAPE_GRAD_FLOOR, the larger), over all parameters and
+    at the median tensor, as phase 29 holds the families."""
+    xyz, feats = vote_cloud(torch, VOTE_CHECK_BATCH, seed=7)
+    base = vote_modules(torch)
+    res = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
+        mods = copy.deepcopy(base).to(device=device, dtype=dtype).train()
+        out = vote_step(torch, mods, xyz.to(device, dtype), feats.to(device, dtype))
+        res[device, dtype] = ({k: v.detach().cpu() for k, v in out.items()},
+                              {k: p.grad.cpu() for k, p in mods.named_parameters()},
+                              {k: b.cpu() for k, b in mods.named_buffers() if b.is_floating_point()})
+    ref = res["cpu", torch.float64][1]
+    (cpu_out, cpu_g, cpu_b), (out, g, bufs) = res["cpu", torch.float32], res["cuda", torch.float32]
+    out_err = max(float((out[k] - v).abs().max()) for k, v in cpu_out.items())
+    bn_err = max(float((bufs[k] - v).abs().max()) for k, v in cpu_b.items())
+    card, cpu = grad_errors(g, ref), grad_errors(cpu_g, ref)
+    med = len(card) // 2
+    card_all, cpu_all = all_l2(g, ref), all_l2(cpu_g, ref)
+    print(f"votes step card vs CPU ({VOTE_CHECK_BATCH} x {VOTE_POINTS}): outputs max abs err {out_err:.2e}; "
+          f"BatchNorm stats max abs err {bn_err:.2e}; gradients vs CPU float64, over all parameters / median tensor: "
+          f"card {card_all:.2e} / {card[med][0]:.2e}, CPU float32 {cpu_all:.2e} / {cpu[med][0]:.2e}", flush=True)
+    for k, v in cpu_out.items():
+        torch.testing.assert_close(out[k], v, rtol=1e-4, atol=1e-4)
+    for k, v in cpu_b.items():
+        torch.testing.assert_close(bufs[k], v, rtol=TRAIN_BN_TOL, atol=TRAIN_BN_TOL)
+    if not (card_all <= TRAIN_GRAD_VS_CPU * max(cpu_all, SHAPE_GRAD_FLOOR)
+            and card[med][0] <= TRAIN_GRAD_VS_CPU * max(cpu[med][0], SHAPE_GRAD_FLOOR)):
+        raise RuntimeError("votes step: the card's gradients are further from the float64 reference than the "
+                           "CPU's float32 gradients allow")
+
+
+def write_raw_scan(root: pathlib.Path, sid: str, seed: int):
+    """A synthetic raw ScanNet scan of PREP_VERTICES mesh vertices (a
+    synthetic scene's points, colours and instances; PREP_FACES random
+    triangles) and its label TSV; returns the TSV's path."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.config import NYU_CLASSES
+    from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_scene
+
+    scene = make_synthetic_scene(seed, n_points=PREP_VERTICES)[:PREP_VERTICES]
+    n = len(scene)
+    scan = root / "scans" / sid
+    scan.mkdir(parents=True)
+    vert = np.empty(n, [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    for i, name in enumerate(("x", "y", "z", "red", "green", "blue")):
+        vert[name] = scene[:, i]
+    face = np.empty(PREP_FACES, [("n", "u1"), ("v", "<i4", (3,))])
+    face["n"] = 3
+    face["v"] = np.random.default_rng(seed).integers(0, n, (PREP_FACES, 3))
+    with open(scan / f"{sid}_vh_clean_2.ply", "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\nelement vertex {n}\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                 f"element face {PREP_FACES}\nproperty list uchar int vertex_indices\nend_header\n").encode())
+        f.write(vert.tobytes())
+        f.write(face.tobytes())
+    inst = scene[:, 9].astype(np.int64)
+    (scan / f"{sid}_vh_clean_2.0.010000.segs.json").write_text(json.dumps({"segIndices": inst.tolist()}))
+    groups = [{"id": int(i), "label": f"{NYU_CLASSES[int(scene[inst == i][0, 10])]}_raw", "segments": [int(i)]}
+              for i in np.unique(inst)]
+    (scan / f"{sid}.aggregation.json").write_text(json.dumps({"segGroups": groups}))
+    tsv = root / "labels.tsv"
+    tsv.write_text("id\traw_category\tnyu40class\n" + "".join(
+        f"{i}\t{c}_raw\t{c}\n" for i, c in enumerate(NYU_CLASSES)))
+    return tsv
+
+
+def prep_and_scan(torch) -> None:
+    """Phase 30: scripts/preprocess_torch.py on one synthetic raw scene on
+    the card and with --device cpu, the .npy files equal but the normals
+    (within PREP_NORMAL_TOL: the card's float64 atomics add in another
+    order); then virtual_scan of that scene on the card against the CPU."""
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.utils.scene_util import virtual_scan
+
+    prep = load_script("preprocess_torch")
+    sid = "scene0000_00"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as tmp:
+        tmp = pathlib.Path(tmp)
+        tsv = write_raw_scan(tmp, sid, 3)
+        arrays, took = {}, {}
+        for device in ("cuda", "cpu", "cuda"):
+            t0 = time.perf_counter()
+            done = prep.main(prep.parse_args(["--scans_dir", str(tmp / "scans"), "--label_tsv", str(tsv),
+                                              "--output_dir", str(tmp / device), "--device", device]))
+            took[device] = time.perf_counter() - t0  # the card's second run: built and warm
+            if done != [sid]:
+                raise RuntimeError(f"preprocess_torch.py --device {device} preprocessed {done}")
+            arrays[device] = np.load(tmp / device / f"{sid}.npy")
+    got, want = arrays["cuda"], arrays["cpu"]
+    cols = [0, 1, 2, 3, 4, 5, 9, 10]
+    normal_err = float(np.abs(got[:, 6:9] - want[:, 6:9]).max())
+    print(f"preprocess_torch.py, one scene of {PREP_VERTICES} vertices and {PREP_FACES} faces: {got.shape}, card "
+          f"{took['cuda']:.2f} s, CPU {took['cpu']:.2f} s; normals max abs err {normal_err:.2e}", flush=True)
+    if got.shape != want.shape or not np.array_equal(got[:, cols], want[:, cols]) or normal_err > PREP_NORMAL_TOL:
+        raise RuntimeError("preprocess_torch.py on the card differs from --device cpu")
+    for mode in (-1, 2, 4):
+        times = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            idx = virtual_scan(got[:, :3], mode, np.random.default_rng(mode + 7), device=device).cpu()
+            times[device] = (time.perf_counter() - t0, idx)
+        (t_card, a), (t_cpu, b) = times["cuda"], times["cpu"]
+        print(f"virtual_scan mode {mode}: {len(a)} of {len(got)} points on the card in {t_card * 1e3:.1f} ms, "
+              f"{len(b)} on the CPU in {t_cpu * 1e3:.1f} ms, {'equal' if torch.equal(a, b) else 'DIFFERENT'}",
+              flush=True)
+        if not torch.equal(a, b):
+            raise RuntimeError(f"virtual_scan mode {mode}: the card's indices differ from the CPU's")
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3706,6 +4088,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 29
         tally(shape_families(torch, pathlib.Path(tmp), tallies))
     lap(start, "phase 29")
+    tally(votenet(torch, tallies))
+    lap(start, "phase 30")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -1,9 +1,16 @@
 """The SSG and MSG segmentation models of the port, the shape families
-(classification, part segmentation) and their building blocks."""
+(classification, part segmentation), their building blocks and the votenet
+modules."""
 
 from pointnet2_scannet_tpu_torch.models.convert import state_dict_from_jax
-from pointnet2_scannet_tpu_torch.models.layers import FC, PointwiseMLP
-from pointnet2_scannet_tpu_torch.models.modules import FeaturePropagation, SetAbstraction
+from pointnet2_scannet_tpu_torch.models.layers import FC, BNMomentumScheduler, PointwiseMLP, RandomDropout
+from pointnet2_scannet_tpu_torch.models.modules import (
+    FeaturePropagation,
+    LearnableFeaturePropagationMSG,
+    SetAbstraction,
+    SetAbstractionMSGVotes,
+    SetAbstractionVotes,
+)
 from pointnet2_scannet_tpu_torch.models.pointnet2 import (
     PointNet2SemSeg,
     PointNet2Spec,
@@ -29,8 +36,13 @@ from pointnet2_scannet_tpu_torch.models.pointnet2_partseg import (
 
 __all__ = [
     "FC",
+    "BNMomentumScheduler",
     "PointwiseMLP",
+    "RandomDropout",
     "SetAbstraction",
+    "SetAbstractionVotes",
+    "SetAbstractionMSGVotes",
+    "LearnableFeaturePropagationMSG",
     "FeaturePropagation",
     "PointNet2Spec",
     "PointNet2SemSeg",

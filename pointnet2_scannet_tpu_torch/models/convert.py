@@ -17,7 +17,8 @@ fp{k}/mlp, head_fc and head_out the same way, and a classifier's FC blocks
     params     fc1/bn/{scale, bias}                   -> fc1.bn.{weight, bias}
     batch_stats fc1/bn/{mean, var}                    -> fc1.bn.{running_mean, running_var}
 
-(bn_pre likewise, and head). Values come back as numpy
+(bn_pre likewise, and head); module_state_dict_from_jax maps a single
+module's tree (the votenet modules) the same way. Values come back as numpy
 arrays; load them with model.load_state_dict({k: torch.from_numpy(v)},
 strict=True) or engine/checkpoint.save_state_dict.
 
@@ -176,30 +177,56 @@ def state_dict_from_jax(variables, spec) -> dict[str, np.ndarray]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: dict[str, np.ndarray] = {}
-
-    def dense_into(name: str, dense) -> None:
-        out[f"{name}.weight"] = np.array(np.asarray(dense["kernel"], np.float32).T, order="C")
-        if "bias" in dense:
-            out[f"{name}.bias"] = np.array(dense["bias"], np.float32)
-
-    def bn_into(name: str, bn, sbn) -> None:
-        out[f"{name}.weight"] = np.array(bn["scale"], np.float32)
-        out[f"{name}.bias"] = np.array(bn["bias"], np.float32)
-        out[f"{name}.running_mean"] = np.array(sbn["mean"], np.float32)
-        out[f"{name}.running_var"] = np.array(sbn["var"], np.float32)
-        out[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
-
     for scope, n_layers in _scopes(spec):
         pnode = _node(params, scope)
         prefix = ".".join(scope)
         for i in range(n_layers):
-            dense_into(f"{prefix}.dense_{i}", pnode[f"dense_{i}"])
+            _dense_into(out, f"{prefix}.dense_{i}", pnode[f"dense_{i}"])
             if f"bn_{i}" in pnode:
-                bn_into(f"{prefix}.bn_{i}", pnode[f"bn_{i}"], _node(stats, scope)[f"bn_{i}"])
+                _bn_into(out, f"{prefix}.bn_{i}", pnode[f"bn_{i}"], _node(stats, scope)[f"bn_{i}"])
     for scope in _fc_scopes(spec):
         pnode = params[scope]
-        dense_into(f"{scope}.fc", pnode["fc"])
+        _dense_into(out, f"{scope}.fc", pnode["fc"])
         for bn in ("bn_pre", "bn"):
             if bn in pnode:
-                bn_into(f"{scope}.{bn}", pnode[bn], stats[scope][bn])
+                _bn_into(out, f"{scope}.{bn}", pnode[bn], stats[scope][bn])
     return out
+
+
+def module_state_dict_from_jax(variables) -> dict[str, np.ndarray]:
+    """{"params", "batch_stats"} of a JAX module built of PointwiseMLPs or
+    FC blocks (the votenet modules: mlp, mlp_{s} and post_mlp, each of
+    dense_i and bn_i) -> the port module's state_dict, every Dense (a scope
+    with a kernel) and BatchNorm (a scope with a scale) at its dotted path:
+
+        params      mlp_0/dense_1/kernel (in, out) -> mlp_0.dense_1.weight (out, in)
+        params      post_mlp/bn_0/{scale, bias}    -> post_mlp.bn_0.{weight, bias}
+        batch_stats post_mlp/bn_0/{mean, var}      -> post_mlp.bn_0.{running_mean, running_var}
+    """
+    out: dict[str, np.ndarray] = {}
+
+    def walk(pnode, snode, prefix: str) -> None:
+        for name, child in pnode.items():
+            if "kernel" in child:
+                _dense_into(out, prefix + name, child)
+            elif "scale" in child:
+                _bn_into(out, prefix + name, child, snode[name])
+            else:
+                walk(child, snode.get(name, {}), f"{prefix}{name}.")
+
+    walk(variables["params"], variables.get("batch_stats", {}), "")
+    return out
+
+
+def _dense_into(out: dict, name: str, dense) -> None:
+    out[f"{name}.weight"] = np.array(np.asarray(dense["kernel"], np.float32).T, order="C")
+    if "bias" in dense:
+        out[f"{name}.bias"] = np.array(dense["bias"], np.float32)
+
+
+def _bn_into(out: dict, name: str, bn, sbn) -> None:
+    out[f"{name}.weight"] = np.array(bn["scale"], np.float32)
+    out[f"{name}.bias"] = np.array(bn["bias"], np.float32)
+    out[f"{name}.running_mean"] = np.array(sbn["mean"], np.float32)
+    out[f"{name}.running_var"] = np.array(sbn["var"], np.float32)
+    out[f"{name}.num_batches_tracked"] = np.array(0, np.int64)

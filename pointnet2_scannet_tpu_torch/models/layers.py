@@ -1,6 +1,8 @@
 """Pointwise MLP: Linear (no bias under BatchNorm), BatchNorm, ReLU; its
 layer 0 can also run before the neighbourhood gather (pregather). FC: the
-same block on (B, C) vectors, the classification head's.
+same block on (B, C) vectors, the classification head's. RandomDropout and
+BNMomentumScheduler: the reference's random-rate dropout and its epoch
+schedule of the BatchNorm momentum.
 
 Channels-last: a 1x1 convolution over (B, N, C) or (B, M, K, C) is a Linear
 on the last axis. BatchNorm follows flax's nn.BatchNorm, which the JAX
@@ -9,8 +11,11 @@ package's chunked train step runs (layers.py:118-126), not torch's:
 - train mode normalises with the batch statistics over every axis but the
   last, in at least float32, with flax's fast variance
   max(E[x^2] - E[x]^2, 0), and moves the running statistics by
-  0.9 * old + 0.1 * batch with that *biased* variance (torch would store
-  the unbiased one);
+  m * old + (1 - m) * batch with that *biased* variance (torch would store
+  the unbiased one); m is the flax-convention momentum, 0.9 unless a
+  forward passes bn_momentum (a float, or a 0-d tensor on any device,
+  which moves no value to the host; BNMomentumScheduler gives one an
+  epoch);
 - eval mode normalises with the running statistics;
 - both compute (x - mean) * (rsqrt(var + eps) * scale) + bias, eps 1e-5, in
   flax's order, so the port rounds like the JAX package.
@@ -108,11 +113,14 @@ class PointwiseMLP(nn.Module):
             if self.bn:
                 getattr(self, f"bn_{i}").reset_parameters()
 
-    def forward(self, x: torch.Tensor, row_mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, row_mask: torch.Tensor | None = None,
+                bn_momentum=None) -> torch.Tensor:
         """row_mask: optional (B,) 0/1 marks of the real rows; in train mode
-        the BatchNorm statistics then leave the padding rows out."""
+        the BatchNorm statistics then leave the padding rows out.
+        bn_momentum: the running statistics' flax-convention momentum for
+        this call (None: 0.9)."""
         for i in range(len(self.widths)):
-            x = self._bn_act(self._dense(i, x), i, row_mask)
+            x = self._bn_act(self._dense(i, x), i, row_mask, bn_momentum)
         return x
 
     def _dense(self, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -132,6 +140,7 @@ class PointwiseMLP(nn.Module):
         idx: torch.Tensor,
         new_xyz: torch.Tensor | None,
         row_mask: torch.Tensor | None = None,
+        bn_momentum=None,
     ) -> torch.Tensor:
         """forward() over grouped neighbourhoods with layer 0 run on the
         features at source resolution, before the neighbourhood gather (the
@@ -161,20 +170,20 @@ class PointwiseMLP(nn.Module):
             x = x + gxyz.to(dt) @ dense.weight[:, :3].t().to(dt)
         if dense.bias is not None:
             x = x + dense.bias.to(dt)
-        x = self._bn_act(x, 0, row_mask)
+        x = self._bn_act(x, 0, row_mask, bn_momentum)
         for i in range(1, len(self.widths)):
-            x = self._bn_act(self._dense(i, x), i, row_mask)
+            x = self._bn_act(self._dense(i, x), i, row_mask, bn_momentum)
         return x
 
-    def _bn_act(self, x: torch.Tensor, i: int, row_mask: torch.Tensor | None) -> torch.Tensor:
+    def _bn_act(self, x: torch.Tensor, i: int, row_mask: torch.Tensor | None, bn_momentum) -> torch.Tensor:
         """Layer i's BatchNorm (+ReLU) after its Linear: MaskedBatchNorm in
         train mode with a row_mask, as the JAX package's _mlp_bn_act routes."""
         if self.bn:
             bn = getattr(self, f"bn_{i}")
             if self.training and row_mask is not None:
-                x = masked_batch_norm(x, bn, row_mask, self.dtype, self.bn_group)
+                x = masked_batch_norm(x, bn, row_mask, self.dtype, self.bn_group, bn_momentum)
             else:
-                x = _batch_norm(x, bn, self.training, self.dtype, self.bn_group)
+                x = _batch_norm(x, bn, self.training, self.dtype, self.bn_group, bn_momentum)
         if self.last_act or i < len(self.widths) - 1:
             x = torch.relu(x)
         return x
@@ -229,29 +238,74 @@ class FC(nn.Module):
             if hasattr(self, name):
                 getattr(self, name).reset_parameters()
 
-    def _bn_act(self, x: torch.Tensor, name: str) -> torch.Tensor:
+    def _bn_act(self, x: torch.Tensor, name: str, bn_momentum) -> torch.Tensor:
         if self.use_bn:
-            x = _batch_norm(x, getattr(self, name), self.training, self.dtype, self.bn_group)
+            x = _batch_norm(x, getattr(self, name), self.training, self.dtype, self.bn_group, bn_momentum)
         return torch.relu(x) if self.activation else x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=None) -> torch.Tensor:
+        """bn_momentum as in PointwiseMLP.forward."""
         if self.preact:
-            x = self._bn_act(x, "bn_pre")
+            x = self._bn_act(x, "bn_pre", bn_momentum)
         dt = self.dtype
         if dt is None:
             x = self.fc(x)
         else:
             bias = self.fc.bias.to(dt) if self.fc.bias is not None else None
             x = F.linear(x.to(dt), self.fc.weight.to(dt), bias)
-        return x if self.preact else self._bn_act(x, "bn")
+        return x if self.preact else self._bn_act(x, "bn", bn_momentum)
+
+
+class RandomDropout(nn.Module):
+    """Dropout at a random rate, the JAX package's RandomDropout
+    (layers.py:275): in train mode each call draws one theta ~ U(0, p) and
+    keeps every element with probability 1 - theta, and does not rescale
+    the kept ones. The draws come from the caller's generator, on x's
+    device (JAX's key stream cannot be matched). Identity in eval mode and
+    at p = 0."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode RandomDropout needs a torch.Generator (forward(x, generator))")
+        theta = torch.rand((), generator=generator, device=x.device) * self.p
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - theta
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class BNMomentumScheduler:
+    """Epoch -> BatchNorm momentum, the JAX package's BNMomentumScheduler
+    (layers.py:344). bn_lambda(epoch) gives torch's convention (the new
+    batch's weight); step() returns flax's, 1 - bn_lambda(epoch), which a
+    forward takes as bn_momentum (a float, or a 0-d tensor)."""
+
+    def __init__(self, bn_lambda, last_epoch: int = -1):
+        self.lmbd = bn_lambda
+        self.last_epoch = last_epoch
+
+    def step(self, epoch: int | None = None) -> float:
+        if epoch is None:
+            epoch = self.last_epoch + 1
+        self.last_epoch = epoch
+        return 1.0 - float(self.lmbd(epoch))
+
+
+def _momentum(bn_momentum):
+    """The flax-convention momentum of a call: bn_momentum, or 0.9."""
+    return BN_MOMENTUM if bn_momentum is None else bn_momentum
 
 
 def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
-                dtype: torch.dtype | None = None, group=None) -> torch.Tensor:
+                dtype: torch.dtype | None = None, group=None, bn_momentum=None) -> torch.Tensor:
     """flax nn.BatchNorm over the last axis; in train mode it also moves
-    bn's running statistics (in place, outside autograd). The result is
-    cast to dtype where one is given (a bfloat16 x normalises in float32,
-    x - mean promoting). group: flax's axis_name, the mean and the mean of
+    bn's running statistics (in place, outside autograd) with momentum
+    bn_momentum (None: 0.9). The result is cast to dtype where one is given
+    (a bfloat16 x normalises in float32, x - mean promoting). group: flax's axis_name, the mean and the mean of
     squares averaged over its ranks (equal batches on every rank)."""
     if not train:
         mean, var = bn.running_mean, bn.running_var
@@ -264,7 +318,7 @@ def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
             mean, mean2 = stats[: mean.numel()], stats[mean.numel() :]
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
-            m = BN_MOMENTUM
+            m = _momentum(bn_momentum)
             bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
             bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
@@ -273,15 +327,15 @@ def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
 
 
 def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tensor,
-                      dtype: torch.dtype | None = None, group=None) -> torch.Tensor:
+                      dtype: torch.dtype | None = None, group=None, bn_momentum=None) -> torch.Tensor:
     """The JAX package's train-mode MaskedBatchNorm over the last axis: each
     leading row weighs by its 0/1 row_mask (B,), so zero-padded rows leave
     the batch statistics exactly. The weighted mean over max(sum(mask) *
     spatial, 1e-6) points, the two-pass variance max(sum((x - mean)^2 * w)
     / wsum, 0) (a near-constant channel of a small tail micro-batch would
-    cancel in the one-pass form), running statistics 0.9 * old + 0.1 *
-    batch, and that module's order ((x - mean) * rsqrt(var + eps)) * scale
-    + bias, which is not _batch_norm's. In at least float32, as _batch_norm:
+    cancel in the one-pass form), running statistics m * old + (1 - m) *
+    batch (m: bn_momentum, None 0.9), and that module's order ((x - mean) *
+    rsqrt(var + eps)) * scale + bias, which is not _batch_norm's. In at least float32, as _batch_norm:
     the JAX module casts to float32 whatever x's dtype, which leaves a
     float64 step float32-accurate; the port keeps float64 in float64 and
     rounds like the JAX module in float32. Returns dtype, or x's dtype
@@ -306,7 +360,7 @@ def masked_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, row_mask: torch.Tenso
         s2 = all_reduce_sum(s2, group)
     var = torch.clamp(s2 / wsum, min=0.0)
     with torch.no_grad():
-        m = BN_MOMENTUM
+        m = _momentum(bn_momentum)
         bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
         bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
     y = (xs - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias

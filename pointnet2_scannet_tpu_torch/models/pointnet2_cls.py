@@ -118,19 +118,21 @@ class PointNet2Cls(nn.Module):
             self.to(device)
         self.eval()
 
-    def forward(self, pc: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, pc: torch.Tensor, generator: torch.Generator | None = None,
+                bn_momentum=None) -> torch.Tensor:
         """generator: the Dropout masks' stream, on pc's device; needed in
-        train mode when spec.dropout > 0."""
+        train mode when spec.dropout > 0. bn_momentum as in
+        PointNet2SemSeg.forward."""
         xyz = pc[..., :3].contiguous()
         features = pc[..., 3:].contiguous() if pc.shape[-1] > 3 else None
         for i in range(len(self.spec.sa_levels)):
-            xyz, features = getattr(self, f"sa{i + 1}")(xyz, features)
+            xyz, features = getattr(self, f"sa{i + 1}")(xyz, features, None, bn_momentum)
         x = features.reshape(features.shape[0], -1)  # (B, 1024): the global vector
         for j in range(len(self.spec.fc_widths)):
-            x = getattr(self, f"fc{j + 1}")(x)
+            x = getattr(self, f"fc{j + 1}")(x, bn_momentum)
             if self.training and self.spec.dropout > 0.0:
                 x = _dropout(x, self.spec.dropout, generator)
-        return self.head(x).to(torch.float32)
+        return self.head(x, bn_momentum).to(torch.float32)
 
 
 def get_cls_model(

@@ -110,9 +110,11 @@ class PointNet2PartSeg(nn.Module):
             self.to(device)
         self.eval()
 
-    def forward(self, pc: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, pc: torch.Tensor, generator: torch.Generator | None = None,
+                bn_momentum=None) -> torch.Tensor:
         """generator: the Dropout mask's stream, on pc's device; needed in
-        train mode when spec.dropout > 0."""
+        train mode when spec.dropout > 0. bn_momentum as in
+        PointNet2SemSeg.forward."""
         k = self.num_categories
         if pc.shape[-1] < 3 + k:
             raise ValueError(f"expected >= {3 + k} channels (xyz + features + {k} one-hot), "
@@ -122,7 +124,7 @@ class PointNet2PartSeg(nn.Module):
         features = pc[..., 3 : pc.shape[-1] - k].contiguous() if pc.shape[-1] > 3 + k else None
         l_xyz, l_feats = [xyz], [features]
         for i in range(len(self.spec.sa_levels)):
-            new_xyz, new_feats = getattr(self, f"sa{i + 1}")(l_xyz[i], l_feats[i])
+            new_xyz, new_feats = getattr(self, f"sa{i + 1}")(l_xyz[i], l_feats[i], None, bn_momentum)
             l_xyz.append(new_xyz)
             l_feats.append(new_feats)
         skip = [onehot, xyz] + ([features] if features is not None else [])
@@ -134,11 +136,11 @@ class PointNet2PartSeg(nn.Module):
             lvl = n - 1 - j
             # known None at the group-all level: the global feature broadcast
             l_feats[lvl] = getattr(self, f"fp{lvl + 1}")(
-                l_xyz[lvl], l_xyz[lvl + 1], l_feats[lvl], l_feats[lvl + 1])
-        h = self.head_fc(l_feats[0])
+                l_xyz[lvl], l_xyz[lvl + 1], l_feats[lvl], l_feats[lvl + 1], None, bn_momentum)
+        h = self.head_fc(l_feats[0], None, bn_momentum)
         if self.training and self.spec.dropout > 0.0:
             h = _dropout(h, self.spec.dropout, generator)
-        return self.head_out(h).to(torch.float32)
+        return self.head_out(h, None, bn_momentum).to(torch.float32)
 
 
 def get_partseg_model(

@@ -16,6 +16,8 @@ from pointnet2_scannet_tpu_torch.ops.neighborhood import (
     group_points,
     group_with_idx,
     query_and_group,
+    uniform_resample_neighbors,
+    unique_neighbor_count,
 )
 from pointnet2_scannet_tpu_torch.ops.sampling import furthest_point_sample, gather_points
 from pointnet2_scannet_tpu_torch.ops import library  # noqa: F401  (registers pn2::; last: its impls read the modules above)
@@ -30,6 +32,8 @@ __all__ = [
     "group_with_idx",
     "query_and_group",
     "group_all",
+    "unique_neighbor_count",
+    "uniform_resample_neighbors",
     "three_nn",
     "three_interpolate",
     "fused_gather_mm",

@@ -3,7 +3,9 @@
 The contract is the JAX package's ops/neighborhood.py: ball_query keeps the
 first `nsample` in-radius indices in index order, pads a short row with its
 first hit and an empty ball with zeros; ball_query_multi gives two such
-selections (the MSG levels' two radii) from one distance pass; grouping
+selections (the MSG levels' two radii) from one distance pass;
+unique_neighbor_count and uniform_resample_neighbors read that row layout
+(the votenet modules' sample_uniformly); grouping
 concatenates [xyz - centroid | features] on the channel axis. bfloat16
 features are grouped as one packed [xyz_hi | xyz_lo | features] bfloat16
 payload (split2_bf16), the centring done in float32.
@@ -137,3 +139,34 @@ def group_all(
             return torch.cat([grouped_xyz, grouped_features], dim=-1)
         return grouped_features
     return grouped_xyz
+
+
+def unique_neighbor_count(idx: torch.Tensor) -> torch.Tensor:
+    """(B, M, K) ball-query indices -> (B, M) int32 distinct neighbours a row.
+
+    Reads the ball query's row invariant: the distinct hits come first, in
+    strictly ascending order, and the padding repeats the first hit. So the
+    count is 1 + the length of the strictly ascending prefix of steps. The
+    kernels keep that invariant, since ball_query.cu and ball_query_multi.cu
+    are bit-equal to their plain versions. As in the JAX package
+    (neighborhood.py:280), an empty ball (a row of zeros) counts as one."""
+    increasing = (idx[..., 1:] > idx[..., :-1]).to(torch.int32)
+    return (1 + torch.cumprod(increasing, dim=-1).sum(dim=-1)).to(torch.int32)
+
+
+def uniform_resample_neighbors(
+    idx: torch.Tensor, generator: torch.Generator
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Replace each ball-query row's padding with uniform draws from the
+    row's distinct neighbours (the JAX package's uniform_resample_neighbors,
+    neighborhood.py:294): slot k keeps idx[k] where k < cnt, else takes
+    idx[randint(0, 2**30) % cnt]. The draws come from generator, on its
+    device (JAX's key stream cannot be matched). Returns (idx (B, M, K),
+    cnt (B, M)), both int32."""
+    cnt = unique_neighbor_count(idx)
+    rand = torch.randint(0, 1 << 30, idx.shape, generator=generator, device=generator.device)
+    pick = rand.to(idx.device) % cnt[..., None]
+    resampled = torch.gather(idx, -1, pick)
+    slots = torch.arange(idx.shape[-1], device=idx.device)
+    out = torch.where(slots < cnt[..., None], idx, resampled)
+    return out.to(torch.int32), cnt

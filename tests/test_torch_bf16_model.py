@@ -281,8 +281,8 @@ def test_bf16_dtype_flow_matches_jax(monkeypatch):
     ]
     orig = layers._batch_norm
 
-    def bn(x, module, train, dtype=None, group=None):
-        y = orig(x, module, train, dtype, group)
+    def bn(x, module, train, dtype=None, group=None, bn_momentum=None):
+        y = orig(x, module, train, dtype, group, bn_momentum)
         if module is pm.fp_0.mlp.bn_0:
             seen["port"]["fp_0 bn"] = str(y.dtype).replace("torch.", "")
         return y

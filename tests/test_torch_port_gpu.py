@@ -1510,3 +1510,113 @@ def test_fused_graph_of_two_steps_equals_two_eager_steps(dev, kind, dtype, resid
     assert len(fused.captures) == 1
     assert fused.captures[0]["launches"] == {name: k * c for name, c in per_step.items()}
     assert all(c == 0 for c in kernels.launch_counts().values())
+
+
+def _votes_modules(dev):
+    """The votenet modules at small widths, built on the CPU from one seed,
+    and their card copies."""
+    from pointnet2_scannet_tpu_torch.models import (
+        LearnableFeaturePropagationMSG,
+        SetAbstractionMSGVotes,
+        SetAbstractionVotes,
+    )
+
+    torch.manual_seed(0)
+    cpu = {
+        "sa_max": SetAbstractionVotes((32, 64), 1, npoint=256, radius=0.2, nsample=64, normalize_xyz=True,
+                                      ret_unique_cnt=True),
+        "sa_rbf": SetAbstractionVotes((32, 64), 1, npoint=256, radius=0.3, nsample=16, pooling="rbf"),
+        "msg": SetAbstractionMSGVotes(256, (0.1, 0.2), (16, 32), ((16, 32), (32, 64)), 1),
+        "lfp": LearnableFeaturePropagationMSG(((16, 32), (16, 32)), (0.2, 0.4), (16, 32), (48,), 1, 96),
+    }
+    return cpu, {k: copy.deepcopy(m).to(dev) for k, m in cpu.items()}
+
+
+def _run_votes(mods, xyz, feats):
+    """Every module's outputs on one cloud, and the sum that a backward takes."""
+    out = {}
+    for name in ("sa_max", "sa_rbf", "msg"):
+        out[name] = mods[name](xyz, feats)
+    new_xyz, f2 = out["msg"][0], out["msg"][1]
+    out["lfp"] = (mods["lfp"](new_xyz, xyz, f2, feats),)
+    loss = sum(o[1].square().mean() for k, o in out.items() if k != "lfp") + out["lfp"][0].square().mean()
+    return out, loss
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_votes_modules_on_the_card_match_the_cpu(dev, train):
+    # the outputs, unique counts and gradients of the cloud's features to
+    # float32 order; the kernels launched: FPS, the single- and two-radius
+    # ball queries, the gather, and the scatter-add in the backward
+    cpu, card = _votes_modules(dev)
+    xyz = _cloud(31, (2, 2048, 3), "cpu", -1.0, 1.0)
+    feats = xyz[..., 2:3].clone()
+    results = []
+    for mods, d in ((cpu, "cpu"), (card, dev)):
+        for m in mods.values():
+            m.train(train)
+        f = feats.to(d).detach().requires_grad_(train)
+        kernels.reset_launch_counts()
+        out, loss = _run_votes(mods, xyz.to(d), f)
+        if train:
+            loss.backward()
+        torch.cuda.synchronize()
+        results.append((out, f.grad, kernels.launch_counts()))
+    (cpu_out, cpu_grad, _), (out, grad, launches) = results
+    for name, outs in cpu_out.items():
+        for a, b in zip(out[name], outs):
+            if b is None:
+                continue
+            if b.is_floating_point():
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+            else:
+                _equal(a.cpu(), b)
+    # gathers: each SA's centroids, grouped xyz and grouped features (3 + 3),
+    # MSG's centroids and two groupings, LFP's two groupings; the features'
+    # six groupings take a scatter-add in the backward
+    want = {"furthest_point_sample": 3, "ball_query": 2, "ball_query_multi": 2, "gather": 11,
+            "scatter_add": 6 if train else 0}
+    assert {k: launches[k] for k in want} == want
+    if train:
+        torch.testing.assert_close(grad.cpu(), cpu_grad, rtol=1e-4, atol=1e-4)
+
+
+def test_unique_count_and_resample_on_the_cards_ball_query_rows(dev):
+    # b's rows on the card: the ascending prefix and first-hit padding that
+    # unique_neighbor_count reads, with empty, short and full balls
+    xyz = torch.cat([_cloud(32, (2, 1024, 3), dev, -1.0, 1.0), _cloud(33, (2, 64, 3), dev, -0.02, 0.02)], 1)
+    q = torch.cat([xyz[:, :192], xyz[:, 1024:1056], _cloud(34, (2, 32, 3), dev, 5.0, 6.0)], 1)
+    idx = bq.ball_query_cuda(0.2, 64, xyz, q)
+    _equal(idx, bq.ball_query_plain(0.2, 64, xyz, q))
+    cnt = ops.unique_neighbor_count(idx)
+    _equal(cnt.cpu(), ops.unique_neighbor_count(idx.cpu()))
+    counts = set(cnt.flatten().tolist())
+    assert 64 in counts and any(1 < c < 64 for c in counts) and (cnt[:, -32:] == 1).all()
+    out, got_cnt = ops.uniform_resample_neighbors(idx, torch.Generator(device=dev).manual_seed(0))
+    _equal(got_cnt, cnt)
+    prefix = torch.arange(64, device=dev) < cnt[..., None]
+    assert torch.equal(out[prefix], idx[prefix])
+    sorted_idx = idx.sort(dim=-1).values
+    hit = torch.searchsorted(sorted_idx.contiguous(), out.contiguous()).clamp(max=63)
+    assert torch.equal(sorted_idx.gather(-1, hit), out)  # every draw is one of the row's neighbours
+
+
+def test_vertex_normals_on_the_card_match_the_cpu(dev):
+    from pointnet2_scannet_tpu_torch.utils.normals import compute_vertex_normals
+
+    rng = np.random.default_rng(35)
+    verts = rng.uniform(0, 4, (100_000, 3)).astype(np.float32)
+    faces = rng.integers(0, 100_000, (200_000, 3))
+    np.testing.assert_allclose(compute_vertex_normals(verts, faces, device=dev),
+                               compute_vertex_normals(verts, faces, device="cpu"), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", [-1, 2, 4])
+def test_virtual_scan_on_the_card_equals_the_cpu(dev, mode):
+    from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_scene
+    from pointnet2_scannet_tpu_torch.utils.scene_util import virtual_scan
+
+    xyz = make_synthetic_scene(0, n_points=40_000)[:, :3]
+    got = virtual_scan(xyz, mode, np.random.default_rng(mode + 7), device=dev)
+    want = virtual_scan(xyz, mode, np.random.default_rng(mode + 7), device="cpu")
+    _equal(got.cpu(), want)
