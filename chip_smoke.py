@@ -292,7 +292,29 @@
     vertices on the card and with --device cpu (equal but the normals,
     within 1e-6), and virtual_scan of that scene (modes -1, 2, 4), the
     card's indices equal to the CPU's.
-31. Print one JSON line of kernel results (time, plain time, the card's bound
+31. Tensor parallelism (parallel/mesh.py, the JAX "gspmd_dp_tp" strategy) on
+    a dp 1 x tp 2 grid of two gloo ranks sharing cuda:0, SSG and MSG at 20
+    classes, 9 channels, TP_BATCH columns of 8192 points, float32, Dropout
+    off, both ranks on every column. (a) One train step from the full
+    weights against the single-process step on the card (phase 27 (b)'s
+    gates: loss and BatchNorm statistics within phase 11's bounds, the
+    gradients gathered from the shards within DP_GRAD_BOUND times phase
+    11's float32 noise of the model, the doubled gradient refused), and the
+    updated state gathered whole equal on both ranks. (b) Each rank holds
+    its slice of every split leaf, the Adam moments with them: numel
+    against the whole state's. (c) Each rank's step launches the path's
+    kernels exactly as often as the single-process step (a, b, d, h, i; c
+    in b's place for MSG) and no other, each launch bit for bit against its
+    plain version on the same inputs (the scatter-add's on CPU copies).
+    (d) phase 10's SSG run through train_torch.train with --tp 2 on the two
+    ranks (32 scenes, batch 32, 2 epochs): finite losses, the path's
+    kernels on both ranks, model_last the whole state: restored onto the
+    grid it gathers back equal, a tp-1 eval_torch.evaluate on the card reads
+    it, and a --resume at --tp 2 trains a third epoch. (e) The steady SSG
+    step of the two ranks beside the single-process step (host clock), and
+    the share of it in the tp collectives (a run with each collective
+    timed between synchronisations). NCCL across cards is not run here.
+32. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -300,7 +322,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29 and 30 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30 and 31 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -473,6 +495,18 @@ VOTE_MSG = ((1024, (0.05, 0.1), (16, 32), ((16, 16, 32), (32, 32, 64))),
 VOTE_LFP_POST = (256, 256)
 VOTE_WARM, VOTE_STEPS, VOTE_WINDOWS = 2, 5, 3
 PREP_VERTICES, PREP_FACES, PREP_NORMAL_TOL = 100_000, 200_000, 1e-6
+# phase 31, tensor parallelism: the ranks of the dp 1 x tp 2 grid sharing the
+# card, the columns both ranks take, the Solver run's epochs (a resume adds
+# one) and the steady step's warm and timed steps (a rank)
+TP_RANKS, TP_BATCH, TP_EPOCHS = 2, 32, 2
+TP_WARM, TP_TIMED = 1, 3
+# the wrappers of the path's kernels: (counter name, module, op), each
+# <op>_cuda held against <op>_plain in phase 31 (c)
+PATH_WRAPPERS = (("furthest_point_sample", "fps_kernel", "furthest_point_sample"),
+                 ("ball_query", "ball_query_kernel", "ball_query"),
+                 ("ball_query_multi", "ball_query_multi_kernel", "ball_query_multi"),
+                 ("gather", "gather_kernel", "gather"), ("scatter_add", "scatter_kernel", "scatter_add"),
+                 ("three_nn", "three_nn_kernel", "three_nn"))
 # the hand-written kernels a replay's trace may name, by TPU kernel letter
 # (b and c share ball_scan.cuh's kernels: one radius row, or two)
 TRACE_LETTERS = (("a", r"fps(_cluster)?_kernel\b"), ("b", r"ball_query_(resident|tiled)_kernel<1>"),
@@ -2608,17 +2642,17 @@ def dp_micro_batches() -> list:
     return list(_SceneBatchIterator(None, DP_WS_BATCH).micro_batches(*(a[:DP_WS_COLUMNS] for a in scene)))
 
 
-def f32_noise(torch) -> tuple[float, float]:
-    """Phase 11's float32 noise at SSG's 2 x NPOINTS: the CPU's float32
-    step's gradients' distance from its float64 step (relative L2 over all
-    parameters, and the median tensor's), from phase 11's cached CPU steps
-    (taken here where phase 11 has not run)."""
+def f32_noise(torch, kind: str = "ssg") -> tuple[float, float]:
+    """Phase 11's float32 noise of a model kind at 2 x NPOINTS: the CPU's
+    float32 step's gradients' distance from its float64 step (relative L2
+    over all parameters, and the median tensor's), from phase 11's cached
+    CPU steps (taken here where phase 11 has not run)."""
     from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
-    out = CPU_STEPS.setdefault(("ssg", NPOINTS, 6), {})
+    out = CPU_STEPS.setdefault((kind, NPOINTS, 6), {})
     for dtype in (torch.float64, torch.float32):
         if ("cpu", dtype) not in out:
-            state = bench_torch.fresh_state("ssg", "cpu", 0.0)
+            state = bench_torch.fresh_state(kind, "cpu", 0.0)
             state.model.to(dtype)
             batch = {k: v.to(dtype) if v.is_floating_point() else v
                      for k, v in train_batch(torch, 2, "cpu", NPOINTS).items()}
@@ -2630,7 +2664,7 @@ def f32_noise(torch) -> tuple[float, float]:
 
 
 def dp_gates(torch, got: dict, want: dict, noise: tuple[float, float], what: str) -> None:
-    """Phase 27 (b)'s gates on one update against the single-process one:
+    """Phase 27 (b)'s (and 31 (a)'s) gates on one update against the single-process one:
     loss and BatchNorm statistics within phase 11's bounds; gradients within
     DP_GRAD_BOUND times phase 11's float32 noise of the single process's
     (relative L2 over all parameters, and the median tensor's, as phase 23
@@ -2663,15 +2697,15 @@ def dp_gates(torch, got: dict, want: dict, noise: tuple[float, float], what: str
         raise RuntimeError(f"{what}: the doubled gradient passed the gradient bound")
 
 
-def dp_timed(torch, fn) -> list:
-    """Sorted host ms of DP_TIMED synchronised calls of fn after DP_WARM."""
+def dp_timed(torch, fn, warm: int = DP_WARM, timed: int = DP_TIMED) -> list:
+    """Sorted host ms of `timed` synchronised calls of fn after `warm`."""
     out = []
-    for i in range(DP_WARM + DP_TIMED):
+    for i in range(warm + timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        if i >= DP_WARM:
+        if i >= warm:
             out.append((time.perf_counter() - t0) * 1e3)
     return sorted(out)
 
@@ -3923,6 +3957,296 @@ def prep_and_scan(torch) -> None:
             raise RuntimeError(f"virtual_scan mode {mode}: the card's indices differ from the CPU's")
 
 
+@contextlib.contextmanager
+def audited(torch, audit: dict):
+    """Every launch of the path's kernel wrappers (PATH_WRAPPERS) held
+    against its plain version on the same inputs, bit for bit: on CPU copies
+    for the scatter-add (the plain version on the card adds atomically, in no
+    fixed order), on the card otherwise. audit counts the checks by kernel
+    and lists the kernels that differed under "differ"."""
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+
+    saved = []
+    for name, module, op in PATH_WRAPPERS:
+        mod = getattr(kernels, module)
+        cuda_fn, plain_fn = getattr(mod, f"{op}_cuda"), getattr(mod, f"{op}_plain")
+
+        def spy(*args, _cuda=cuda_fn, _plain=plain_fn, _name=name, **kwargs):
+            got = _cuda(*args, **kwargs)
+            host = _name == "scatter_add"
+            want = _plain(*(a.cpu() if host and torch.is_tensor(a) else a for a in args), **kwargs)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            if not all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in pairs):
+                audit.setdefault("differ", []).append(_name)
+            audit[_name] = audit.get(_name, 0) + 1
+            return got
+
+        saved.append((mod, f"{op}_cuda", cuda_fn))
+        setattr(mod, f"{op}_cuda", spy)
+    try:
+        yield audit
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def timed_collectives(torch, times: list):
+    """The tp collectives (distributed.all_gather_last, the channel
+    all-gather with its host staging, and dist.all_reduce, the
+    column-parallel input's backward) each timed on the host clock between two synchronisations of
+    the card; times collects the seconds. Returns the undo callable."""
+    import torch.distributed as dist
+
+    from pointnet2_scannet_tpu_torch.parallel import distributed as D
+
+    gather, all_reduce = D.all_gather_last, dist.all_reduce
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    D.all_gather_last, dist.all_reduce = timed(gather), timed(all_reduce)
+
+    def undo():
+        D.all_gather_last, dist.all_reduce = gather, all_reduce
+    return undo
+
+
+def tp_step(torch, state, batch, grid) -> dict:
+    """One train step of a rank on the grid, audited and counted: the loss,
+    the gradients and BatchNorm statistics gathered whole, the updated
+    parameters gathered whole, the launches, the audit, and this rank's
+    numel of every leaf and Adam moment."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.parallel.mesh import gather_leaf, gather_train_state
+
+    audit = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with audited(torch, audit):
+        res = ts.train_step(state, batch, num_classes=20, group=grid.dp_group)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    m, split = state.model, state.shardings
+
+    def whole(k, t):
+        return (gather_leaf(t, grid) if split[k] else t.detach()).cpu()
+
+    full = gather_train_state(state, grid)
+    return {"loss": float(res["loss"]), "launches": launches, "audit": audit,
+            "grads": {k: whole(k, p.grad) for k, p in m.named_parameters()},
+            "stats": {k: whole(k, b) for k, b in m.named_buffers() if b.is_floating_point()},
+            "params": {k: full["model"][k] for k, _ in m.named_parameters()},
+            "numel": {k: t.numel() for k, t in [*m.named_parameters(), *m.named_buffers()]},
+            "adam": {k: {n: v.numel() for n, v in state.optimizer.state[p].items() if n != "step"}
+                     for k, p in m.named_parameters()},
+            "shardings": dict(split)}
+
+
+def tp_rank(rank: int, port: int, tmp: str) -> None:
+    """Phase 31 (a)-(e) on one of TP_RANKS gloo ranks sharing cuda:0; writes
+    what it got to <tmp>/rank<rank>.pt."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.engine.checkpoint import load_state_dict, restore_checkpoint
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.parallel.distributed import initialize_distributed, shutdown
+    from pointnet2_scannet_tpu_torch.parallel.mesh import gather_train_state, grid_context, shard_train_state
+
+    tmp = pathlib.Path(tmp)
+    ctx = initialize_distributed(f"127.0.0.1:{port}", TP_RANKS, rank, device="cuda", backend="gloo")
+    grid = grid_context(ctx, TP_RANKS).grid
+    batch = train_batch(torch, TP_BATCH, "cuda")
+    out = {}
+
+    def fresh(kind):
+        state = bench_torch.fresh_state(kind, "cuda", 0.0, bn_group=grid.dp_group, tp_group=grid.tp_group)
+        shard_train_state(state, grid)
+        return state
+
+    for kind in KINDS:  # (a)-(c)
+        state = fresh(kind)
+        out[kind] = tp_step(torch, state, batch, grid)
+        if kind == "ssg":  # (e)
+            step = lambda: ts.train_step(state, batch, num_classes=20, group=grid.dp_group)  # noqa: E731
+            out["step_ms"] = dp_timed(torch, step, TP_WARM, TP_TIMED)
+            times = []
+            undo = timed_collectives(torch, times)
+            try:
+                marked = dp_timed(torch, step, 0, TP_TIMED)
+            finally:
+                undo()
+            out["instrumented_ms"], out["collective_ms"] = marked, sum(times) * 1e3
+            out["collectives"] = len(times) // TP_TIMED
+        del state
+        torch.cuda.empty_cache()
+    ctx.barrier("steps done")
+    # (d) the Solver through train_torch, each rank with an output root of its own
+    train_torch = load_script("train_torch")
+    argv = ["--synthetic", "--synthetic_scenes", str(DP_SCENES), "--batch_size", str(DP_BATCH), "--npoints",
+            str(NPOINTS), "--use_color", "--use_normal", "--verbose", "1", "--device", "cuda", "--num_devices",
+            str(TP_RANKS), "--tp", str(TP_RANKS)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_dir, _ = train_torch.train(train_torch.parse_args([
+        *argv, "--epoch", str(TP_EPOCHS), "--tag", "chip_smoke_tp", "--output_root", str(tmp / f"train{rank}")]), ctx)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["solver_launches"] = kernels.launch_counts()
+    check_launches(out["solver_launches"], "ssg", True, f"tp 2 Solver run, rank {rank}")
+    run_dir = pathlib.Path(ctx.broadcast_object(str(run_dir)))  # the coordinator's
+    out["run_dir"] = str(run_dir)
+    if ctx.is_coordinator:  # a resume's logger starts the file anew
+        out["scalars"] = json.loads((run_dir / "tensorboard" / "all_scalars.json").read_text())
+    state = fresh("ssg")
+    restore_checkpoint(run_dir, "model_last", state, 0, grid)
+    back = gather_train_state(state, grid)["model"]
+    saved = load_state_dict(run_dir, "model_last")
+    out["restore_differs"] = [k for k, v in saved.items() if not torch.equal(back[k], v)]
+    del state
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    train_torch.train(train_torch.parse_args([
+        "--resume", str(run_dir), "--epoch", str(TP_EPOCHS + 1), "--synthetic", "--device", "cuda", "--num_devices",
+        str(TP_RANKS), "--tp", str(TP_RANKS), "--verbose", "1"]), ctx)
+    out["resume_launches"] = kernels.launch_counts()
+    check_launches(out["resume_launches"], "ssg", True, f"tp 2 resume, rank {rank}")
+    torch.save(out, tmp / f"rank{rank}.pt")
+    shutdown(ctx)
+
+
+def tensor_parallel(torch, tmp: pathlib.Path) -> dict:
+    """Phase 31; returns the launches of its main-path runs (both ranks'
+    steps, Solver runs and resumes)."""
+    import math
+
+    import numpy as np
+
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.parallel.distributed import free_port, spawn
+    from pointnet2_scannet_tpu_torch.parallel.mesh import leaf_split
+
+    t_phase = time.perf_counter()
+    card = bench_torch.card_line()
+    print(f"phase 31, tensor parallelism: dp 1 x tp {TP_RANKS}, {TP_RANKS} gloo ranks sharing cuda:0, SSG and "
+          f"MSG at {TP_BATCH} x {NPOINTS} x 9, on {card}", flush=True)
+    # the single-process references on the card, their launches and phase 11's noise
+    batch = train_batch(torch, TP_BATCH, "cuda")
+    refs, plain_ms = {}, None
+    for kind in KINDS:
+        state = bench_torch.fresh_state(kind, "cuda", 0.0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        refs[kind] = dp_step_out(torch, state, ts.train_step(state, batch, num_classes=20))
+        torch.cuda.synchronize()
+        refs[kind]["launches"] = kernels.launch_counts()
+        refs[kind]["numel"] = {k: t.numel() for k, t in [*state.model.named_parameters(),
+                                                         *state.model.named_buffers()]}
+        refs[kind]["shapes"] = {k: tuple(t.shape) for k, t in [*state.model.named_parameters(),
+                                                               *state.model.named_buffers()]}
+        if kind == "ssg":
+            plain_ms = dp_timed(torch, lambda: ts.train_step(state, batch, num_classes=20), TP_WARM, TP_TIMED)
+        refs[kind]["noise"] = f32_noise(torch, kind)
+        del state
+    del batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(tp_rank, TP_RANKS, (free_port(), str(tmp)), timeout=900)
+    spawned_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False, map_location="cpu") for r in range(TP_RANKS)]
+    total = {k: 0 for k in kernels.launch_counts()}
+    for kind in KINDS:
+        ref = refs[kind]
+        for r, out in enumerate(ranks):
+            got = out[kind]
+            # (a)
+            dp_gates(torch, got, ref, ref["noise"], f"tensor parallel (a), {kind.upper()}, rank {r} of dp 1 x tp "
+                     f"{TP_RANKS}, one train step of {TP_BATCH} x {NPOINTS}")
+            # (b)
+            split = {k: leaf_split(shape, TP_RANKS) for k, shape in ref["shapes"].items()}
+            if got["shardings"] != split:
+                raise RuntimeError(f"tensor parallel (b), {kind}: the layout is not the leaf rule's")
+            wrong = [k for k, n in ref["numel"].items() if got["numel"][k] != (n // TP_RANKS if split[k] else n)]
+            wrong += [k for k, m in got["adam"].items() if set(m.values()) != {got["numel"][k]}]
+            if wrong:
+                raise RuntimeError(f"tensor parallel (b), {kind}: leaves not this rank's slice: {wrong[:5]}")
+            held, whole = sum(got["numel"].values()), sum(ref["numel"].values())
+            # (c)
+            audit = dict(got["audit"])
+            differ = audit.pop("differ", [])
+            launches = got["launches"]
+            if launches != ref["launches"] or differ or audit != {k: n for k, n in launches.items() if n}:
+                raise RuntimeError(f"tensor parallel (c), {kind}, rank {r}: launches {launches} against the "
+                                   f"single-process step's {ref['launches']}, audited {audit}, differing {differ}")
+            print(f"tensor parallel (b)-(c), {kind.upper()}, rank {r}: {sum(split.values())} of {len(split)} "
+                  f"leaves split, the Adam moments with them; the rank holds {held} of {whole} elements of the "
+                  f"model; launches {launches}, each bit-equal to its plain version", flush=True)
+            for k, n in launches.items():
+                total[k] += n
+        first, second = ranks[0][kind]["params"], ranks[1][kind]["params"]
+        differ = [k for k, v in first.items() if not torch.equal(v, second[k])]
+        if differ:
+            raise RuntimeError(f"tensor parallel (a), {kind}: the ranks' gathered states differ ({differ[:5]})")
+    # (d)
+    run_dir = pathlib.Path(ranks[0]["run_dir"])
+    if run_dir.parent != tmp / "train0" or (tmp / "train1").exists():
+        raise RuntimeError(f"tensor parallel (d): rank 0 ran in {run_dir}, or rank 1 wrote a run dir")
+    first, resumed = ranks[0]["scalars"], json.loads((run_dir / "tensorboard" / "all_scalars.json").read_text())
+    losses = [v for scalars in (first, resumed) for part in ("train/loss", "val/loss") for _, v in scalars[part]]
+    epochs = [e for scalars in (first, resumed) for e, _ in scalars["train/loss"]]
+    if epochs != list(range(TP_EPOCHS + 1)) or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"tensor parallel (d): losses {losses} of epochs {epochs}, not {TP_EPOCHS + 1} epochs "
+                           "of finite values")
+    config = json.loads((run_dir / "config.json").read_text())
+    if config["train"]["tp"] != TP_RANKS or any(out["restore_differs"] for out in ranks):
+        raise RuntimeError(f"tensor parallel (d): config tp {config['train']['tp']}, or the restored state "
+                           f"differs from the file: {[out['restore_differs'][:3] for out in ranks]}")
+    for out in ranks:
+        for part in ("solver_launches", "resume_launches"):
+            for k, n in out[part].items():
+                total[k] += n
+    eval_torch = load_script("eval_torch")
+    kernels.reset_launch_counts()
+    report = eval_torch.evaluate(eval_torch.parse_args([
+        "--folder", str(run_dir), "--device", "cuda", "--synthetic", "--synthetic_scenes", str(DP_EVAL_SCENES),
+        "--batch_size", str(BATCH)]))
+    eval_launches = kernels.launch_counts()
+    check_launches(eval_launches, "ssg", False, "tp-1 evaluation of the tp 2 run")
+    for k, n in eval_launches.items():
+        total[k] += n
+    if not math.isfinite(report.voxel_miou):
+        raise RuntimeError(f"tensor parallel (d): the tp-1 evaluation's voxel mIoU is {report.voxel_miou}")
+    print(f"tensor parallel (d): train_torch.train --tp {TP_RANKS} on {TP_RANKS} ranks, {DP_SCENES} scenes, batch "
+          f"{DP_BATCH}, {TP_EPOCHS} epochs in {[round(out['train_s'], 2) for out in ranks]} s, then a --resume at "
+          f"--tp {TP_RANKS} for epoch {TP_EPOCHS + 1}; losses {losses}; model_last restored onto the grid gathers "
+          f"back equal; a tp-1 eval_torch.evaluate of {DP_EVAL_SCENES} scenes read it (voxel mIoU {report.voxel_miou:.4f}); "
+          f"Solver launches {[out['solver_launches'] for out in ranks]}", flush=True)
+    # (e)
+    for r, out in enumerate(ranks):
+        ms, marked = np.median(out["step_ms"]), sum(out["instrumented_ms"])
+        print(f"tensor parallel (e), rank {r}: SSG step of {TP_BATCH} x {NPOINTS} on dp 1 x tp {TP_RANKS}, ms median "
+              f"(min, max) of {TP_TIMED}: {ms:.2f} ({out['step_ms'][0]:.2f}, {out['step_ms'][-1]:.2f}); the "
+              f"single-process step {np.median(plain_ms):.2f} ({plain_ms[0]:.2f}, {plain_ms[-1]:.2f}); {TP_TIMED} "
+              f"steps with each of their {out['collectives']} tp collectives a step timed between "
+              f"synchronisations {[round(t, 2) for t in out['instrumented_ms']]}, in all {marked:.2f}, of which "
+              f"the collectives {out['collective_ms']:.2f} (share {out['collective_ms'] / marked:.3f}); host "
+              f"clock; {card}", flush=True)
+    print(f"phase 31 took {time.perf_counter() - t_phase:.1f} s (the spawned ranks {spawned_s:.1f} s); launches "
+          f"on its main path (both ranks' steps, Solver runs and resumes, the evaluation) {total}", flush=True)
+    return {"launches": total}
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4090,6 +4414,9 @@ def main() -> int:
     lap(start, "phase 29")
     tally(votenet(torch, tallies))
     lap(start, "phase 30")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 31
+        tally(tensor_parallel(torch, pathlib.Path(tmp)))
+    lap(start, "phase 31")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -120,9 +120,11 @@ class SceneStore:
         weigh by its shard, the ranks would train on different losses.
 
         With ctx (a parallel.ProcessContext; every rank calls this, one
-        collective) each rank counts the labels it loaded, the coordinator
+        collective) each rank counts the labels it loaded, the first dp rank
         adds the scenes that equalize dropped, and the counts are summed
-        over the ranks in float64. Without it, one streaming pass over every
+        over the dp ranks in float64 (process_id and num_processes are then
+        ctx's dp index and dp ranks: the tp ranks of a dp index load the
+        same shard). Without it, one streaming pass over every
         scene's label column (memory-mapped, one scene at a time)."""
         from pointnet2_scannet_tpu_torch.parallel.distributed import strided_shard
 
@@ -132,13 +134,13 @@ class SceneStore:
                                  is_weighting=False)
         if not is_weighting:
             return store
-        if ctx is not None and ctx.num_processes > 1:
-            if (ctx.process_id, ctx.num_processes) != (process_id, num_processes):
-                raise ValueError(f"ctx is rank {ctx.process_id} of {ctx.num_processes}, not "
+        if ctx is not None and ctx.dp > 1:
+            if (ctx.dp_index, ctx.dp) != (process_id, num_processes):
+                raise ValueError(f"ctx is dp rank {ctx.dp_index} of {ctx.dp}, not "
                                  f"{process_id} of {num_processes}")
             counts = label_counts((store.scenes[sid][:, 10] for sid in my_ids), num_classes)
             covered = len(scene_ids) // num_processes * num_processes if equalize else len(scene_ids)
-            if ctx.is_coordinator and covered < len(scene_ids):
+            if ctx.dp_index == 0 and covered < len(scene_ids):
                 counts += label_counts((np.load(root / f"{sid}.npy", mmap_mode="r")[:, 10]
                                         for sid in list(scene_ids)[covered:]), num_classes)
             store.label_weights = weights_from_counts(ctx.sum_across_processes(counts))

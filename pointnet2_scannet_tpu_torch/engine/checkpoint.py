@@ -5,6 +5,13 @@ and scripts/infer_torch.py load any checkpoint a run wrote. A training
 checkpoint adds `<dir>/<name>.train.pt` (optimizer state, optimizer step,
 Dropout generator state) and `<dir>/<name>.meta.json` (epoch and best
 metrics), which together restore the full train state for a resume.
+
+A tensor-parallel run (parallel/mesh.py) writes the same files: its
+coordinator saves the state that parallel/mesh.gather_train_state rebuilt
+from every tp rank's slices, which is what a tp-1 run of that state holds,
+so eval_torch.py, infer_torch.py, convert.py and a resume at any --tp read
+it unchanged; a restore onto a grid takes this rank's slices again (the
+JAX Solver's resume re-shards, solver.py:498-503).
 """
 
 from __future__ import annotations
@@ -45,14 +52,19 @@ def save_checkpoint(
     epoch: int,
     best: dict[str, Any] | None = None,
     generators: list[torch.Tensor] | None = None,
+    full: dict | None = None,
 ) -> pathlib.Path:
     """Write a TrainState (engine/train_state.py) as `<name>.pt`,
-    `<name>.train.pt` and `<name>.meta.json`. generators: every rank's
-    Dropout generator state in a data-parallel run, in rank order."""
+    `<name>.train.pt` and `<name>.meta.json`. generators: every dp rank's
+    Dropout generator state in a data-parallel run, in dp order. full: the
+    {"model", "optimizer"} state_dicts of a tensor-parallel state gathered
+    whole (parallel/mesh.gather_train_state), written in place of the
+    state's own slices."""
     directory = pathlib.Path(directory)
-    path = save_state_dict(directory, name, state.model.state_dict())
+    full = full or {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict()}
+    path = save_state_dict(directory, name, full["model"])
     train = {
-        "optimizer": _portable(state.optimizer.state_dict()),
+        "optimizer": _portable(full["optimizer"]),
         "step": state.step,
         "generator": state.generator.get_state(),
     }
@@ -89,15 +101,25 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, saved: dict) -> None:
                 st["step"] = st["step"].to(p.device if group["capturable"] else "cpu")
 
 
-def restore_checkpoint(directory: str | pathlib.Path, name: str, state, rank: int = 0) -> dict[str, Any]:
+def restore_checkpoint(directory: str | pathlib.Path, name: str, state, rank: int = 0,
+                       grid=None) -> dict[str, Any]:
     """Load a checkpoint into an existing TrainState in place; returns the
-    meta dict ("epoch", "best"). rank: the rank whose Dropout generator
+    meta dict ("epoch", "best"). rank: the dp rank whose Dropout generator
     state to restore; a rank the checkpoint holds none for (a run resumed
-    on more ranks) keeps its generator as seeded."""
+    on more ranks) keeps its generator as seeded. grid: a tensor-parallel
+    state's parallel/mesh.Grid: the whole tensors are sliced onto it
+    (state.shardings says which), whatever --tp wrote them."""
+    from pointnet2_scannet_tpu_torch.parallel import mesh
+
     directory = pathlib.Path(directory)
-    state.model.load_state_dict(load_state_dict(directory, name), strict=True)
+    model_state = load_state_dict(directory, name)
     train = torch.load(directory / f"{name}.train.pt", map_location="cpu", weights_only=True)
-    _load_optimizer(state.optimizer, train["optimizer"])
+    optimizer_state = train["optimizer"]
+    if state.shardings is not None:
+        model_state = mesh.shard_state_dict(model_state, state.shardings, grid)
+        optimizer_state = mesh.shard_optimizer_state(optimizer_state, state.model, state.shardings, grid)
+    state.model.load_state_dict(model_state, strict=True)
+    _load_optimizer(state.optimizer, optimizer_state)
     state.step = int(train["step"])
     generators = train.get("generators") or [train["generator"]]
     if rank < len(generators):

@@ -41,8 +41,20 @@ With the device store each rank flattens and uploads its own scene shard's
 rows and its ResidentBatchLoader names only those, so the store's capacity
 grows with the ranks (the JAX package's row-sharded store) and each step
 gathers locally, with no exchange; the budget rule applies to the largest
-rank's store, decided alike on every rank. The JAX package's dp x tp mesh
-is not ported (ROADMAP queue 1, item 12).
+rank's store, decided alike on every rank.
+
+With a process_ctx laid out on a dp x tp grid (parallel/mesh.grid_context,
+train_torch.py --tp) the Solver trains tensor-parallel, the JAX Solver's
+"gspmd_dp_tp" strategy (solver.py:254-278): the model is built with
+bn_group=<dp group> and tp_group=<tp group>, the train state is laid out by
+parallel/mesh.shard_train_state (each rank holds its slices of the split
+leaves, the Adam moments with them), the data, batch and metrics follow the
+dp ranks (the tp ranks of a dp index take the same rows), and the steps of
+parallel/step.make_sharded_* train and validate. Checkpoints hold the whole
+state, gathered over the tp ranks, in the format a tp-1 run writes; a resume
+slices it onto the grid, whatever --tp wrote it. As in the JAX Solver,
+--device_store under a 2-D grid falls back to the host path with a WARNING
+(resident steps are single-device or data-parallel only).
 
 With config.train.fused_steps K > 1 the chunked Solver trains K batches a
 call of parallel/step.make_fused_train_step (or its resident form; the JAX
@@ -80,12 +92,13 @@ from pointnet2_scannet_tpu_torch.engine import train_state as ts
 from pointnet2_scannet_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
 from pointnet2_scannet_tpu_torch.engine.logging import ScalarLogger
 from pointnet2_scannet_tpu_torch.parallel.distributed import ProcessContext, dropout_seed
+from pointnet2_scannet_tpu_torch.parallel.mesh import gather_train_state, shard_train_state
 from pointnet2_scannet_tpu_torch.parallel.step import (
     make_fused_train_step,
     make_resident_fused_train_step,
-    make_shardmap_accum_step,
-    make_shardmap_eval_step,
-    make_shardmap_train_step,
+    make_sharded_accum_step,
+    make_sharded_eval_step,
+    make_sharded_train_step,
 )
 from pointnet2_scannet_tpu_torch.utils.eta import decode_eta
 
@@ -141,7 +154,8 @@ class _NullLogger:
 class Solver:
     """Trains a PointNet2SemSeg on chunked scenes on one device, or on each
     rank's device of a data-parallel run (process_ctx; the model built with
-    bn_group=process_ctx.group)."""
+    bn_group=process_ctx.dp_group, and tp_group=process_ctx.tp_group on a
+    dp x tp grid)."""
 
     def __init__(
         self,
@@ -171,14 +185,16 @@ class Solver:
         self.num_classes = config.model.num_classes
 
         tc = config.train
-        ranks = self.ctx.num_processes
+        ranks = self.ctx.dp
         if tc.batch_size % ranks:
             raise ValueError(f"global batch_size {tc.batch_size} not divisible by {ranks} ranks")
         self.local_batch_size = tc.batch_size // ranks
-        group = self.ctx.group
-        self.parallel_strategy = "process_dp" if group is not None else "single"
-        self._train_step = make_shardmap_train_step(model, group, num_classes=self.num_classes)
-        self._eval_step = make_shardmap_eval_step(model, group, num_classes=self.num_classes)
+        group = self.ctx.dp_group
+        self.parallel_strategy = ("gspmd_dp_tp" if self.ctx.tp > 1 else
+                                  "process_dp" if group is not None else "single")
+        # without a tp group these are the data-parallel (or single-device) steps
+        self._train_step = make_sharded_train_step(model, self.ctx, num_classes=self.num_classes)
+        self._eval_step = make_sharded_eval_step(model, self.ctx, num_classes=self.num_classes)
         self.device_store = self._device_store_gate(tc.device_store, train_dataset)
         self._make_loaders(train_dataset, val_dataset, tc)
         # a rank with more steps than another would wait in a collective forever
@@ -186,16 +202,20 @@ class Solver:
         if self.val_loader is not None:
             self.ctx.assert_uniform(len(self.val_loader), "val steps per epoch")
         schedule = ts.make_lr_schedule(tc.lr, tc.decay_step, tc.decay_factor, len(self.train_loader))
+        # the tp ranks of a dp index draw one Dropout mask over their whole rows
         self.state = ts.create_train_state(
-            self.model, schedule, weight_decay=tc.weight_decay, seed=dropout_seed(tc.seed, self.ctx.process_id)
+            self.model, schedule, weight_decay=tc.weight_decay, seed=dropout_seed(tc.seed, self.ctx.dp_index)
         )
+        if self.ctx.tp > 1:
+            shard_train_state(self.state, self.ctx.grid)
         self.store = self._upload_store(train_dataset) if self.device_store else None
         # fused multi-step dispatch: K steps a call, the same math per step
         self.fused_steps = max(int(tc.fused_steps or 1), 1)
         self._fused_step = None
         if self.fused_steps > 1 and isinstance(self.train_loader, (BatchLoader, ResidentBatchLoader)):
             make = make_resident_fused_train_step if self.device_store else make_fused_train_step
-            self._fused_step = make(model, group, num_classes=self.num_classes, log=self.ctx.say)
+            self._fused_step = make(model, group, num_classes=self.num_classes, log=self.ctx.say,
+                                    tp_group=self.ctx.tp_group)
         self.logger = ScalarLogger(self.output_dir) if self.ctx.is_coordinator else _NullLogger()
         self.best = {"epoch": -1, "voxel_miou": -1.0}
         self._global_iter = 0
@@ -215,6 +235,8 @@ class Solver:
             return False
         if not hasattr(train_dataset, "get_item_resident"):
             reason = "the train dataset has no resident mode (chunked training only)"
+        elif self.ctx.tp > 1:  # the JAX Solver's rule (solver.py:179-186)
+            reason = "resident steps are single-device or shard_map_dp only (dp-only mesh with bn_axis_name set)"
         else:
             blocks = self.ctx.allgather_object((store_nbytes(train_dataset.store, self.config.data),
                                                 _device_store_budget(self.device)))
@@ -286,9 +308,9 @@ class Solver:
     def resume(self) -> int:
         """Restore model, optimizer, step, Dropout generator and best metrics
         from this run dir's model_last (every rank from the coordinator's run
-        dir, so every rank starts from the same parameters); returns the
-        epoch to continue from."""
-        meta = restore_checkpoint(self.output_dir, "model_last", self.state, self.ctx.process_id)
+        dir, so every rank starts from the same parameters; on a dp x tp grid
+        each takes its slices); returns the epoch to continue from."""
+        meta = restore_checkpoint(self.output_dir, "model_last", self.state, self.ctx.dp_index, self.ctx.grid)
         if meta.get("best"):
             self.best = meta["best"]
         start_epoch = int(meta.get("epoch", -1)) + 1
@@ -296,12 +318,14 @@ class Solver:
         return start_epoch
 
     def _save(self, name: str, epoch: int) -> None:
-        """Every rank's Dropout generator state goes to the coordinator, which
-        writes the checkpoint (every rank calls this: one collective)."""
-        generators = self.ctx.allgather_object(self.state.generator.get_state())
+        """Every dp rank's Dropout generator state goes to the coordinator,
+        which writes the checkpoint (every rank calls this: one collective,
+        and on a dp x tp grid the all-gathers of the split leaves)."""
+        generators = self.ctx.allgather_object(self.state.generator.get_state())[:: self.ctx.tp]
+        full = gather_train_state(self.state, self.ctx.grid) if self.ctx.tp > 1 else None
         if self.ctx.is_coordinator:
             save_checkpoint(self.output_dir, name, self.state, epoch=epoch, best=self.best,
-                            generators=generators if self.ctx.group is not None else None)
+                            generators=generators if self.ctx.group is not None else None, full=full)
 
     # ------------------------------------------------------------------ train
 
@@ -353,7 +377,7 @@ class Solver:
         """One train step on a device batch (host or resident)."""
         if self.device_store:
             return ts.resident_train_step(self.state, self.store, batch, num_classes=self.num_classes,
-                                          group=self.ctx.group)
+                                          group=self.ctx.dp_group)
         return self._train_step(self.state, batch)
 
     def _run_train_epoch(self, epoch, epochs, verbose, t_start):
@@ -553,12 +577,15 @@ class WholeSceneSolver(Solver):
     (ProcessContext.place_from_global); the accumulated gradients, loss,
     count and confusion are summed over the ranks once a scene, and
     validation gathers each micro-batch's predictions, so every rank
-    computes the same scene metrics."""
+    computes the same scene metrics. On a dp x tp grid the rows and sums
+    are the dp ranks', and the model runs its channel shards: training and
+    validation run tensor-parallel (the JAX 2-D mesh replicates the state
+    for them, ROADMAP §3)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self._accum_step, self._apply_accum = make_shardmap_accum_step(
-            self.model, self.ctx.group, num_classes=self.num_classes)
+        self._accum_step, self._apply_accum = make_sharded_accum_step(
+            self.model, self.ctx, num_classes=self.num_classes)
 
     def _make_loaders(self, train_dataset, val_dataset, tc) -> None:
         self.train_loader = _SceneBatchIterator(train_dataset, tc.batch_size)
@@ -581,7 +608,8 @@ class WholeSceneSolver(Solver):
             for mb in prefetch_to_device(local, device=self.device):
                 out = self._accum_step(self.state, mb)
                 loss_sum, count, cm = loss_sum + out["loss_sum"], count + out["count"], cm + out["confusion"]
-            totals = ts.sum_over_ranks({"loss_sum": loss_sum, "count": count, "confusion": cm}, self.ctx.group)
+            totals = ts.sum_over_ranks({"loss_sum": loss_sum, "count": count, "confusion": cm},
+                                       self.ctx.dp_group)
             loss_sum, count, cm = totals["loss_sum"], totals["count"], totals["confusion"]
             self._apply_accum(self.state, count)
             losses.append(float(loss_sum) / max(float(count), 1.0))  # settles the scene's step

@@ -32,6 +32,14 @@ shard_map step sums its gradients once more after differentiating through
 a summed loss and so scales them by the device count (ROADMAP, latent
 reference issues); the port does not. Loss, point counts and confusion
 matrices come back summed over the ranks.
+
+Under tensor parallelism (parallel/mesh.py) group is the dp group: the
+model splits its channels over the tp ranks itself and returns whole
+logits, so the loss, its backward and the confusion are computed alike on
+the tp ranks of a dp index. A split leaf's gradient is this rank's slice of
+the gradient and a whole leaf's the same on every tp rank, so every
+gradient is summed over the dp group alone, and Adam, elementwise, runs on
+the slices with nothing crossing ranks. With dp 1 group is None.
 """
 
 from __future__ import annotations
@@ -78,13 +86,16 @@ def make_optimizer(params, lr: float, weight_decay: float = 0.0, *,
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer, the learning-rate schedule, the Dropout
-    generator and the number of optimizer steps taken."""
+    generator and the number of optimizer steps taken. shardings: under
+    tensor parallelism, which of the model's leaves hold this rank's slice
+    (parallel/mesh.shard_train_state); None where every leaf is whole."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     generator: torch.Generator
     step: int = 0
+    shardings: dict[str, bool] | None = None
 
 
 def create_train_state(

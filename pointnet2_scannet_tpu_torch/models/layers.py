@@ -33,6 +33,23 @@ The all-reduce is differentiable (parallel/distributed.all_reduce_sum: its
 backward sums the cotangents over the ranks), so every rank's gradient is
 its share of the global one.
 
+With a tp group (tp_group, tensor parallelism over a dp x tp grid,
+parallel/mesh.py) every layer whose width the tp ranks divide is
+column-parallel: its Linear holds this rank's rows of the weight (the
+output channels of its shard), its input passes column_parallel_input
+(whose backward sums the cotangent over the tp ranks) and its BatchNorm
+runs on the shard's channels, the statistics summed over bn_group, the dp
+group, alone: a channel's statistics are its own. BatchNorm and ReLU act
+per channel, so the shard's channels are all-gathered only where the next
+op needs a whole row: after each layer but the last, and after the last
+where the caller asks (forward(gather=False) leaves the output as shards,
+and gather_channels gathers them later, as a set abstraction does after its
+max-pool over the neighbours, nsample times fewer bytes). A layer whose
+width tp does not divide holds its whole weight on every tp rank and takes
+neither collective. The full parameters are made at construction (the
+initialisation draws what a single process draws); parallel/
+mesh.shard_train_state then takes this rank's slices.
+
 A compute dtype (dtype=torch.bfloat16) follows flax's dtype semantics, not
 torch.autocast: the parameters stay float32; each Linear casts its input,
 weight and bias to the compute dtype (flax's promote_dtype) and returns it;
@@ -52,13 +69,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointnet2_scannet_tpu_torch import ops
-from pointnet2_scannet_tpu_torch.parallel.distributed import all_reduce_sum
+from pointnet2_scannet_tpu_torch.parallel.distributed import (
+    all_gather_channels,
+    all_reduce_sum,
+    column_parallel_input,
+)
 
 # flax's he_normal draws a normal truncated at two standard deviations and
 # divides by this constant, the std of the standard normal truncated there
 _TRUNC_STD = 0.87962566103423978
 BN_MOMENTUM = 0.9  # flax convention: new = m * old + (1 - m) * batch
 BN_EPS = 1e-5
+
+
+def tp_splits(widths: Sequence[int], tp_group) -> tuple[bool, ...]:
+    """Per layer, whether its output channels are split over the ranks of
+    tp_group (parallel/mesh.leaf_split's rule for its weight)."""
+    tp = dist.get_world_size(tp_group) if tp_group is not None else 1
+    return tuple(tp > 1 and w % tp == 0 for w in widths)
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
@@ -77,6 +105,8 @@ class PointwiseMLP(nn.Module):
     dtype: the compute dtype, the JAX module's dtype field (None: compute
     in the input's dtype). bn_group: the process group whose ranks' batches
     the train-mode BatchNorm statistics cover (None: this rank's alone).
+    tp_group: the process group that splits the layers' output channels
+    (module docstring; None: every layer whole).
     """
 
     def __init__(
@@ -88,6 +118,7 @@ class PointwiseMLP(nn.Module):
         last_act: bool = True,
         dtype: torch.dtype | None = None,
         bn_group=None,
+        tp_group=None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
@@ -96,6 +127,8 @@ class PointwiseMLP(nn.Module):
         self.last_act = last_act
         self.dtype = dtype
         self.bn_group = bn_group
+        self.tp_group = tp_group
+        self.split = tp_splits(self.widths, tp_group)
         c = in_channels
         for i, w in enumerate(self.widths):
             self.add_module(f"dense_{i}", nn.Linear(c, w, bias=not bn, device=device))
@@ -114,19 +147,35 @@ class PointwiseMLP(nn.Module):
                 getattr(self, f"bn_{i}").reset_parameters()
 
     def forward(self, x: torch.Tensor, row_mask: torch.Tensor | None = None,
-                bn_momentum=None) -> torch.Tensor:
+                bn_momentum=None, gather: bool = True) -> torch.Tensor:
         """row_mask: optional (B,) 0/1 marks of the real rows; in train mode
         the BatchNorm statistics then leave the padding rows out.
         bn_momentum: the running statistics' flax-convention momentum for
-        this call (None: 0.9)."""
-        for i in range(len(self.widths)):
+        this call (None: 0.9). gather=False: a split last layer's output
+        stays this rank's channel shard (gather_channels gathers it)."""
+        n = len(self.widths)
+        for i in range(n):
             x = self._bn_act(self._dense(i, x), i, row_mask, bn_momentum)
+            if i < n - 1 or gather:
+                x = self._whole(i, x)
         return x
+
+    def gather_channels(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole channels of the last layer's output from its shards
+        (forward(gather=False)); the identity where that layer is whole."""
+        return self._whole(len(self.widths) - 1, x)
+
+    def _whole(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return all_gather_channels(x, self.tp_group) if self.split[i] else x
+
+    def _tp_input(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return column_parallel_input(x, self.tp_group) if self.split[i] else x
 
     def _dense(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Layer i's Linear; with a compute dtype, its input, weight and
         bias cast to it first (flax's Dense, dtype=...)."""
         dense = getattr(self, f"dense_{i}")
+        x = self._tp_input(i, x)
         dt = self.dtype
         if dt is None:
             return dense(x)
@@ -141,6 +190,7 @@ class PointwiseMLP(nn.Module):
         new_xyz: torch.Tensor | None,
         row_mask: torch.Tensor | None = None,
         bn_momentum=None,
+        gather: bool = True,
     ) -> torch.Tensor:
         """forward() over grouped neighbourhoods with layer 0 run on the
         features at source resolution, before the neighbourhood gather (the
@@ -157,23 +207,31 @@ class PointwiseMLP(nn.Module):
         weight's columns are cast to it before their products, as the JAX
         module casts them (layers.py:254-267).
 
+        Under tp, layer 0's weight holds this rank's rows, so the gather
+        (and its scatter-add backward) moves widths[0] / tp channels: the
+        gather route is chosen at the call from those narrower rows
+        (ops/tuning.gather_route), whose kernels are d and h under the
+        default switches, as at full width.
+
         xyz (B, N, 3) and new_xyz (B, M, 3) for the use_xyz form (both None
         otherwise), features (B, N, C) source rows, idx (B, M, K) ->
-        (B, M, K, widths[-1])."""
+        (B, M, K, widths[-1]) (gather as in forward)."""
         dense = self.dense_0
         dt = self.dtype if self.dtype is not None else features.dtype
         w_f = dense.weight if xyz is None else dense.weight[:, 3:]
-        x = ops.group_points(features.to(dt) @ w_f.t().to(dt), idx)  # (B, M, K, widths[0])
+        features = self._tp_input(0, features)
+        x = ops.group_points(features.to(dt) @ w_f.t().to(dt), idx)  # (B, M, K, widths[0] / tp)
         if xyz is not None:
             # the centred 3-channel gather, then the xyz columns of the weight
-            gxyz = ops.group_with_idx(idx, xyz, new_xyz, None)
+            gxyz = self._tp_input(0, ops.group_with_idx(idx, xyz, new_xyz, None))
             x = x + gxyz.to(dt) @ dense.weight[:, :3].t().to(dt)
         if dense.bias is not None:
             x = x + dense.bias.to(dt)
+        n = len(self.widths)
         x = self._bn_act(x, 0, row_mask, bn_momentum)
-        for i in range(1, len(self.widths)):
-            x = self._bn_act(self._dense(i, x), i, row_mask, bn_momentum)
-        return x
+        for i in range(1, n):
+            x = self._bn_act(self._dense(i, self._whole(i - 1, x)), i, row_mask, bn_momentum)
+        return self._whole(n - 1, x) if gather else x
 
     def _bn_act(self, x: torch.Tensor, i: int, row_mask: torch.Tensor | None, bn_momentum) -> torch.Tensor:
         """Layer i's BatchNorm (+ReLU) after its Linear: MaskedBatchNorm in
@@ -202,7 +260,10 @@ class FC(nn.Module):
     bn_group: the process group of a data-parallel run, whose ranks' global
     batch the train-mode statistics cover (the JAX FC takes no axis name, so
     under the JAX package's shard_map step each device normalises its own
-    rows; the port keeps the dp step equal to the global batch's).
+    rows; the port keeps the dp step equal to the global batch's). FC takes
+    no tp_group: a preact FC's BatchNorm normalises its input's channels,
+    which the leaf rule (parallel/mesh.py) would split, and no
+    tensor-parallel path runs the head it builds.
     """
 
     def __init__(

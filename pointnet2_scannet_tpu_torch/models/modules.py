@@ -16,6 +16,14 @@ With a compute dtype (bfloat16), the set abstraction casts its input
 features to it before grouping (xyz stays float32, so FPS, the ball queries
 and 3-NN see what they see in a float32 model), and every MLP computes in it. bn_group (the JAX modules' bn_axis_name)
 reaches every MLP's BatchNorm (models/layers.py).
+
+SetAbstraction and FeaturePropagation also take a tp_group (tensor
+parallelism, models/layers.py): each tp rank runs the geometry (FPS, the
+ball queries, 3-NN) whole and its channel shard of every MLP layer. A set
+abstraction gathers a scale's channels after its max-pool over the K
+neighbours (nsample times fewer bytes than before it), and a feature
+propagation after its MLP, so MSG's concatenation of its scales, FP's of
+its skip and every module's output see whole channels in their order.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ class SetAbstraction(nn.Module):
         bn: bool = True,
         dtype: torch.dtype | None = None,
         bn_group=None,
+        tp_group=None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
@@ -60,7 +69,8 @@ class SetAbstraction(nn.Module):
         self.dtype = dtype
         for s, widths in enumerate(mlps):
             self.add_module(f"mlp_{s}", PointwiseMLP(
-                in_channels + 3 * use_xyz, widths, bn=bn, dtype=dtype, bn_group=bn_group, device=device))
+                in_channels + 3 * use_xyz, widths, bn=bn, dtype=dtype, bn_group=bn_group, tp_group=tp_group,
+                device=device))
 
     def _mlps(self) -> list[PointwiseMLP]:
         return [getattr(self, f"mlp_{s}") for s in range(max(len(self.radii), 1))]
@@ -86,7 +96,8 @@ class SetAbstraction(nn.Module):
         if self.npoint is None:
             new_xyz = None
             grouped = ops.group_all(xyz, features, use_xyz=self.use_xyz)
-            outs = [mlp(grouped, row_mask, bn_momentum).amax(dim=2) for mlp in self._mlps()]
+            outs = [mlp.gather_channels(mlp(grouped, row_mask, bn_momentum, False).amax(dim=2))  # gather=False
+                    for mlp in self._mlps()]
         else:
             idx = ops.furthest_point_sample(xyz, self.npoint)
             new_xyz = ops.gather_points(xyz, idx)
@@ -96,13 +107,13 @@ class SetAbstraction(nn.Module):
                     tuning.route_counts["pregather", self.npoint] += 1  # a scale of this level
                     h = mlp.pregather(
                         xyz if self.use_xyz else None, features, nidx,
-                        new_xyz if self.use_xyz else None, row_mask, bn_momentum,
+                        new_xyz if self.use_xyz else None, row_mask, bn_momentum, False,  # gather=False
                     )
                 else:
                     h = mlp(ops.group_with_idx(
                         nidx, xyz, new_xyz, features, use_xyz=self.use_xyz
-                    ), row_mask, bn_momentum)  # grouped (B, M, K, 3 + C)
-                outs.append(h.amax(dim=2))
+                    ), row_mask, bn_momentum, False)  # grouped (B, M, K, 3 + C); gather=False
+                outs.append(mlp.gather_channels(h.amax(dim=2)))  # under tp: the narrowest point
         return new_xyz, outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
     def _pregather(self, features: torch.Tensor | None, widths: Sequence[int]) -> bool:
@@ -156,10 +167,12 @@ class FeaturePropagation(nn.Module):
         bn: bool = True,
         dtype: torch.dtype | None = None,
         bn_group=None,
+        tp_group=None,
         device: torch.device | str | None = None,
     ):
         super().__init__()
-        self.mlp = PointwiseMLP(in_channels, mlp, bn=bn, dtype=dtype, bn_group=bn_group, device=device)
+        self.mlp = PointwiseMLP(in_channels, mlp, bn=bn, dtype=dtype, bn_group=bn_group, tp_group=tp_group,
+                                device=device)
 
     def forward(
         self,

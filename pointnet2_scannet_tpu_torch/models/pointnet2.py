@@ -19,6 +19,13 @@ the parameters, BatchNorm statistics and optimizer state stay float32,
 every MLP computes in bfloat16 (models/layers.py), grouping moves packed
 bfloat16 rows (ops/neighborhood.py), and the logits come out in bfloat16
 and are returned as float32, as the JAX model returns them.
+
+tp_group (tensor parallelism, models/layers.py) splits every layer whose
+width the tp ranks divide, the head's too: cls_fc's output is gathered
+before the Dropout (every tp rank of a dp index draws the same mask from
+the same seed), and the logits of cls_out (split where tp divides
+num_classes, 20 at tp 2 and 4) are gathered before they are returned, so
+the loss sees whole rows.
 """
 
 from __future__ import annotations
@@ -106,7 +113,8 @@ class PointNet2SemSeg(nn.Module):
     eval mode. dtype: the compute dtype (None, or torch.bfloat16). bn_group:
     the process group of a data-parallel run (the JAX model's bn_axis_name):
     train-mode BatchNorm statistics cover its ranks' global batch; None
-    (one device) keeps them local.
+    (one device) keeps them local. tp_group: the tensor-parallel group
+    (module docstring; None: every layer whole).
     """
 
     def __init__(
@@ -115,6 +123,7 @@ class PointNet2SemSeg(nn.Module):
         *,
         dtype: torch.dtype | None = None,
         bn_group=None,
+        tp_group=None,
         device: torch.device | str | None = None,
         generator: torch.Generator | None = None,
     ):
@@ -122,24 +131,25 @@ class PointNet2SemSeg(nn.Module):
         self.spec = spec
         self.dtype = dtype
         self.bn_group = bn_group
+        self.tp_group = tp_group
+        groups = {"bn_group": bn_group, "tp_group": tp_group}
         c = spec.input_channels
         for lvl in range(len(spec.npoints)):
             sa = SetAbstraction(
                 spec.npoints[lvl], spec.radii[lvl], spec.nsamples[lvl],
-                spec.sa_mlps[lvl], c, use_xyz=spec.use_xyz, bn=spec.bn, dtype=dtype, bn_group=bn_group,
+                spec.sa_mlps[lvl], c, use_xyz=spec.use_xyz, bn=spec.bn, dtype=dtype, **groups,
             )
             self.add_module(f"sa_{lvl}", sa)
             c = sa.out_channels
         for lvl in reversed(range(len(spec.fp_mlps))):
             fp = FeaturePropagation(
-                spec.fp_mlps[lvl], c + spec.skip_channels[lvl], bn=spec.bn, dtype=dtype, bn_group=bn_group
+                spec.fp_mlps[lvl], c + spec.skip_channels[lvl], bn=spec.bn, dtype=dtype, **groups
             )
             self.add_module(f"fp_{lvl}", fp)
             c = spec.fp_mlps[lvl][-1]
-        self.cls_fc = PointwiseMLP(c, spec.cls_fc, bn=spec.bn, dtype=dtype, bn_group=bn_group)
+        self.cls_fc = PointwiseMLP(c, spec.cls_fc, bn=spec.bn, dtype=dtype, **groups)
         self.cls_out = PointwiseMLP(
-            spec.cls_fc[-1], (spec.num_classes,), bn=spec.bn, last_act=False, dtype=dtype,
-            bn_group=bn_group,
+            spec.cls_fc[-1], (spec.num_classes,), bn=spec.bn, last_act=False, dtype=dtype, **groups,
         )
         for m in self.modules():
             if isinstance(m, PointwiseMLP):
@@ -201,21 +211,24 @@ def get_model(
     dtype: torch.dtype | None = None,
     bn_group=None,
     *,
+    tp_group=None,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
 ) -> PointNet2SemSeg:
     """Factory with the JAX package's get_model arguments and defaults (MSG
     unless is_msg=False; dtype None, or torch.bfloat16; bn_group, the JAX
-    bn_axis_name, None)."""
+    bn_axis_name, None); tp_group: tensor parallelism (None: none)."""
     spec = dataclasses.replace(
         (msg_spec if is_msg else ssg_spec)(num_classes, input_channels), use_xyz=use_xyz, bn=bn
     )
-    return PointNet2SemSeg(spec, dtype=dtype, bn_group=bn_group, device=device, generator=generator)
+    return PointNet2SemSeg(spec, dtype=dtype, bn_group=bn_group, tp_group=tp_group, device=device,
+                           generator=generator)
 
 
 def model_from_config(cfg, **kwargs) -> PointNet2SemSeg:
     """get_model for a RunConfig: its model fields, input channels and
-    compute dtype; kwargs (bn_group, device, generator) pass through."""
+    compute dtype; kwargs (bn_group, tp_group, device, generator) pass
+    through."""
     return get_model(
         num_classes=cfg.model.num_classes,
         is_msg=cfg.model.is_msg,

@@ -22,6 +22,17 @@ port spreads over ranks:
      per-scene results and uniformity checks travel over a gloo group
      (NCCL takes no host tensors), and every write of a log, a checkpoint
      or best.txt is the coordinator's (rank 0).
+
+Tensor parallelism (parallel/mesh.py, the JAX package's dp x tp mesh) lays
+the ranks out on a 2-D grid, dp x tp. The ranks of a dp index split every
+Linear's output channels among them (a column-parallel Linear); two
+autograd collectives over their tp group carry the activations:
+column_parallel_input (the identity, whose backward sums the input's
+cotangent over the tp ranks) and all_gather_channels (the channel shards
+concatenated in tp order, whose backward takes this rank's slice). Items 1
+and 2 then run over the dp group alone, and the host helpers of item 3 that
+concern the data (shard_list, place_from_global, all_rows, the sums) over
+the ranks of one tp index: the tp ranks of a dp index hold the same rows.
 """
 
 from __future__ import annotations
@@ -92,6 +103,72 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+class _ColumnParallelInput(torch.autograd.Function):
+    """The input of a column-parallel Linear: the identity forward; the
+    backward sums the cotangent over the ranks of the tp group, since each
+    rank's is only its output shard's share of it (Megatron-LM's f). A
+    bfloat16 cotangent is summed in float32 and rounded once."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        total = grad.to(torch.promote_types(grad.dtype, torch.float32), memory_format=torch.contiguous_format,
+                        copy=True)
+        dist.all_reduce(total, group=ctx.group)
+        return total.to(grad.dtype), None
+
+
+def column_parallel_input(x: torch.Tensor, group) -> torch.Tensor:
+    """x as the input of a Linear whose output channels are split over the
+    ranks of group (the tp group): the identity, differentiable with a
+    backward that sums x's cotangent over the ranks."""
+    return _ColumnParallelInput.apply(x, group)
+
+
+def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's x, concatenated on the last axis in group-rank order
+    (not differentiable: all_gather_channels is).
+    NCCL gathers on the card; gloo takes no CUDA tensor in all_gather on
+    every PyTorch version, so under gloo the shards travel as host copies
+    (no copy at all for a CPU tensor) and the result is copied back."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return torch.cat(out.unbind(0), dim=-1)
+    host = x.cpu()
+    parts = [torch.empty_like(host) for _ in range(n)]
+    dist.all_gather(parts, host, group=group)
+    return torch.cat(parts, dim=-1).to(x.device)
+
+
+class _AllGatherChannels(torch.autograd.Function):
+    """The channel shards of the tp ranks concatenated in tp order; the
+    backward takes this rank's slice of the cotangent (Megatron-LM's g: the
+    ranks downstream compute the same function, so each holds the whole
+    cotangent already)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.rank, ctx.c = dist.get_rank(group), x.shape[-1]
+        return all_gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad[..., ctx.rank * ctx.c : (ctx.rank + 1) * ctx.c].contiguous(), None
+
+
+def all_gather_channels(x: torch.Tensor, group) -> torch.Tensor:
+    """(..., C / tp) channel shards -> (..., C), every rank's shard in tp
+    order (group-rank order), differentiable."""
+    return _AllGatherChannels.apply(x, group)
+
+
 def all_reduce_grads(params, group) -> None:
     """Sum every parameter's .grad over the ranks of group in one all-reduce
     of their concatenation (the ranks run the same model, so the same
@@ -111,11 +188,13 @@ class ProcessContext:
     group is the ordinary single-device case, where every helper is a local
     no-op.
 
-    group: the process group of the device collectives (NCCL between cards,
-    gloo on the CPU), given to the model as its bn_group and to the steps;
-    None without one. host_group: a gloo group over the same ranks for host
-    numpy vectors (float64 stays float64). local_rank: this rank's index
-    among the ranks of its host."""
+    group: the process group of the device collectives over every rank
+    (NCCL between cards, gloo on the CPU); None without one. host_group: a
+    gloo group over the same ranks for host numpy vectors (float64 stays
+    float64). local_rank: this rank's index among the ranks of its host.
+    grid: the dp x tp layout of a tensor-parallel run (parallel/mesh.Grid:
+    the coordinates and the groups), None for data parallelism alone, where
+    the dp group is group and tp is 1."""
 
     process_id: int = 0
     num_processes: int = 1
@@ -123,10 +202,47 @@ class ProcessContext:
     host_group: Any = None
     local_rank: int = 0
     device: torch.device = torch.device("cpu")
+    grid: Any = None
 
     @classmethod
     def single(cls, device: torch.device | str = "cpu") -> "ProcessContext":
         return cls(device=torch.device(device))
+
+    # ------------------------------------------------------------ the 2-D grid
+
+    @property
+    def tp(self) -> int:
+        return self.grid.tp if self.grid is not None else 1
+
+    @property
+    def dp(self) -> int:
+        """The data-parallel ranks: every rank without a grid."""
+        return self.grid.dp if self.grid is not None else self.num_processes
+
+    @property
+    def dp_index(self) -> int:
+        return self.grid.dp_index if self.grid is not None else self.process_id
+
+    @property
+    def tp_index(self) -> int:
+        return self.grid.tp_index if self.grid is not None else 0
+
+    @property
+    def dp_group(self):
+        """The device group of the ranks that hold other rows of the global
+        batch (the BatchNorm statistics, gradients, loss and confusion sum
+        over it); None where there is one such rank."""
+        return self.grid.dp_group if self.grid is not None else self.group
+
+    @property
+    def tp_group(self):
+        """The device group of the ranks that split this rank's channels;
+        None without tensor parallelism."""
+        return self.grid.tp_group if self.grid is not None else None
+
+    @property
+    def _data_host_group(self):
+        return self.grid.dp_host_group if self.grid is not None else self.host_group
 
     @property
     def is_coordinator(self) -> bool:
@@ -140,21 +256,23 @@ class ProcessContext:
     # ------------------------------------------------------------- data layer
 
     def shard_list(self, items: Sequence, *, equalize: bool = True) -> list:
-        """This rank's strided shard (strided_shard)."""
-        return strided_shard(items, self.process_id, self.num_processes, equalize=equalize)
+        """This rank's strided shard (strided_shard) over the dp ranks (the
+        tp ranks of a dp index take the same)."""
+        return strided_shard(items, self.dp_index, self.dp, equalize=equalize)
 
     def place_from_global(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         """This rank's rows of a batch that every rank holds whole (a
-        whole-scene micro-batch): rows [p * B / P, (p + 1) * B / P)."""
-        if self.num_processes == 1:
+        whole-scene micro-batch): rows [p * B / P, (p + 1) * B / P) of the P
+        dp ranks, p its dp index."""
+        if self.dp == 1:
             return batch
 
         def rows(x: np.ndarray) -> np.ndarray:
             n = x.shape[0]
-            if n % self.num_processes:
-                raise ValueError(f"global batch of {n} rows not divisible by {self.num_processes} ranks")
-            local = n // self.num_processes
-            return x[self.process_id * local : (self.process_id + 1) * local]
+            if n % self.dp:
+                raise ValueError(f"global batch of {n} rows not divisible by {self.dp} ranks")
+            local = n // self.dp
+            return x[self.dp_index * local : (self.dp_index + 1) * local]
 
         return {k: rows(v) for k, v in batch.items()}
 
@@ -165,42 +283,42 @@ class ProcessContext:
         return t.cpu().numpy()
 
     def all_rows(self, rows: np.ndarray) -> np.ndarray:
-        """Every rank's rows of equal-shaped blocks, in rank order, on every
-        rank (one all-gather; validation cadence only)."""
+        """Every dp rank's rows of equal-shaped blocks, in rank order, on
+        every rank (one all-gather; validation cadence only)."""
         rows = np.asarray(rows)
-        if self.num_processes == 1:
+        if self.dp == 1:
             return rows
         t = torch.from_numpy(np.ascontiguousarray(rows))
-        out = [torch.empty_like(t) for _ in range(self.num_processes)]
-        dist.all_gather(out, t, group=self.host_group)
+        out = [torch.empty_like(t) for _ in range(self.dp)]
+        dist.all_gather(out, t, group=self._data_host_group)
         return torch.cat(out).numpy()
 
     # ------------------------------------------------------- host aggregation
 
     def sum_across_processes(self, values: np.ndarray) -> np.ndarray:
-        """Element-wise sum of a small host vector over the ranks, in its own
-        dtype (float64 label counts past 2^24 stay exact)."""
+        """Element-wise sum of a small host vector over the dp ranks, in its
+        own dtype (float64 label counts past 2^24 stay exact)."""
         values = np.asarray(values)
-        if self.num_processes == 1:
+        if self.dp == 1:
             return values
         t = torch.from_numpy(np.ascontiguousarray(values)).clone()
-        dist.all_reduce(t, group=self.host_group)
+        dist.all_reduce(t, group=self._data_host_group)
         return t.numpy()
 
     def allgather_ragged(self, rows: np.ndarray) -> np.ndarray:
-        """The (n_p, ...) row blocks of every rank concatenated in rank order;
-        n_p may differ between ranks (padded to the largest for the
+        """The (n_p, ...) row blocks of every dp rank concatenated in rank
+        order; n_p may differ between ranks (padded to the largest for the
         collective). The dtype is kept: float64 results stay float64."""
         rows = np.asarray(rows)
-        if self.num_processes == 1:
+        if self.dp == 1:
             return rows
-        counts = [torch.zeros(1, dtype=torch.int64) for _ in range(self.num_processes)]
-        dist.all_gather(counts, torch.tensor([rows.shape[0]], dtype=torch.int64), group=self.host_group)
+        counts = [torch.zeros(1, dtype=torch.int64) for _ in range(self.dp)]
+        dist.all_gather(counts, torch.tensor([rows.shape[0]], dtype=torch.int64), group=self._data_host_group)
         counts = [int(c) for c in counts]
         padded = np.zeros((max(counts),) + rows.shape[1:], rows.dtype)
         padded[: rows.shape[0]] = rows
-        blocks = self.all_rows(padded).reshape((self.num_processes, max(counts)) + rows.shape[1:])
-        return np.concatenate([blocks[p, : counts[p]] for p in range(self.num_processes)])
+        blocks = self.all_rows(padded).reshape((self.dp, max(counts)) + rows.shape[1:])
+        return np.concatenate([blocks[p, : counts[p]] for p in range(self.dp)])
 
     def allgather_object(self, obj) -> list:
         """A picklable object from every rank, in rank order."""

@@ -1,6 +1,8 @@
 """The data-parallel steps: the JAX package's parallel/step.py
 make_shardmap_train_step (:194), make_shardmap_eval_step (:239) and
-make_shardmap_accum_step (:469); and the fused steps,
+make_shardmap_accum_step (:469); the dp x tp steps, make_sharded_train_step
+(:124) and make_sharded_eval_step (:137), with the accumulation step of
+whole-scene training beside them; and the fused steps,
 make_fused_train_step (:49) and make_resident_fused_train_step (:318).
 
 In the JAX package a shard_map runs the step on each device's rows of the
@@ -12,6 +14,13 @@ backward, loss and confusion summed. The model must be built with
 bn_group=group (as the JAX step needs bn_axis_name=axis_name): without it
 each rank would normalise over its own rows alone. With group None each
 function returns the single-device step.
+
+The dp x tp steps (a rank on a parallel/mesh grid, its train state laid out
+by mesh.shard_train_state) are the same eager steps over the grid's dp
+group, on a model built with bn_group=<dp group> and tp_group=<tp group>:
+the model runs its channel shards and gathers them (models/layers.py), so
+the step around it is the data-parallel one. As the JAX "gspmd_dp_tp"
+step, the math is the single-process step's on the global batch.
 
 The fused steps run K train steps a call, the exact math of K calls of the
 per-batch step (the JAX package's lax.scan of train_step). On a card, with
@@ -30,8 +39,8 @@ every replay draws the masks the eager steps would draw, in their order.
 Each step reads its learning rate from a (K,) buffer on the device that the
 host fills from the schedule before each launch, so a staircase boundary
 inside a group takes effect at its step. On the CPU, and under gloo (a gloo
-collective cannot be captured), the same function runs the K steps
-eagerly. Nothing falls back: a capture that fails raises.
+collective cannot be captured; under tensor parallelism either group's
+backend decides), the same function runs the K steps eagerly. Nothing falls back: a capture that fails raises.
 
 Launch counting under a graph (ops/cuda launch_counts): a wrapper counts
 where Python calls it. The warm-up's K steps launch and count; the capture
@@ -55,10 +64,13 @@ from pointnet2_scannet_tpu_torch.data.pipeline import GroupLayout, HostGroup
 from pointnet2_scannet_tpu_torch.engine import train_state as ts
 
 
-def _check(model, group) -> None:
+def _check(model, group, tp_group=None) -> None:
     if getattr(model, "bn_group", None) is not group:
         raise ValueError("a data-parallel step needs the model built with bn_group=<the run's "
                          "process group>, and a single-device step one built without")
+    if getattr(model, "tp_group", None) is not tp_group:
+        raise ValueError("a tensor-parallel step needs the model built with tp_group=<the grid's tp "
+                         "group>, and any other step one built without")
 
 
 def make_shardmap_train_step(model, group, *, num_classes: int):
@@ -86,32 +98,59 @@ def make_shardmap_accum_step(model, group, *, num_classes: int):
             functools.partial(ts.apply_accumulated, group=group))
 
 
-def fused_mode(device: torch.device, group) -> str:
+def make_sharded_train_step(model, ctx, *, num_classes: int):
+    """The dp x tp train step of a rank of ctx's grid: fn(state, batch) ->
+    {"loss", "confusion"} over the global batch, batch this dp rank's rows
+    (the same on the tp ranks of its dp index). A ctx without a grid gives
+    make_shardmap_train_step's step over ctx.group (None: one device)."""
+    _check(model, ctx.dp_group, ctx.tp_group)
+    return functools.partial(ts.train_step, num_classes=num_classes, group=ctx.dp_group)
+
+
+def make_sharded_eval_step(model, ctx, *, num_classes: int):
+    """The dp x tp eval step: {"loss", "confusion"} over the global batch and
+    this dp rank's "preds"."""
+    _check(model, ctx.dp_group, ctx.tp_group)
+    return functools.partial(ts.eval_step, num_classes=num_classes, group=ctx.dp_group)
+
+
+def make_sharded_accum_step(model, ctx, *, num_classes: int):
+    """(accumulate, apply) of whole-scene training on the grid: those of
+    make_shardmap_accum_step over the dp group."""
+    _check(model, ctx.dp_group, ctx.tp_group)
+    return (functools.partial(ts.grad_accum_step, num_classes=num_classes),
+            functools.partial(ts.apply_accumulated, group=ctx.dp_group))
+
+
+def fused_mode(device: torch.device, *groups) -> str:
     """How the fused steps run: "graph" (one CUDA graph launch a group) on a
-    card with no group or an NCCL group, else "eager" (the CPU, gloo)."""
+    card where every group given is None or NCCL, else "eager" (the CPU,
+    gloo). groups: the dp group, and under tensor parallelism the tp group."""
     if torch.device(device).type != "cuda":
         return "eager"
-    if group is not None and dist.get_backend(group) != "nccl":
+    if any(g is not None and dist.get_backend(g) != "nccl" for g in groups):
         return "eager"
     return "graph"
 
 
-def make_fused_train_step(model, group, *, num_classes: int, log=None) -> "FusedTrainStep":
+def make_fused_train_step(model, group, *, num_classes: int, log=None, tp_group=None) -> "FusedTrainStep":
     """fn(state, batches) -> {"loss" (K,), "confusion" (K, C, C)} on the
     device, the stats of K train steps in order; batches: a
     data/pipeline.HostGroup, or a dict of (K, ...)-stacked tensors (this
     rank's rows under a group). log: a print-like callable for the one line
-    a capture writes (its time and its pool's size)."""
-    return FusedTrainStep(model, group, num_classes=num_classes, resident=False, log=log)
+    a capture writes (its time and its pool's size). tp_group: the grid's
+    tp group under tensor parallelism (group is then its dp group)."""
+    return FusedTrainStep(model, group, num_classes=num_classes, resident=False, log=log, tp_group=tp_group)
 
 
-def make_resident_fused_train_step(model, group, *, num_classes: int, log=None) -> "FusedTrainStep":
+def make_resident_fused_train_step(model, group, *, num_classes: int, log=None,
+                                   tp_group=None) -> "FusedTrainStep":
     """fn(state, store, batches) -> stats: make_fused_train_step over
     resident batches ("idx" (K, B, NP) store rows and, with augmentation,
     "rot", "trans", "scale"), each step gathering its batch from the
     device-resident store (data/resident.materialize_batch); the store
     must keep its tensors between calls (a graph reads them in place)."""
-    return FusedTrainStep(model, group, num_classes=num_classes, resident=True, log=log)
+    return FusedTrainStep(model, group, num_classes=num_classes, resident=True, log=log, tp_group=tp_group)
 
 
 class _Captured:
@@ -133,14 +172,15 @@ class FusedTrainStep:
     captures: one dict per capture (k, seconds, pool_bytes, launches: the
     launch counts that the capture recorded)."""
 
-    def __init__(self, model, group, *, num_classes: int, resident: bool, log=None):
-        _check(model, group)
+    def __init__(self, model, group, *, num_classes: int, resident: bool, log=None, tp_group=None):
+        _check(model, group, tp_group)
         self.group = group
+        self.groups = [g for g in (group, tp_group) if g is not None]
         self.num_classes = num_classes
         self.resident = resident
         self.log = log
         self.device = next(model.parameters()).device
-        self.mode = fused_mode(self.device, group)
+        self.mode = fused_mode(self.device, group, tp_group)
         self.captures: list[dict] = []
         self._graphs: dict = {}
 
@@ -148,7 +188,7 @@ class FusedTrainStep:
         """The mode line of K steps a group."""
         if self.mode == "graph":
             return f"fused_steps {k}: one CUDA graph per {k} steps"
-        why = dist.get_backend(self.group) if self.group is not None else self.device.type
+        why = dist.get_backend(self.groups[0]) if self.groups else self.device.type
         return f"fused_steps {k}: {k} eager steps per group ({why})"
 
     def __call__(self, state, *args) -> dict:

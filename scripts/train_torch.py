@@ -46,10 +46,22 @@ dir; a resume restores every rank from it, and keeps the run's
       --batch_size 4 --epoch 2 --device cpu --num_devices 2
   torchrun --nproc_per_node 4 scripts/train_torch.py --synthetic --dist_auto
 
+Tensor parallelism (the JAX package's dp x tp mesh, strategy gspmd_dp_tp):
+--tp T lays the --num_devices N ranks out on an (N / T) x T grid; the T
+ranks of a dp index split every Linear's output channels (and the Adam
+moments with them) and train on the same rows, the N / T dp indices on
+other rows of the global batch. As in scripts/train.py: --tp is single-host
+(no --dist_* flags), T must divide N, and the global --batch_size N / T.
+Checkpoints hold the whole state, so a resume may change --tp (an execution
+flag, like --num_devices). Two ranks sharing one card need the gloo backend;
+NCCL across two or more cards is unverified.
+
+  python scripts/train_torch.py --synthetic --synthetic_scenes 8 --npoints 256 \\
+      --batch_size 4 --epoch 1 --device cpu --num_devices 2 --tp 2
+
 --trace DIR writes a torch.profiler trace (Chrome / TensorBoard format: host
 activity and, on a GPU, the card's kernels) of one train epoch into DIR, the
-second when there is one. The JAX package's execution flags that have no
-counterpart here yet (--tp) raise NotImplementedError naming their ROADMAP item.
+second when there is one.
 
   python scripts/train_torch.py --synthetic --use_color --use_normal --epoch 2 --trace /tmp/trace
 """
@@ -65,31 +77,38 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# flag -> (is it set?, what it asks for, ROADMAP queue 1 item)
-_UNPORTED = (
-    ("tp", lambda v: v is not None and v > 1, "tensor parallelism (the dp x tp mesh)", 12),
-)
-
-
-def check_ported(args) -> None:
-    for flag, is_set, what, item in _UNPORTED:
-        if is_set(getattr(args, flag)):
-            raise NotImplementedError(
-                f"--{flag}: {what} is not ported yet (ROADMAP queue 1, item {item})"
-            )
-
-
 def main(args):
     """The CLI: train in this process, or spawn --num_devices ranks on this
     host and train in each (returns None then: the run dir is rank 0's)."""
     from pointnet2_scannet_tpu_torch.parallel.distributed import cli_ranks, spawn_cli
 
-    check_ported(args)
     n = cli_ranks(args)
+    check_tp(args, n)
     if n == 1:
         return train(args)
     spawn_cli(train, args, n)
     return None
+
+
+def check_tp(args, ranks: int) -> int:
+    """The JAX CLI's --tp rules (scripts/train.py:249-263), before anything
+    is written: tp (the flag, or a resumed run's) is single-host, divides
+    the ranks, and dp = ranks / tp divides the global batch. Returns tp."""
+    from pointnet2_scannet_tpu_torch.config import RunConfig
+    from pointnet2_scannet_tpu_torch.parallel.distributed import dist_flags_set
+
+    saved = pathlib.Path(args.resume or "") / "config.json"
+    cfg = RunConfig.load(saved) if args.resume and saved.exists() else None
+    tp = args.tp if args.tp is not None else (cfg.train.tp if cfg is not None else 1)
+    batch_size = cfg.train.batch_size if cfg is not None else args.batch_size
+    if tp > 1:
+        if dist_flags_set(args):
+            raise SystemExit("--tp is single-host (dp-only meshes across hosts)")
+        if ranks % tp:
+            raise SystemExit(f"--tp {tp} does not divide num_devices {ranks}")
+        if batch_size % (ranks // tp):
+            raise SystemExit(f"batch_size {batch_size} not divisible by dp={ranks // tp}")
+    return max(tp, 1)
 
 
 def build_config(args):
@@ -147,13 +166,14 @@ def build_config(args):
 
 
 def make_stores(cfg, ctx):
-    """(train store, val store): this rank's scene shards in a chunked
-    data-parallel run (the class weights the whole split's), every scene
-    otherwise (whole-scene ranks walk the same scenes)."""
+    """(train store, val store): this dp rank's scene shards in a chunked
+    data-parallel run (the class weights the whole split's; the tp ranks of
+    a dp index hold the same), every scene otherwise (whole-scene ranks walk
+    the same scenes)."""
     from pointnet2_scannet_tpu_torch.data.scene_store import SceneStore
     from pointnet2_scannet_tpu_torch.data.synthetic import make_synthetic_store
 
-    shard = ctx.num_processes > 1 and not cfg.train.wholescene
+    shard = ctx.dp > 1 and not cfg.train.wholescene
     if cfg.train.synthetic:
         n = cfg.train.synthetic_scenes
         stores = make_synthetic_store(n, seed=0), make_synthetic_store(max(n // 4, 1), seed=1000)
@@ -161,7 +181,7 @@ def make_stores(cfg, ctx):
             return stores
         for name, store in zip(("train", "val"), stores):
             _warn_dropped(ctx, len(store), name)
-        return tuple(s.shard(ctx.process_id, ctx.num_processes) for s in stores)
+        return tuple(s.shard(ctx.dp_index, ctx.dp) for s in stores)
     train_ids = [l.strip() for l in open(cfg.paths.train_list) if l.strip()]
     val_ids = [l.strip() for l in open(cfg.paths.val_list) if l.strip()]
     if cfg.train.debug:  # train and validate on one scene
@@ -172,8 +192,8 @@ def make_stores(cfg, ctx):
         for name, ids in (("train", train_ids), ("val", val_ids)):
             _warn_dropped(ctx, len(ids), name)
         make = lambda ids: SceneStore.from_npy_dir_sharded(  # noqa: E731
-            ids, cfg.paths.preprocessed_dir, mv, process_id=ctx.process_id,
-            num_processes=ctx.num_processes, is_weighting=cfg.data.is_weighting, ctx=ctx,
+            ids, cfg.paths.preprocessed_dir, mv, process_id=ctx.dp_index,
+            num_processes=ctx.dp, is_weighting=cfg.data.is_weighting, ctx=ctx,
         )
     else:
         make = lambda ids: SceneStore.from_npy_dir(  # noqa: E731
@@ -183,8 +203,8 @@ def make_stores(cfg, ctx):
 
 
 def _warn_dropped(ctx, count: int, name: str) -> None:
-    if count % ctx.num_processes:
-        ctx.say(f"data parallel: dropping {count % ctx.num_processes} trailing {name} scene(s) so that "
+    if count % ctx.dp:
+        ctx.say(f"data parallel: dropping {count % ctx.dp} trailing {name} scene(s) so that "
                 f"every rank holds as many", flush=True)
 
 
@@ -192,13 +212,13 @@ def train(args, ctx=None) -> tuple[pathlib.Path, dict]:
     """Train (or resume) a run; returns (run dir, best val metrics). ctx: this
     rank's parallel.ProcessContext; None joins the ranks that the --dist_*
     flags name (or none)."""
-    check_ported(args)
     if args.device_store and args.no_device_store:
         raise SystemExit("--device_store and --no_device_store conflict")
     from pointnet2_scannet_tpu_torch.parallel.distributed import cli_context, cli_ranks, shutdown
 
     if ctx is not None:
         return _train(args, ctx)
+    check_tp(args, cli_ranks(args))
     if cli_ranks(args) > 1:
         raise ValueError("--num_devices above 1: main() spawns the ranks, and train() runs one")
     ctx = cli_context(args)
@@ -215,6 +235,7 @@ def _train(args, ctx) -> tuple[pathlib.Path, dict]:
     from pointnet2_scannet_tpu_torch.data.wholescene import WholeSceneDataset
     from pointnet2_scannet_tpu_torch.engine.solver import Solver, WholeSceneSolver
     from pointnet2_scannet_tpu_torch.models import model_from_config
+    from pointnet2_scannet_tpu_torch.parallel.mesh import grid_context
 
     if args.resume:
         output_dir = pathlib.Path(args.resume)
@@ -236,6 +257,8 @@ def _train(args, ctx) -> tuple[pathlib.Path, dict]:
             overrides["num_devices"] = ctx.num_processes
         if args.verbose is not None:
             overrides["verbose"] = args.verbose
+        if args.tp is not None:  # an execution layout, like --num_devices (scripts/train.py:193-196)
+            overrides["tp"] = args.tp
         if args.fused_steps is not None:  # the same math per step
             overrides["fused_steps"] = args.fused_steps
         if args.device_store:  # the same math as the host path
@@ -257,6 +280,7 @@ def _train(args, ctx) -> tuple[pathlib.Path, dict]:
         if ctx.is_coordinator:  # no other rank writes the run dir
             output_dir.mkdir(parents=True, exist_ok=True)
 
+    ctx = grid_context(ctx, cfg.train.tp)  # dp x tp; tp 1 keeps data parallelism alone
     train_store, val_store = make_stores(cfg, ctx)
     seed = cfg.train.seed
     if cfg.train.wholescene:  # one gradient-accumulated update per scene
@@ -268,7 +292,8 @@ def _train(args, ctx) -> tuple[pathlib.Path, dict]:
         val_ds = ChunkedSceneDataset(val_store, cfg.data, phase="val", seed=seed + 1)
         solver_cls, step = Solver, None
     # every rank draws the same initial weights
-    model = model_from_config(cfg, generator=torch.Generator().manual_seed(seed), bn_group=ctx.group)
+    model = model_from_config(cfg, generator=torch.Generator().manual_seed(seed), bn_group=ctx.dp_group,
+                              tp_group=ctx.tp_group)
     device = ctx.device
     solver = solver_cls(model, train_ds, val_ds, cfg, output_dir, device=device, trace_dir=args.trace,
                         process_ctx=ctx)
@@ -278,11 +303,12 @@ def _train(args, ctx) -> tuple[pathlib.Path, dict]:
         step = fused.describe(solver.fused_steps) if fused is not None else "one step per batch"
     ctx.say(f"device: {device} ({name}), {len(solver.train_loader)} steps per epoch, {step}, "
             f"compute dtype {cfg.model.compute_dtype}", flush=True)
-    ctx.say(f"parallel strategy: {solver.parallel_strategy} (mesh size {ctx.num_processes}, "
+    grid = f": dp {ctx.dp} x tp {ctx.tp}" if ctx.tp > 1 else ""
+    ctx.say(f"parallel strategy: {solver.parallel_strategy} (mesh size {ctx.num_processes}{grid}, "
             f"processes {ctx.num_processes})", flush=True)
     if solver.device_store:
         rows, width = solver.store["points"].shape
-        whose = f" (rank 0's scene shard; each rank holds its own)" if ctx.num_processes > 1 else ""
+        whose = f" (rank 0's scene shard; each rank holds its own)" if ctx.dp > 1 else ""
         ctx.say(f"device_store: {rows} rows x {width} on {device}{whose}, flattened in "
                 f"{solver.store_flatten_s:.2f} s, uploaded in {solver.store_upload_s:.2f} s", flush=True)
     if ctx.is_coordinator:
@@ -332,7 +358,11 @@ def parse_args(argv=None):
                    help="data-parallel ranks to spawn on this host, one device each (NCCL between "
                    "cards, gloo between CPU ranks with --device cpu); the global --batch_size "
                    "divides among them")
-    p.add_argument("--tp", type=int, default=None, help="1 only (ROADMAP item 12)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel width: the --num_devices ranks on a (ranks / tp) x tp grid, every "
+                   "Linear's output channels (and their Adam moments) split over the tp ranks of a dp index; "
+                   "single-host, tp must divide the ranks and the ranks / tp the --batch_size (default 1; at "
+                   "--resume, overrides the saved setting)")
     p.add_argument("--trace", type=str, default=None, metavar="DIR",
                    help="capture a torch.profiler trace (Chrome/TensorBoard format) of one train "
                    "epoch into DIR: the second epoch when there is one, so that the first's "

@@ -2,7 +2,9 @@
 in the two-process --dist_* form and resumed with --num_devices 2,
 scripts/eval_torch.py on two --dist_* ranks (its --num_devices spawns
 through the same code as train_torch.py's; scripts/visualize_torch.py runs
-on two ranks in chip_smoke.py), and the refusals. Every process runs under its own timeout and is killed past it
+on two ranks in chip_smoke.py), train_torch.py --num_devices 2 --tp 2 (dp
+1 x tp 2) on chunks and on whole scenes, its run resumed at --tp 1 and
+evaluated, and the refusals. Every process runs under its own timeout and is killed past it
 (as tests/test_multihost.py runs the JAX CLIs)."""
 
 import json
@@ -145,7 +147,7 @@ def test_eval_on_two_ranks_gives_the_single_process_report(after_run):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--tp", "2"], NotImplementedError, r"--tp: tensor parallelism .*ROADMAP queue 1, item 12"),
+    (["--tp", "2"], SystemExit, r"--tp 2 does not divide num_devices 1"),
     (["--num_devices", "2", "--dist_coordinator", "127.0.0.1:1"], ValueError, "cannot be combined with --dist_"),
     (["--num_devices", "2", "--dist_auto"], ValueError, "cannot be combined with --dist_"),
     (["--num_devices", "64", "--device", "cuda"], ValueError,
@@ -156,6 +158,67 @@ def test_train_refusals(tmp_path, flags, error, match):
     with pytest.raises(error, match=match):
         train_torch.main(train_torch.parse_args([*TRAIN, "--output_root", str(tmp_path), *flags]))
     assert not tmp_path.exists() or not any(tmp_path.iterdir())
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    """train_torch.py --num_devices 2 --tp 2: chunks with --fused_steps 2 (two
+    steps an epoch, one group) and --device_store (refused on a 2-D grid, as
+    the JAX Solver refuses it) beside whole scenes (one train scene in
+    micro-batches of 32, few of them: each runs FPS's plain loop); then
+    the chunk run resumed for an epoch at --tp 1 on one rank (on a copy),
+    and the tp-2 run evaluated by eval_torch.py in this process."""
+    import shutil
+
+    tmp = tmp_path_factory.mktemp("tp")
+    tp = ["--epoch", "1", "--batch_size", "4", "--num_devices", "2", "--tp", "2"]
+    wholescene = _launch("train_torch.py", [*TRAIN, *tp, "--use_wholescene", "--synthetic_scenes", "1",
+                                            "--batch_size", "32", "--output_root", str(tmp / "wholescene")])
+    outs = _join([_launch("train_torch.py", [*TRAIN, *tp, "--fused_steps", "2", "--device_store", "--output_root",
+                                             str(tmp / "chunks")])])
+    run = next((tmp / "chunks").iterdir())
+    resumed = shutil.copytree(run, tmp / "resumed")
+    resume = _launch("train_torch.py", ["--resume", str(resumed), "--epoch", "2", "--synthetic", "--device", "cpu",
+                                        "--tp", "1", "--num_devices", "1"])
+    eval_torch = _script("eval_torch")  # meanwhile, in this process
+    report = eval_torch.evaluate(eval_torch.parse_args(["--folder", str(run), "--synthetic", "--synthetic_scenes",
+                                                        "1", "--batch_size", "32", "--device", "cpu"]))
+    outs += _join([wholescene, resume])
+    return tmp, outs, report
+
+
+@pytest.mark.parametrize("mode", ["chunks", "wholescene"])
+def test_tp_cli_trains_on_a_dp_1_x_tp_2_grid(tp_runs, mode):
+    from pointnet2_scannet_tpu_torch.engine import checkpoint
+    from pointnet2_scannet_tpu_torch.models import model_from_config
+    from pointnet2_scannet_tpu_torch.config import RunConfig
+
+    tmp, outs, _ = tp_runs
+    out = outs[("chunks", "wholescene").index(mode)]
+    assert "parallel strategy: gspmd_dp_tp (mesh size 2: dp 1 x tp 2, processes 2)" in out
+    if mode == "chunks":
+        assert "2 steps per epoch, fused_steps 2: 2 eager steps per group (gloo)" in out
+        assert ("WARNING: device_store disabled: resident steps are single-device or shard_map_dp only "
+                "(dp-only mesh with bn_axis_name set)") in out
+    (run,) = list((tmp / mode).iterdir())
+    cfg = json.loads((run / "config.json").read_text())
+    assert cfg["train"]["tp"] == 2 and cfg["train"]["num_devices"] == 2
+    assert cfg["train"]["wholescene"] is (mode == "wholescene")
+    # model_last holds the whole state, in the format a tp-1 run writes
+    model = model_from_config(RunConfig.load(run / "config.json"))
+    model.load_state_dict(checkpoint.load_state_dict(run, "model_last"), strict=True)
+    train = torch.load(run / "model_last.train.pt", weights_only=True)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    assert [tuple(st["exp_avg"].shape) for st in train["optimizer"]["state"].values()] == shapes
+    assert len(train["generators"]) == 1  # one dp rank
+
+
+def test_tp_run_resumes_at_tp_1_and_evaluates(tp_runs):
+    tmp, outs, report = tp_runs
+    out = outs[2]
+    assert "parallel strategy: single" in out and "(from epoch 1)" in out and "epoch [2/2]" in out
+    assert json.loads((tmp / "resumed" / "config.json").read_text())["train"]["tp"] == 1
+    assert "Voxel mIoU" in report.format_table()
 
 
 def test_ranks_never_share_a_card():

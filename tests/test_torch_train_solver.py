@@ -153,19 +153,22 @@ def test_msg_run_trains_and_infer_torch_serves_it(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flag",
-    # data parallelism is ported (tests/test_torch_parallel_cli.py); --tp
-    # (dp x tp) is not, and is refused alone and beside every dp flag
-    [["--use_wholescene", "--tp", "2"], ["--num_devices", "2", "--tp", "2"],
-     ["--tp", "2"], ["--dist_coordinator", "localhost:1234", "--tp", "2"],
-     ["--dist_nprocs", "2", "--tp", "2"], ["--dist_auto", "--tp", "2"]],
-    ids=lambda f: f[0].lstrip("-"),
+    "flag,match",
+    # the JAX CLI's --tp rules (scripts/train.py:249-263): single-host, tp
+    # divides the ranks (one without --num_devices), dp divides the batch
+    [(["--dist_coordinator", "localhost:1234", "--tp", "2"], "--tp is single-host"),
+     (["--dist_nprocs", "2", "--tp", "2"], "--tp is single-host"),
+     (["--dist_auto", "--tp", "2"], "--tp is single-host"),
+     (["--tp", "2"], "--tp 2 does not divide num_devices 1"),
+     (["--use_wholescene", "--tp", "2"], "--tp 2 does not divide num_devices 1"),
+     (["--num_devices", "4", "--tp", "2", "--batch_size", "3"], "batch_size 3 not divisible by dp=2")],
+    ids=["dist_coordinator", "dist_nprocs", "dist_auto", "tp", "use_wholescene", "batch_size"],
 )
-def test_unported_flags_raise_with_their_roadmap_item(flag, tmp_path):
+def test_tp_refusals_mirror_the_jax_cli(flag, match, tmp_path):
     train_torch = _script("train_torch")
     args = train_torch.parse_args([*BASE, "--output_root", str(tmp_path), *flag])
     for entry in (train_torch.main, train_torch.train):
-        with pytest.raises(NotImplementedError, match=r"--tp: .*ROADMAP queue 1, item 12"):
+        with pytest.raises(SystemExit, match=match):
             entry(args)
     assert not any(tmp_path.iterdir())  # raised before anything was written
 
