@@ -314,7 +314,29 @@
     step of the two ranks beside the single-process step (host clock), and
     the share of it in the tp collectives (a run with each collective
     timed between synchronisations). NCCL across cards is not run here.
-32. Print one JSON line of kernel results (time, plain time, the card's bound
+32. The op-lowering switches (ops/tuning.py). (a) dense, cached and fast
+    interpolation at SSG's four FP shapes (B 32), float32 and bfloat16:
+    the forward and the points' gradient against the same function on the
+    CPU (its first INTERP_CPU_ROWS rows; float32 within 1e-5 of the
+    largest |value|, bfloat16 2 ulps of it) and, in float32, against the
+    gather form on the card; fast launches one d a forward and no h, dense
+    and cached neither; each form's forward-and-backward ms beside the
+    gather form's. (b) h's card-wide sort route (scatter_add_sorted_cuda)
+    at SSG's SA2-SA4 grouping backwards, float32 and bfloat16, bit for bit
+    against its plain version, timed beside the block route; one SSG train
+    step at 32 x 8192 under group_segsum, float32 and bfloat16, bit-equal
+    to the default step (loss, gradients, parameters, BatchNorm
+    statistics), with exactly 3 sort-route and 4 block-route launches of h
+    (the default: 7 block); a CUDA graph of 2 such steps bit-equal to 2
+    eager ones; the step's ms beside the default's. (c) fps_pallas and
+    ball_query_pallas False: an SSG serve batch's logits bit-equal to the
+    default's, the same launches, "xla" routes; interpolate_dense: logits
+    within 1e-4, a train step against the CPU under phase 11's gates with
+    the same switch, and the step's ms beside the default's. (d) pregather_dense True pregathers every SA
+    level of the 9-channel SSG, False turns mv131's SA1 pregather off,
+    logits within 1e-4. (e) scripts/bench_fp_torch.py (float32) and
+    scripts/bench_pregather_torch.py --quick, each printing its JSON line.
+33. Print one JSON line of kernel results (time, plain time, the card's bound
     for the same work, the time of one PyTorch library call where one
     computes the same function, the older counterpart's time where there is
     one; e, f and g on bfloat16 rows in rows of their own), the card line,
@@ -322,7 +344,7 @@
 
 The steady train steps (phases 11, 12, 18) and whole-scene updates (phase
 17) are timed by bench_torch.py's functions. Each run of phases 9, 10, 12,
-13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30 and 31 starts with every launch counter at 0 and
+13, 14, 15, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31 and 32 starts with every launch counter at 0 and
 must launch every kernel of its path and no other. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
 outside a checkout of the repository.
@@ -516,6 +538,10 @@ LETTER_KERNEL = {"a": "furthest_point_sample", "b": "ball_query", "c": "ball_que
                  "h": "scatter_add", "i": "three_nn"}
 # kernels that only a switch, a shape or a bench script selects
 OFF_BY_DEFAULT = {"gather_smem", "scatter_smem", "three_nn_q", "gather_split", "fused_gather_mm"}
+# phase 32, the op-lowering switches: the interpolation forms' float32
+# bound against the CPU and the gather form (of the largest |value|;
+# bfloat16: 2 ulps of it), and the batch rows the CPU checks
+INTERP_F32_TOL, INTERP_CPU_ROWS = 1e-5, 4
 
 
 def cuda_ms(fn, torch) -> float:
@@ -1602,9 +1628,10 @@ def all_l2(got: dict, want: dict) -> float:
                  / sum((w.double() ** 2).sum() for w in want.values()).sqrt())
 
 
-# the CPU steps (float64, float32) of train_step_card_vs_cpu by model kind
-# and column size, shared by phases 11 and 12: on the CPU the MXU route's
-# plain versions compute the default route's functions
+# the CPU steps (float64, float32) of train_step_card_vs_cpu by model kind,
+# column size, input channels and interpolation form, shared by phases 11
+# and 12: on the CPU the MXU route's plain versions compute the default
+# route's functions
 CPU_STEPS: dict = {}
 
 
@@ -1619,7 +1646,8 @@ def train_step_card_vs_cpu(torch, kind: str, config: str = "default", npoints: i
     from pointnet2_scannet_tpu_torch.ops import cuda as kernels
     from pointnet2_scannet_tpu_torch.ops import tuning
 
-    out = CPU_STEPS.setdefault((kind, npoints, input_channels), {})
+    # the interpolation form changes the CPU step's rounding; the MXU route does not
+    out = CPU_STEPS.setdefault((kind, npoints, input_channels, tuning.interpolate_route()), {})
     for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
         if (device, dtype) in out and device == "cpu":
             continue
@@ -4247,6 +4275,314 @@ def tensor_parallel(torch, tmp: pathlib.Path) -> dict:
     return {"launches": total}
 
 
+def interp_bound(torch, want, dtype) -> float:
+    """Phase 32 (a)'s bound on a difference: 1e-5 of the largest |value| in
+    float32, 2 bfloat16 ulps of it in bfloat16."""
+    import math
+
+    top = float(want.double().abs().max())
+    if dtype == torch.float32:
+        return INTERP_F32_TOL * top
+    return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def interpolation_forms(torch, tallies) -> None:
+    """Phase 32 (a): dense, cached and fast at SSG's four FP shapes (B 32,
+    bench_hotops_torch.FP_LEVELS), in float32 and bfloat16 (the points; the
+    weights float32, as the model's), forward and the points' gradient of a
+    random cotangent, held against the same function on the CPU on the
+    first INTERP_CPU_ROWS batch rows (float32 1e-5 of the largest |value|,
+    bfloat16 2 ulps of it) and, in float32, against the gather form on the
+    card at the same bound; fast launches one d a forward and no h, dense
+    and cached neither, and that d is held against its plain version at
+    the fast forward's shape (gather_check); each form's
+    forward-and-backward ms beside the gather form's."""
+    from pointnet2_scannet_tpu_torch import ops
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops.interpolate import interpolation
+
+    levels = load_script("bench_hotops_torch").FP_LEVELS
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    rows = INTERP_CPU_ROWS
+
+    def fwd_bwd(form, feats, idx, w, g):
+        x = feats.clone().requires_grad_(True)
+        out = interpolation(form)(x, idx, w)
+        return out.detach(), torch.autograd.grad(out, x, g.to(out.dtype))[0]
+
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for level, n, m, c in levels:
+            _, idx = ops.three_nn(torch.rand((BATCH, n, 3), generator=gen, device="cuda"),
+                                  torch.rand((BATCH, m, 3), generator=gen, device="cuda"))
+            w = torch.rand((BATCH, n, 3), generator=gen, device="cuda") + 0.1
+            w = w / w.sum(-1, keepdim=True)
+            feats = torch.randn((BATCH, m, c), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((BATCH, n, c), generator=gen, device="cuda")
+            card_args = (feats, idx, w, g)
+            cpu_args = tuple(a[:rows].cpu() for a in card_args)
+            gather = fwd_bwd("gather", *card_args)
+            line = []
+            for form in ("dense", "cached", "fast"):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                card = fwd_bwd(form, *card_args)
+                torch.cuda.synchronize()
+                launches = kernels.launch_counts()
+                want_d = int(form == "fast")
+                if launches["gather"] != want_d or launches["scatter_add"] != 0:
+                    raise RuntimeError(f"interpolation {form} {dname} {level}: launches {launches}, "
+                                       f"not {want_d} gather and no scatter_add")
+                cpu = fwd_bwd(form, *cpu_args)
+                pairs = {"vs CPU out": (card[0][:rows].cpu(), cpu[0]), "vs CPU grad": (card[1][:rows].cpu(), cpu[1])}
+                if dtype == torch.float32:
+                    pairs.update({"vs gather out": (card[0], gather[0]), "vs gather grad": (card[1], gather[1])})
+                errs = {}
+                for what, (a, e) in pairs.items():
+                    errs[what] = float((a.double() - e.double()).abs().max())
+                    if not errs[what] <= interp_bound(torch, e, dtype):
+                        raise RuntimeError(f"interpolation {form} {dname} {level} {what}: {errs[what]} > "
+                                           f"{interp_bound(torch, e, dtype)}")
+                ms = cuda_ms(lambda form=form: fwd_bwd(form, *card_args), torch)
+                line.append(f"{form} {ms:.4f} ms (" + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                            + f"; launches d {launches['gather']}, h {launches['scatter_add']})")
+            gather_check(torch, tallies["gather"], f"fast {dname}", f"gather fast {dname} {level} (B {BATCH}, "
+                         f"J {3 * n}, N {m}, C {c})", feats, idx.reshape(BATCH, 3 * n))
+            gather_ms = cuda_ms(lambda: fwd_bwd("gather", *card_args), torch)
+            print(f"interpolation {dname} {level} (B {BATCH}, n {n} <- m {m}, C {c}) forward and backward: "
+                  + "; ".join(line) + f"; gather {gather_ms:.4f} ms; {bench_torch.card_line()}", flush=True)
+            del gather, card, card_args
+
+
+def check_sorted_scatter(torch, tally, dtype=None) -> None:
+    """Phase 32 (b): h's card-wide sort route (scatter_add_sorted_cuda) at
+    SSG's SA2-SA4 grouping backwards (B 32: J = 32 x M, the [xyz | features]
+    payload, or bfloat16's packed [xyz_hi | xyz_lo | features] one; indices
+    from the ball query of level_clouds' points), bit for bit against its
+    plain version on CPU copies, a second launch and the block route;
+    timed beside the block route (counterpart), the plain version on the
+    card and scatter_add_."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import ball_query_kernel as bq
+    from pointnet2_scannet_tpu_torch.ops.cuda import build
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
+
+    xyz, _, _ = level_clouds(torch)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    path = "ssg sort" + (" bf16" if dtype is not None else "")
+    for level, (n, m, r, feat) in enumerate(LEVELS[1:], start=2):
+        idx = bq.ball_query_cuda(r, NSAMPLE, xyz[level - 1], xyz[level]).reshape(BATCH, m * NSAMPLE)
+        c = feat + (BF16_XYZ if dtype is not None else 3)
+        j = idx.shape[1]
+        g = torch.randn((BATCH, j, c), generator=gen, device="cuda")
+        g *= 10.0 ** (torch.rand((BATCH, j, 1), generator=gen, device="cuda") * 6 - 3)
+        g32 = g if dtype is None else g.to(dtype).float()
+        g = g if dtype is None else g.to(dtype)
+        before = dict(sc.route_launches)
+        got, again, block = sc.scatter_add_sorted_cuda(idx, g, n), sc.scatter_add_sorted_cuda(idx, g, n), \
+            sc.scatter_add_cuda(idx, g, n)
+        if sc.route_launches != {"block": before["block"] + 1, "sort": before["sort"] + 2}:
+            raise RuntimeError(f"h's routes counted {sc.route_launches} after {before}: not 2 sort and 1 block")
+        want = sc.scatter_add_plain(idx.cpu(), g.cpu(), n)
+        err = float((got.cpu().double() - want.double()).abs().max())
+        equal = torch.equal(got.cpu(), want) and torch.equal(again, got) and torch.equal(block, got)
+        index = idx.long().unsqueeze(-1).expand(BATCH, j, c)
+        ms = cuda_ms(lambda: sc.scatter_add_sorted_cuda(idx, g, n), torch)
+        block_ms = cuda_ms(lambda: sc.scatter_add_cuda(idx, g, n), torch)
+        plain_ms = cuda_ms(lambda: sc.scatter_add_plain(idx, g, n), torch)
+        library_ms = cuda_ms(lambda: torch.zeros((BATCH, n, c), device="cuda").scatter_add_(1, index, g32), torch)
+        nbytes, nops = 4 * BATCH * j + g.element_size() * (BATCH * j * c + BATCH * n * c), BATCH * j * c
+        tally.add(path, ms, plain_ms, err, nbytes, nops, library_ms, counterpart_ms=block_ms)
+        bound, by = bound_ms(nbytes, nops)
+        plan = ss.sort_plan(BATCH, n, j, c, build.sm_count(g))
+        print(f"kernel scatter_add sort route SA{level} (B={BATCH}, J={j}, N={n}, C={c}, {g.dtype}): {ms:.4f} ms "
+              f"(block route {block_ms:.4f} ms: {ms / block_ms:.2f}x), plan {tuple(plan)}, plain on the card "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound:.4f} ms ({by}), max_abs_err vs CPU "
+              f"plain {err}, {'equal' if equal else 'DIFFERENT'} to it, a second launch and the block route",
+              flush=True)
+        if not equal:
+            raise RuntimeError(f"h's sort route at SA{level}: differs (max_abs_err {err})")
+
+
+def step_out(torch, state, res) -> dict:
+    """What phase 32 compares of a train step: the loss, every gradient,
+    BatchNorm statistics and parameters after the update."""
+    m = state.model
+    return {"loss": res["loss"].detach().clone(), **{f"grad.{k}": p.grad.clone() for k, p in m.named_parameters()},
+            **{f"state.{k}": v.detach().clone() for k, v in m.state_dict().items()}}
+
+
+def segsum_steps(torch) -> dict:
+    """Phase 32 (b): one SSG train step at 32 x 8192 (Dropout 0.5, one
+    seed) with group_segsum on against the default step, float32 and
+    bfloat16: loss, gradients, BatchNorm statistics and the updated
+    parameters bit for bit; the segsum step launches h's sort route once
+    for each grouping backward (SA2-SA4: 3) and its block route for the FP
+    gathers (4), the default step 7 block launches; a CUDA graph of 2 steps
+    with the switch on bit-equal to 2 eager steps; the step's ms beside the
+    default's. Returns the launches of the steps."""
+    from pointnet2_scannet_tpu_torch.data.pipeline import HostGroup
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_kernel as sc
+    from pointnet2_scannet_tpu_torch.parallel.step import make_fused_train_step
+
+    batch = train_batch(torch, BATCH, "cuda")
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+    for dname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        outs, routes, states = {}, {}, {}
+        for setting in (False, True):
+            with switches(group_segsum=setting):
+                states[setting] = bench_torch.fresh_state("ssg", "cuda", 0.5, dtype=dtype)
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                outs[setting] = step_out(torch, states[setting], ts.train_step(states[setting], batch, num_classes=20))
+                torch.cuda.synchronize()
+                routes[setting] = dict(sc.route_launches)
+                for k, n in kernels.launch_counts().items():
+                    launches[k] += n
+        differ = [k for k, v in outs[False].items() if not torch.equal(outs[True][k], v)]
+        print(f"group_segsum SSG step {dname} (B {BATCH} x {NPOINTS}): h routes default {routes[False]}, segsum "
+              f"{routes[True]}; {len(outs[False])} tensors (loss, gradients, parameters, BatchNorm statistics), "
+              f"{len(differ)} differ", flush=True)
+        if differ:
+            raise RuntimeError(f"group_segsum step {dname}: differs from the default step in {differ[:6]}")
+        if routes != {False: {"block": 7, "sort": 0}, True: {"block": 4, "sort": 3}}:
+            raise RuntimeError(f"group_segsum step {dname}: h's routes {routes}")
+        times = {s: [] for s in (False, True)}
+        for setting in (False, True, True, False):
+            with switches(group_segsum=setting):
+                times[setting].append(cuda_ms(lambda: ts.train_step(states[setting], batch, num_classes=20), torch))
+        print(f"group_segsum SSG step {dname} ms: default " + " / ".join(f"{t:.3f}" for t in times[False])
+              + "; segsum " + " / ".join(f"{t:.3f}" for t in times[True]) + f"; {bench_torch.card_line()}",
+              flush=True)
+
+    with switches(group_segsum=True):  # a graph of 2 steps against 2 eager ones
+        eager, graph = (bench_torch.fresh_state("ssg", "cuda", 0.5) for _ in range(2))
+        batches = fused_batches(2, BATCH, 32)
+        want = [ts.train_step(eager, {k: torch.from_numpy(v).cuda() for k, v in b.items()}, num_classes=20)
+                for b in batches]
+        fused = make_fused_train_step(graph.model, None, num_classes=20, log=print)
+        kernels.reset_launch_counts()
+        got = fused(graph, HostGroup(batches, pin=True))
+        torch.cuda.synchronize()
+        capture_routes = dict(sc.route_launches)
+        for k, n in kernels.launch_counts().items():
+            launches[k] += n
+    differ = state_differs(torch, whole_state(graph), whole_state(eager))
+    same = torch.equal(got["loss"], torch.stack([w["loss"] for w in want])) and torch.equal(
+        got["confusion"], torch.stack([w["confusion"] for w in want]))
+    print(f"group_segsum graph of 2 steps (mode {fused.mode}): h routes of warm-up and capture {capture_routes}; "
+          f"losses {got['loss'].tolist()} vs eager {[float(w['loss']) for w in want]}; {len(differ)} tensors "
+          f"differ", flush=True)
+    if fused.mode != "graph" or not same or differ:
+        raise RuntimeError(f"group_segsum graph of 2 steps differs from 2 eager steps ({differ[:6]})")
+    if capture_routes["sort"] != 3 * 2 * 2 or capture_routes["block"] != 4 * 2 * 2:  # warm-up and capture
+        raise RuntimeError(f"group_segsum graph: h's routes {capture_routes}")
+    return launches
+
+
+def serve_switches(torch) -> dict:
+    """Phase 32 (c), (d): SSG serve batches (32 x 8192, eval) under the
+    switches against the default's: fps_pallas and ball_query_pallas False
+    give bit-equal logits with the same a and b launches and "xla" routes;
+    interpolate_dense within 1e-4; pregather_dense True pregathers every
+    SA level with features, within 1e-4; at mv131, pregather_dense False
+    turns SA1's pregather off, within 1e-4. Returns the launches."""
+    import collections
+
+    from pointnet2_scannet_tpu_torch.ops import cuda as kernels
+    from pointnet2_scannet_tpu_torch.ops import tuning
+
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def forward(state, batch, **fields):
+        model = state.model.eval()
+        with switches(**fields), torch.inference_mode():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            tuning.reset_route_counts()
+            out = model(batch["points"])
+            torch.cuda.synchronize()
+        run = kernels.launch_counts()
+        for k, n in run.items():
+            launches[k] += n
+        return out, run, dict(tuning.route_counts)
+
+    def pregathers(routes):
+        return {k[1]: n for k, n in routes.items() if k[0] == "pregather"}
+
+    for channels in (6, MV131):
+        batch = train_batch(torch, BATCH, "cuda", input_channels=channels)
+        state = bench_torch.fresh_state("ssg", "cuda", 0.5, input_channels=channels)
+        base, base_run, base_routes = forward(state, batch)
+        cases = ({"fps_pallas": False, "ball_query_pallas": False}, {"interpolate_dense": True},
+                 {"pregather_dense": True}) if channels == 6 else ({"pregather_dense": False},)
+        for fields in cases:
+            out, run, routes = forward(state, batch, **fields)
+            err = float((out - base).abs().max())
+            what = f"SSG serve batch ({channels} input channels) under {fields}"
+            print(f"{what}: logits max abs err {err:.3e} vs default; launches {run} (default {base_run}); "
+                  f"routes {routes}", flush=True)
+            if "fps_pallas" in fields:
+                auto = collections.Counter(
+                    [("fps", tuning.fps_route(n)) for n, _, _, _ in LEVELS]
+                    + [("ball_query", tuning.ball_query_route(n, m)) for n, m, _, _ in LEVELS])
+                ok = (torch.equal(out, base) and run == base_run and routes[("fps", "xla")] == 4
+                      and routes[("ball_query", "xla")] == 4
+                      and {k: n for k, n in base_routes.items() if k[0] in ("fps", "ball_query")} == auto)
+            elif "interpolate_dense" in fields:
+                ok = (err <= LOGIT_ATOL and routes[("interpolate", "dense")] == 4
+                      and run["gather"] == base_run["gather"] - 4)
+            elif fields["pregather_dense"]:
+                ok = err <= LOGIT_ATOL and pregathers(routes) == {1024: 1, 256: 1, 64: 1, 16: 1} \
+                    and not pregathers(base_routes)
+            else:
+                ok = err <= LOGIT_ATOL and not pregathers(routes) and pregathers(base_routes) == {1024: 1}
+            if not ok:
+                raise RuntimeError(f"{what}: the gates of phase 32 (c) / (d) failed")
+    return launches
+
+
+def dense_step_times(torch) -> None:
+    """Phase 32 (c): the SSG train step at 32 x 8192 (float32, bfloat16)
+    under interpolate_dense beside the default's, CUDA events, in turns
+    default, dense, dense, default."""
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+
+    batch = train_batch(torch, BATCH, "cuda")
+    for dname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        state = bench_torch.fresh_state("ssg", "cuda", 0.5, dtype=dtype)
+        times = {False: [], True: []}
+        for setting in (False, True, True, False):
+            with switches(interpolate_dense=setting):
+                times[setting].append(cuda_ms(lambda: ts.train_step(state, batch, num_classes=20), torch))
+        print(f"interpolate_dense SSG step {dname} (B {BATCH} x {NPOINTS}) ms: default "
+              + " / ".join(f"{t:.3f}" for t in times[False]) + "; dense "
+              + " / ".join(f"{t:.3f}" for t in times[True]) + f"; {bench_torch.card_line()}", flush=True)
+
+
+def op_switches(torch, tallies) -> dict:
+    """Phase 32: the op-lowering switches on the card (the module
+    docstring); returns the launches of its model runs."""
+    t0 = time.perf_counter()
+    interpolation_forms(torch, tallies)
+    print(f"phase 32 (a) done after {time.perf_counter() - t0:.1f} s", flush=True)
+    for dtype in (None, torch.bfloat16):
+        check_sorted_scatter(torch, tallies["scatter_add"], dtype)
+    launches = segsum_steps(torch)
+    print(f"phase 32 (b) done after {time.perf_counter() - t0:.1f} s", flush=True)
+    for k, n in serve_switches(torch).items():
+        launches[k] += n
+    with switches(interpolate_dense=True):
+        train_step_card_vs_cpu(torch, "ssg", "dense")
+    dense_step_times(torch)
+    print(f"phase 32 (c), (d) done after {time.perf_counter() - t0:.1f} s", flush=True)
+    load_script("bench_fp_torch").main(["--dtype", "f32"])
+    load_script("bench_pregather_torch").main(["--quick"])
+    print(f"phase 32 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches}
+
+
 def lap(t0: float, what: str) -> None:
     """A line of the script's wall time so far, where a group of phases ends."""
     print(f"time: {what} done after {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4417,6 +4753,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:  # phase 31
         tally(tensor_parallel(torch, pathlib.Path(tmp)))
     lap(start, "phase 31")
+    tally(op_switches(torch, tallies))  # phase 32
+    lap(start, "phase 32")
 
     print(f"bfloat16 launches on the main path (phases 23 and 24's runs): {bf16_launches}", flush=True)
     rows = [t.row(launches[name]) for name, t in tallies.items()]

@@ -100,6 +100,7 @@ from pointnet2_scannet_tpu_torch.parallel.step import (
     make_sharded_eval_step,
     make_sharded_train_step,
 )
+from pointnet2_scannet_tpu_torch.utils import profiling
 from pointnet2_scannet_tpu_torch.utils.eta import decode_eta
 
 ITER_REPORT = (
@@ -132,13 +133,6 @@ def _device_store_budget(device: torch.device) -> int:
     return 8 * 2**30
 
 
-def _trace(trace_dir: str | pathlib.Path, device: torch.device):
-    """torch.profiler over host activity and, on a GPU, the card's; the
-    trace file goes into trace_dir when the context closes."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(trace_dir)))
 
 
 class _NullLogger:
@@ -339,7 +333,7 @@ class Solver:
             if (self.trace_dir is not None and epoch == min(start_epoch + 1, epochs - 1)
                     and self.ctx.is_coordinator):
                 print(f"capturing profiler trace -> {self.trace_dir}", flush=True)
-                with _trace(self.trace_dir, self.device):
+                with profiling.trace(self.trace_dir, cuda=self.device.type == "cuda"):
                     train_stats = self._run_train_epoch(epoch, epochs, verbose, t_start)
                 self.trace_dir = None
             else:

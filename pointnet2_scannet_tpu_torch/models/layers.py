@@ -220,7 +220,11 @@ class PointwiseMLP(nn.Module):
         dt = self.dtype if self.dtype is not None else features.dtype
         w_f = dense.weight if xyz is None else dense.weight[:, 3:]
         features = self._tp_input(0, features)
-        x = ops.group_points(features.to(dt) @ w_f.t().to(dt), idx)  # (B, M, K, widths[0] / tp)
+        # group_with_idx without xyz: group_points, or under group_segsum
+        # group_points_segsum (the JAX module gathers here with group_points
+        # whatever the switch, layers.py:245)
+        x = ops.group_with_idx(idx, None, None, features.to(dt) @ w_f.t().to(dt),
+                               use_xyz=False)  # (B, M, K, widths[0] / tp)
         if xyz is not None:
             # the centred 3-channel gather, then the xyz columns of the weight
             gxyz = self._tp_input(0, ops.group_with_idx(idx, xyz, new_xyz, None))

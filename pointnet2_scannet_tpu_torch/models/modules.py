@@ -36,6 +36,7 @@ from torch import nn
 from pointnet2_scannet_tpu_torch import ops
 from pointnet2_scannet_tpu_torch.models.layers import PointwiseMLP
 from pointnet2_scannet_tpu_torch.ops import tuning
+from pointnet2_scannet_tpu_torch.ops.interpolate import interpolation
 
 
 class SetAbstraction(nn.Module):
@@ -117,14 +118,17 @@ class SetAbstraction(nn.Module):
         return new_xyz, outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
     def _pregather(self, features: torch.Tensor | None, widths: Sequence[int]) -> bool:
-        """The JAX package's gate (modules.py:111-136): layer 0 before the
-        gather for wide inputs, c_in >= 2 * widths[0], in float32, and in
-        bfloat16 in eval mode only (in training the packed grouping already
-        halves the gather and the pregather's extra scatter loses); never
-        without features or in float64, where the parity tests pin the
-        unfused composition."""
+        """The JAX package's gate (modules.py:111-136): never without
+        features; else ops_config.pregather_dense where it is True or False,
+        whatever the width or dtype; else (None) layer 0 before the gather
+        for wide inputs, c_in >= 2 * widths[0], in float32, and in bfloat16
+        in eval mode only (in training the packed grouping already halves
+        the gather and the pregather's extra scatter loses); never in
+        float64, where the parity tests pin the unfused composition."""
         if features is None:
             return False
+        if tuning.ops_config.pregather_dense is not None:
+            return tuning.ops_config.pregather_dense
         c_in = features.shape[-1] + 3 * self.use_xyz
         if c_in < 2 * widths[0]:
             return False
@@ -184,15 +188,21 @@ class FeaturePropagation(nn.Module):
         bn_momentum=None,
     ) -> torch.Tensor:
         """(B, n, 3), (B, m, 3), (B, n, C1), (B, m, C2) -> (B, n, mlp[-1]);
-        row_mask and bn_momentum as in SetAbstraction.forward. bfloat16 known_feats
-        interpolate in float32 (the weights promote them) and the
-        concatenation with bfloat16 skip features promotes to float32, as
-        jnp does (modules.py:234-236); the MLP casts to its dtype."""
+        row_mask and bn_momentum as in SetAbstraction.forward. The
+        interpolation is the form ops/tuning.interpolate_route picks from
+        the switches, in the JAX package's order (modules.py:207-223).
+        bfloat16 known_feats interpolate in float32 in the gather and fast
+        forms (the weights promote them), in bfloat16 in the dense ones (W
+        takes their dtype), and the concatenation with bfloat16 skip
+        features promotes to the wider dtype, as jnp does
+        (modules.py:234-236); the MLP casts to its dtype."""
         if known is not None:
             dist2, idx = ops.three_nn(unknown, known)
             recip = 1.0 / (torch.sqrt(dist2) + 1e-8)
             norm = (recip[..., 0:1] + recip[..., 1:2]) + recip[..., 2:3]
-            interpolated = ops.three_interpolate(known_feats, idx, recip / norm)
+            route = tuning.interpolate_route()
+            tuning.route_counts["interpolate", route] += 1
+            interpolated = interpolation(route)(known_feats, idx, recip / norm)
         else:  # a global feature broadcast onto every point
             interpolated = known_feats.expand(-1, unknown.shape[1], -1)
         if unknown_feats is not None:

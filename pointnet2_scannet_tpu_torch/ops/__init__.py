@@ -8,7 +8,13 @@ torch.library ops of ops/library.py, which this package registers.
 
 from pointnet2_scannet_tpu_torch.ops.common import pairwise_sqdist
 from pointnet2_scannet_tpu_torch.ops.fused_sa import fused_gather_mm
-from pointnet2_scannet_tpu_torch.ops.interpolate import three_interpolate, three_nn
+from pointnet2_scannet_tpu_torch.ops.interpolate import (
+    three_interpolate,
+    three_interpolate_cached,
+    three_interpolate_dense,
+    three_interpolate_fast,
+    three_nn,
+)
 from pointnet2_scannet_tpu_torch.ops.neighborhood import (
     ball_query,
     ball_query_multi,
@@ -36,5 +42,8 @@ __all__ = [
     "uniform_resample_neighbors",
     "three_nn",
     "three_interpolate",
+    "three_interpolate_dense",
+    "three_interpolate_cached",
+    "three_interpolate_fast",
     "fused_gather_mm",
 ]

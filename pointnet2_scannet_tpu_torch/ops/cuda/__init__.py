@@ -17,6 +17,8 @@ parallel/step.py): each launches on PyTorch's current stream
 its launch shape from the shapes alone (plan()), and neither synchronises
 nor copies from host memory. A counter counts where Python calls the
 wrapper: a capture counts the launches it records, a replay none.
+fps_kernel.variant_launches and scatter_kernel.route_launches split a's
+and h's launches by variant and route.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ def reset_launch_counts() -> None:
         k.bf16_launches = 0
     for variant in fps_kernel.variant_launches:
         fps_kernel.variant_launches[variant] = 0
+    for route in scatter_kernel.route_launches:
+        scatter_kernel.route_launches[route] = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -92,10 +92,12 @@ def candidate_plans(b: int, n: int, m: int, sms: int, radii: int = 1) -> list:
 
 
 def ball_query_plain(
-    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor, dist_mode: str = "exact"
 ) -> torch.Tensor:
-    """(B, N, 3) x (B, M, 3) -> (B, M, nsample) int32; see first_hits."""
-    return first_hits(pairwise_sqdist(new_xyz, xyz), radius, nsample)
+    """(B, N, 3) x (B, M, 3) -> (B, M, nsample) int32; see first_hits. The
+    distances in dist_mode's form (ops/common.pairwise_sqdist; the kernel
+    computes the exact one)."""
+    return first_hits(pairwise_sqdist(new_xyz, xyz, mode=dist_mode), radius, nsample)
 
 
 def first_hits(d2: torch.Tensor, radius: float, nsample: int) -> torch.Tensor:

@@ -39,6 +39,7 @@ BLOCK_BYTES = 226 * 1024  # a block-route block's dynamic shared memory (one a m
 
 launches = 0
 bf16_launches = 0  # of those, the launches on bfloat16 cotangents
+route_launches = {"block": 0, "sort": 0}  # of those, the launches by route
 
 
 class BlockPlan(NamedTuple):
@@ -151,21 +152,41 @@ def launch(idx: torch.Tensor, g: torch.Tensor, n: int, p) -> torch.Tensor:
             scratch.data_ptr(), out.data_ptr(), device, stream)
     build.check(err, NAME)
     launches += 1
+    route_launches["block" if isinstance(p, BlockPlan) else "sort"] += 1
     if g.dtype == torch.bfloat16:
         bf16_launches += 1
     return out
 
 
-def scatter_add_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, J) int32 x (B, J, C) float32/bfloat16 on the card -> (B, n, C)
-    of g's dtype; launches scatter_add.cu's route that plan() picks.
-    Indices must lie in [0, n)."""
+def _check(idx: torch.Tensor, g: torch.Tensor, n: int, what: str) -> None:
     build.require(idx, "idx", (torch.int32,), 2)
     build.require(g, "g", (torch.float32, torch.bfloat16), 3)
     B, J, C = g.shape
     if tuple(idx.shape) != (B, J) or idx.device != g.device:
         raise ValueError("idx must be (B, J) on the device of g (B, J, C)")
     if not 0 < n <= MAX_N:
-        raise ValueError(f"scatter_add_cuda takes 0 < n <= {MAX_N}, got {n}")
+        raise ValueError(f"{what} takes 0 < n <= {MAX_N}, got {n}")
     build.check_batch(B, NAME)
+
+
+def scatter_add_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, J) int32 x (B, J, C) float32/bfloat16 on the card -> (B, n, C)
+    of g's dtype; launches scatter_add.cu's route that plan() picks.
+    Indices must lie in [0, n)."""
+    _check(idx, g, n, "scatter_add_cuda")
+    B, J, C = g.shape
     return launch(idx, g, n, plan(B, n, J, C, build.sm_count(g), g.element_size()))
+
+
+def scatter_add_sorted_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
+    """scatter_add_cuda on the card-wide sort route at every shape: each
+    index row sorted once over the card, each output row summed in
+    ascending j (the sort and segment sum of the grouping gathers'
+    group_segsum backward, ops/neighborhood.group_points_segsum). The same
+    contract and bits as scatter_add_cuda."""
+    _check(idx, g, n, "scatter_add_sorted_cuda")
+    # imported here: scatter_smem_kernel imports this module's plain version
+    from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel
+
+    B, J, C = g.shape
+    return launch(idx, g, n, scatter_smem_kernel.sort_plan(B, n, J, C, build.sm_count(g)))

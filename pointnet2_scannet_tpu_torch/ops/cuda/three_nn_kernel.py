@@ -63,14 +63,16 @@ def candidate_plans(b: int, n: int, m: int) -> list:
 
 
 def three_nn_plain(
-    unknown: torch.Tensor, known: torch.Tensor
+    unknown: torch.Tensor, known: torch.Tensor, dist_mode: str = "exact"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, n, 3) x (B, m, 3) -> (dist2 (B, n, 3) ascending, idx (B, n, 3) int32).
 
     Three rounds of min, first index attaining it, knock-out — the TPU
-    kernel's passes, so ties go to the lowest index.
+    kernel's passes, so ties go to the lowest index. The distances in
+    dist_mode's form (ops/common.pairwise_sqdist; the kernel computes the
+    exact one).
     """
-    d = pairwise_sqdist(unknown, known)  # (B, n, m)
+    d = pairwise_sqdist(unknown, known, mode=dist_mode)  # (B, n, m)
     m = d.shape[-1]
     iota = torch.arange(m, dtype=torch.int32, device=d.device)
     sentinel = torch.tensor(m, dtype=torch.int32, device=d.device)

@@ -25,8 +25,10 @@ from pointnet2_scannet_tpu_torch.ops.mxu_gather import mxu_gather
 def furthest_point_sample(
     xyz: torch.Tensor, npoint: int, *, skip_near_origin: bool = True
 ) -> torch.Tensor:
-    """(B, N, 3) -> (B, npoint) int32 indices into N (pn2::furthest_point_sample)."""
-    on_cuda(xyz)  # raises for a device with neither a kernel nor a plain version
+    """(B, N, 3) -> (B, npoint) int32 indices into N (pn2::furthest_point_sample),
+    on either of ops/tuning.fps_route's routes (both fps.cu on the card)."""
+    route = tuning.fps_route(xyz.shape[1], auto=on_cuda(xyz))  # on_cuda raises for other devices
+    tuning.route_counts["fps", route] += 1
     return torch.ops.pn2.furthest_point_sample.default(xyz, npoint, skip_near_origin)
 
 

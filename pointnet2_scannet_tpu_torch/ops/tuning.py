@@ -2,16 +2,18 @@
 
 The JAX package's ops/tuning.py holds one switch per alternative lowering of
 a hot op; its ops read them and add shape conditions of their own. The port
-keeps the four switches whose readers it has ported, with the JAX names and
-defaults, and copies of those readers' conditions:
+keeps all eleven, with the JAX names and defaults, and copies of their
+readers' conditions:
 
     from pointnet2_scannet_tpu_torch.ops import tuning
     tuning.ops_config.vmem_gather = False
     tuning.ops_config.mxu_gather = True    # the MXU-gather configuration
 
 None means auto: on for a CUDA tensor, the counterpart of the JAX package's
-`_on_tpu()`. A route names the JAX lowering a call takes; the port runs it
-as follows (on the CPU every route runs the kernels' plain versions):
+`_on_tpu()`, except for the interpolation switches, whose None is the
+gather form on the card as on the CPU (interpolate_route). A route names
+the JAX lowering a call takes; the port runs it as follows (on the CPU
+every route runs the kernels' plain versions):
 
 - gather_route: "vmem" and "xla" run gather.cu forward and scatter_add.cu
   backward (the port's row gather, since the first slice); "mxu" runs
@@ -19,6 +21,14 @@ as follows (on the CPU every route runs the kernels' plain versions):
 - three_nn_route: "t" runs three_nn_kernel, "q" three_nn_q_kernel (the same
   three_nn.cu under its own launch counter), and "xla" (XLA's top-k in the
   JAX package) three_nn_kernel.
+- fps_route and ball_query_route: "pallas" and "xla" both run fps.cu and
+  ball_query.cu: on the card every route of a point op runs a kernel, so
+  fps_pallas and ball_query_pallas change route_counts alone.
+- interpolate_route: "gather" (ops.three_interpolate: gather.cu, and
+  scatter_add.cu backward), "fast" (gather.cu forward, a dense product
+  backward), "cached" and "dense" (dense products; ops/interpolate.py).
+- group_segsum: the grouping gathers' backward on scatter_add.cu's
+  card-wide sort route (ops/neighborhood.group_points_segsum).
 
 route_counts tallies the routes taken (no launch involved), so a test can
 show on the CPU which kernels a run would have launched on the card; its
@@ -39,6 +49,19 @@ _MIB = 1024 * 1024
 
 @dataclasses.dataclass
 class OpsConfig:
+    # FeaturePropagation's interpolation (JAX ops/tuning.py:25-34, read in
+    # the JAX order by interpolate_route): the gather forward with a dense
+    # backward; a dense product (None: the gather form here, see
+    # interpolate_route); the dense product saving its operator
+    interpolate_fast: bool | None = False
+    interpolate_dense: bool | None = None
+    interpolate_cached: bool = False
+    # the grouping gathers' backward as a sort and segment sum (JAX :36)
+    group_segsum: bool = False
+    # FPS and the single-radius ball query (JAX :39-40): True/False forces,
+    # None = auto; routes only (fps_route, ball_query_route)
+    fps_pallas: bool | None = None
+    ball_query_pallas: bool | None = None
     # the three-NN Pallas kernels (JAX ops/tuning.py:41): True/False forces,
     # None = auto
     three_nn_pallas: bool | None = None
@@ -51,6 +74,9 @@ class OpsConfig:
     # payload (JAX ops/tuning.py:55; ops/neighborhood.group_with_idx); off,
     # the [xyz | features] concatenation promotes the payload to float32
     packed_bf16_group: bool = True
+    # set-abstraction layer 0 before the gather (JAX :62): True/False
+    # forces, None = the width and dtype gate (models/modules.py)
+    pregather_dense: bool | None = None
 
 
 ops_config = OpsConfig()
@@ -151,3 +177,45 @@ def three_nn_route(n: int, m: int, *, auto: bool = True) -> str:
     if use and m % 128 == 0 and n % min(n, 256) == 0:
         return "q"
     return "xla"
+
+
+# --- pointnet2_scannet_tpu/ops/pallas/ball_query_kernel.py:65-74
+def _auto_tile_m(m: int, n: int) -> int:
+    tile_m = min(m, 128)
+    while tile_m % 2 == 0 and tile_m * n > 128 * 8192:
+        tile_m //= 2
+    return tile_m
+
+
+def fps_route(n: int, *, auto: bool = True) -> str:
+    """"pallas" or "xla": the lowering the JAX package's
+    furthest_point_sample (ops/sampling.py:55-64) takes for n points: the
+    Pallas kernel where the switch (or auto) is on and n % 128 == 0."""
+    use = ops_config.fps_pallas if ops_config.fps_pallas is not None else auto
+    return "pallas" if use and n % 128 == 0 else "xla"
+
+
+def ball_query_route(n: int, m: int, *, auto: bool = True) -> str:
+    """"pallas" or "xla": the lowering the JAX package's ball_query
+    (ops/neighborhood.py:56-73) takes for n points and m queries: the
+    Pallas kernel where n % 128 == 0, m <= 128 or m % 128 == 0, and the
+    kernel's query tile keeps tile * n within 128 * 8192."""
+    use = ops_config.ball_query_pallas if ops_config.ball_query_pallas is not None else auto
+    if use and n % 128 == 0 and (m <= 128 or m % 128 == 0) and _auto_tile_m(m, n) * n <= 128 * 8192:
+        return "pallas"
+    return "xla"
+
+
+def interpolate_route() -> str:
+    """"fast", "cached", "dense" or "gather": the interpolation the JAX
+    package's FeaturePropagation (models/modules.py:207-223) takes, tested
+    in its order. A None switch is off here on the card as on the CPU: the
+    JAX auto (dense on the TPU) is a TPU measurement, and the card keeps
+    the gather form until a measurement of its own says otherwise."""
+    if ops_config.interpolate_fast:
+        return "fast"
+    if ops_config.interpolate_cached:
+        return "cached"
+    if ops_config.interpolate_dense:
+        return "dense"
+    return "gather"

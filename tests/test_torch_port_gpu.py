@@ -1620,3 +1620,79 @@ def test_virtual_scan_on_the_card_equals_the_cpu(dev, mode):
     got = virtual_scan(xyz, mode, np.random.default_rng(mode + 7), device=dev)
     want = virtual_scan(xyz, mode, np.random.default_rng(mode + 7), device="cpu")
     _equal(got.cpu(), want)
+
+
+# SSG's SA2-SA4 grouping backwards at batch 2: (J, N, C) of the float32
+# [xyz | features] payload and of bfloat16's packed one (xyz_hi, xyz_lo)
+SORTED_SCATTER_SHAPES = [(8192, 1024, 67, torch.float32), (2048, 256, 131, torch.float32),
+                         (512, 64, 259, torch.float32), (8192, 1024, 70, torch.bfloat16),
+                         (2048, 256, 134, torch.bfloat16), (512, 64, 262, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("j,n,c,dtype", SORTED_SCATTER_SHAPES)
+def test_scatter_add_sorted_kernel_equals_the_block_route(dev, j, n, c, dtype):
+    g = torch.Generator(device=dev).manual_seed(j + c)
+    idx = torch.randint(0, n, (2, j), generator=g, device=dev, dtype=torch.int32)
+    idx[:, ::5] = idx[:, :1]
+    grad = torch.randn((2, j, c), generator=g, device=dev).to(dtype)
+    before = dict(sc.route_launches)
+    got = sc.scatter_add_sorted_cuda(idx, grad, n)
+    assert sc.route_launches["sort"] == before["sort"] + 1
+    _equal(got, sc.scatter_add_cuda(idx, grad, n))
+    _equal(got.cpu(), sc.scatter_add_plain(idx.cpu(), grad.cpu(), n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["dense", "cached", "fast"])
+def test_interpolation_forms_on_the_card_match_the_cpu(dev, form, dtype):
+    from pointnet2_scannet_tpu_torch.ops import interpolate
+
+    fn = interpolate.interpolation(form)
+    _, idx = ops.three_nn(_cloud(40, (2, 1024, 3), dev), _cloud(41, (2, 256, 3), dev))
+    w = _cloud(42, (2, 1024, 3), dev, 0.1, 1.0)
+    w = w / w.sum(-1, keepdim=True)
+    feats = torch.randn((2, 256, 64), generator=torch.Generator(device=dev).manual_seed(43), device=dev).to(dtype)
+    gout = torch.randn((2, 1024, 64), generator=torch.Generator(device=dev).manual_seed(44), device=dev)
+
+    def run(device):
+        x = feats.to(device).clone().requires_grad_(True)
+        out = fn(x, idx.to(device), w.to(device))
+        return out.detach(), torch.autograd.grad(out, x, gout.to(device, out.dtype))[0]
+
+    kernels.reset_launch_counts()
+    card = run(dev)
+    counts = kernels.launch_counts()
+    assert counts["gather"] == (form == "fast") and counts["scatter_add"] == 0
+    for a, e in zip(card, run("cpu")):
+        top = float(e.double().abs().max())
+        tol = 1e-5 * top if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 6)
+        assert a.dtype == e.dtype and float((a.cpu().double() - e.double()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_group_segsum_train_step_on_the_card_equals_the_default(dev, dtype):
+    from pointnet2_scannet_tpu_torch.engine import train_state as ts
+    from pointnet2_scannet_tpu_torch.models import PointNet2SemSeg, PointNet2Spec
+    from pointnet2_scannet_tpu_torch.ops import tuning
+
+    pc = torch.cat([_cloud(1, (2, 256, 3), dev), _cloud(2, (2, 256, 3), dev, -1, 1)], -1)
+    batch = {"points": pc, "labels": torch.randint(0, 5, (2, 256), device=dev, dtype=torch.int32,
+                                                    generator=torch.Generator(device=dev).manual_seed(3)),
+             "weights": torch.ones((2, 256), device=dev)}
+    out = {}
+    for setting in (False, True):
+        saved = tuning.ops_config.group_segsum
+        tuning.ops_config.group_segsum = setting
+        try:
+            model = PointNet2SemSeg(PointNet2Spec(**dict(SMALL_SPECS["ssg"], dropout=0.0)), dtype=dtype,
+                                    generator=torch.Generator().manual_seed(0), device=dev)
+            state = ts.create_train_state(model, ts.make_lr_schedule(1e-3, 100, 0.7, 1), seed=0)
+            before = dict(sc.route_launches)
+            ts.train_step(state, batch, num_classes=5)
+            sort = sc.route_launches["sort"] - before["sort"]
+        finally:
+            tuning.ops_config.group_segsum = saved
+        assert sort == (1 if setting else 0)  # SA2's grouping backward
+        out[setting] = {k: p.grad.clone() for k, p in model.named_parameters()}
+    for k, v in out[False].items():
+        _equal(out[True][k], v)

@@ -130,7 +130,8 @@ def test_port_imports_without_jax():
         "for s in ('scripts/infer_torch.py', 'scripts/train_torch.py', 'scripts/eval_torch.py',\n"
         "          'scripts/multiview_torch.py', 'scripts/bench_enet_torch.py', 'scripts/export_reference_torch.py',\n"
         "          'scripts/visualize_torch.py', 'scripts/train_cls_torch.py', 'scripts/train_partseg_torch.py',\n"
-        "          'scripts/eval_shapes_torch.py', 'scripts/preprocess_torch.py', 'chip_smoke.py', 'bench_torch.py'):\n"
+        "          'scripts/eval_shapes_torch.py', 'scripts/preprocess_torch.py', 'scripts/bench_hotops_torch.py',\n"
+        "          'scripts/bench_fp_torch.py', 'scripts/bench_pregather_torch.py', 'chip_smoke.py', 'bench_torch.py'):\n"
         "    runpy.run_path(s, run_name='probe')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pointnet2_scannet_tpu')]\n"
         "assert not bad, bad\n"
@@ -139,7 +140,7 @@ def test_port_imports_without_jax():
         "        'pointnet2_scannet_tpu_torch.data.shapes', 'pointnet2_scannet_tpu_torch.engine.shape_runs',\n"
         "        'pointnet2_scannet_tpu_torch.models.pointnet2_cls', 'pointnet2_scannet_tpu_torch.models.pointnet2_partseg',\n"
         "        'pointnet2_scannet_tpu_torch.data.scannet_prep', 'pointnet2_scannet_tpu_torch.utils.normals',\n"
-        "        'pointnet2_scannet_tpu_torch.utils.scene_util'} <= set(mods)\n"
+        "        'pointnet2_scannet_tpu_torch.utils.scene_util', 'pointnet2_scannet_tpu_torch.utils.profiling'} <= set(mods)\n"
         "print('ok', len(mods))\n"
     )
     out = subprocess.run(
