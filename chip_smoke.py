@@ -91,9 +91,11 @@
     CUDA events.
 18. P3, the SSG model at 32768-point columns, batch 8 (the 32768-point
     chunk recipe), float32, full width: FPS against its plain version bit
-    for bit at (8, 32768) -> 1024 and (8, 20000) -> 1024 in float32 and
-    (2, 32768) -> 1024 in float64, with points near the origin and exact
-    ties (a cluster of blocks a row); the ball query (its tiled route) at
+    for bit at (8, 32768) -> 1024, (8, 20000) -> 1024 and -> 2048
+    (VoteNet's SA1) in float32, (2, 32768) -> 1024 in float64 and at the
+    cluster kernel's limits, (1, 131072) float32 and (1, 65536) float64 ->
+    128, with points at the origin and exact ties (a cluster of blocks a
+    row), each with its µs a step and plan; the ball query (its tiled route) at
     (8, 32768) -> 1024 and 3-NN at (8, 32768, 1024) on P3's columns, bit for
     bit against their plain versions and timed; train 3 steps through
     scripts/train_torch.py and serve through scripts/infer_torch.py, each
@@ -401,9 +403,11 @@ F32_OPS_PER_S = 67e12
 # the MXU-gather configuration (P1); P2's chunk sizes; bench_gather's shapes
 MXU_CONFIG = {"vmem_gather": False, "mxu_gather": True}
 P2_NPOINTS = (8000, 7936)
-# P3: the 32768-point chunk recipe; FPS's (batch, points, dtype) checks there
+# P3: the 32768-point chunk recipe; FPS's (batch, points, dtype, centroids)
+# checks there, VoteNet's SA1 and the cluster kernel's limits
 P3_BATCH, P3_NPOINTS, P3_CENTROIDS = 8, 32768, 1024
-P3_FPS = ((8, 32768, "float32"), (8, 20000, "float32"), (2, 32768, "float64"))
+P3_FPS = ((8, 32768, "float32", 1024), (8, 20000, "float32", 1024), (8, 20000, "float32", 2048),
+          (2, 32768, "float64", 1024), (1, 131072, "float32", 128), (1, 65536, "float64", 128))
 BENCH_N, BENCH_J, BENCH_C = 8192, 32768, (9, 32, 64)
 SKEW_N = 65535  # the scatter-add's outputs a row at its limit, in phase 4
 FUSED_C, FUSED_F = 9, 32  # bench_fused_sa's layer 0
@@ -618,9 +622,11 @@ class Tally:
         return row
 
 
-def check(torch, tally, path, label, kernel_fn, plain_fn, nbytes, nops, library_fn=None, **extra):
+def check(torch, tally, path, label, kernel_fn, plain_fn, nbytes, nops, library_fn=None, steps=None,
+          **extra):
     """A kernel against its plain version on the card, bit for bit, then
-    both timed (and the library call, where there is one)."""
+    both timed (and the library call, where there is one); with steps, the
+    kernel's µs a step too."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -633,7 +639,8 @@ def check(torch, tally, path, label, kernel_fn, plain_fn, nbytes, nops, library_
     b, by = bound_ms(nbytes, nops)
     more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items())
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
-    print(f"kernel {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}{more}, bound {b:.4f} ms "
+    per_step = f" ({1e3 * ms / steps:.3f} us a step)" if steps else ""
+    print(f"kernel {label}: {ms:.4f} ms{per_step}, plain {plain_ms:.4f} ms{lib}{more}, bound {b:.4f} ms "
           f"({by}), max_abs_err {err}, {'equal' if equal else 'DIFFERENT'}", flush=True)
     if not equal:
         raise RuntimeError(f"{label}: kernel and plain version differ (max_abs_err {err})")
@@ -731,7 +738,7 @@ def check_kernels(torch, tallies, xyz, fps_idx, input_feats) -> list:
         check(torch, tallies[fps.NAME], "ssg", f"fps {n_in}->{n_out} plan {tuple(fps.plan(n_in, x.dtype))}",
               lambda: fps.furthest_point_sample_cuda(x, n_out),
               lambda: fps.furthest_point_sample_plain(x, n_out),
-              4 * BATCH * (3 * n_in + n_out), 10 * BATCH * (n_out - 1) * n_in)
+              4 * BATCH * (3 * n_in + n_out), 10 * BATCH * (n_out - 1) * n_in, steps=n_out - 1)
         gather_check(torch, tallies[ga.NAME], "ssg", f"gather centroids ({BATCH},{n_in},3)x{n_out}",
                      x, fps_idx[k])
         check_queries(torch, tallies, "ssg", x, q, radius)
@@ -1111,21 +1118,20 @@ def check_fused(torch, tallies) -> None:
 
 def check_p3_fps(torch, tally) -> None:
     """Phase 18: FPS against its plain version at P3_FPS's shapes, bit for
-    bit: synthetic columns of that many points, with one row's points near
-    the origin and another row's second half a copy of its first (exact
-    ties), in float32 and float64."""
+    bit: synthetic columns of that many points, with the first row's first
+    points at the origin and the last row's second half a copy of its first
+    (exact ties across the blocks of a cluster), in float32 and float64;
+    each line with µs a step and the plan."""
     from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
 
-    for b, n, dtype in P3_FPS:
+    for b, n, dtype, m in P3_FPS:
         xyz = torch.from_numpy(serving_columns(2, n)[:b, :, :3]).to("cuda", getattr(torch, dtype))
         xyz[0, :5] = 0.0
-        xyz[1, n // 2:] = xyz[1, : n - n // 2].clone()
-        p = fps.plan(n, xyz.dtype)
-        check(torch, tally, "p3", f"fps {dtype} ({b},{n})->{P3_CENTROIDS} ({p.variant} of {p.cluster})",
-              lambda: fps.furthest_point_sample_cuda(xyz, P3_CENTROIDS),
-              lambda: fps.furthest_point_sample_plain(xyz, P3_CENTROIDS),
-              xyz.element_size() * b * 3 * n + 4 * b * P3_CENTROIDS,
-              10 * b * (P3_CENTROIDS - 1) * n)
+        xyz[-1, n // 2:] = xyz[-1, : n - n // 2].clone()
+        check(torch, tally, "p3", f"fps {dtype} ({b},{n})->{m} plan {tuple(fps.plan(n, xyz.dtype))}",
+              lambda: fps.furthest_point_sample_cuda(xyz, m),
+              lambda: fps.furthest_point_sample_plain(xyz, m),
+              xyz.element_size() * b * 3 * n + 4 * b * m, 10 * b * (m - 1) * n, steps=m - 1)
 
 
 def check_p3_queries(torch, tallies) -> None:
@@ -3378,10 +3384,11 @@ def check_shape_kernels(torch, tallies) -> None:
         for npoint in (512, 128):
             n = xyz[-1].shape[1]
             x = xyz[-1]
-            check(torch, tallies[fps.NAME], kind, f"fps {kind} ({b},{n})->{npoint}",
+            check(torch, tallies[fps.NAME], kind,
+                  f"fps {kind} ({b},{n})->{npoint} plan {tuple(fps.plan(n, x.dtype))}",
                   lambda: fps.furthest_point_sample_cuda(x, npoint),
                   lambda: fps.furthest_point_sample_plain(x, npoint),
-                  4 * b * (3 * n + npoint), 10 * b * (npoint - 1) * n)
+                  4 * b * (3 * n + npoint), 10 * b * (npoint - 1) * n, steps=npoint - 1)
             idx = fps.furthest_point_sample_plain(x, npoint)
             gather_check(torch, tallies[ga.NAME], kind, f"gather {kind} centroids ({b},{n},3)x{npoint}", x, idx)
             xyz.append(ga.gather_plain(x, idx).contiguous())
@@ -3712,7 +3719,7 @@ def check_vote_kernels(torch, tallies) -> None:
         n = x.shape[1]
         check(torch, tallies[fps.NAME], "votes", f"fps votes ({b},{n})->{npoint} plan {tuple(fps.plan(n, x.dtype))}",
               lambda: fps.furthest_point_sample_cuda(x, npoint), lambda: fps.furthest_point_sample_plain(x, npoint),
-              4 * b * (3 * n + npoint), 10 * b * (npoint - 1) * n)
+              4 * b * (3 * n + npoint), 10 * b * (npoint - 1) * n, steps=npoint - 1)
         idx = fps.furthest_point_sample_plain(x, npoint)
         gather_check(torch, tallies[ga.NAME], "votes", f"gather votes centroids ({b},{n},3)x{npoint}", x, idx)
         return ga.gather_plain(x, idx).contiguous()
@@ -3811,6 +3818,9 @@ def check_unique_counts(torch, x, q, radius: float, k: int) -> None:
 # (SA2-SA4, the proposal, MSG SA2's two, the LFP's two)
 VOTE_LAUNCHES = {"furthest_point_sample": 7, "ball_query": 5, "ball_query_multi": 3, "gather": 23,
                  "scatter_add": 8}
+# SA1's and MSG1's FPS (20 000 points a row) take the cluster variant, the
+# five others one block
+VOTE_FPS_VARIANTS = {"block": 5, "cluster": 2}
 
 
 def vote_step(torch, mods, xyz, feats):
@@ -3839,10 +3849,13 @@ def votenet(torch, tallies) -> dict:
     launches = kernels.launch_counts()
     shapes = {k: tuple(v.shape) for k, v in out.items()}
     print(f"votes main path ({VOTE_BATCH} x {VOTE_POINTS}, train forward and backward): launches {launches}, "
-          f"outputs {shapes}", flush=True)
+          f"FPS variants {kernels.fps_kernel.variant_launches}, outputs {shapes}", flush=True)
     want = {k: VOTE_LAUNCHES.get(k, 0) for k in launches}
     if launches != want:
         raise RuntimeError(f"phase 30 launched {launches}, not {want}")
+    if kernels.fps_kernel.variant_launches != VOTE_FPS_VARIANTS:
+        raise RuntimeError(f"phase 30 launched FPS's variants {kernels.fps_kernel.variant_launches}, "
+                           f"not {VOTE_FPS_VARIANTS}")
     if not all(bool(v.isfinite().all()) for v in out.values()) or not all(
             p.grad is not None and bool(p.grad.isfinite().all()) for p in mods.parameters()):
         raise RuntimeError("phase 30: non-finite outputs or gradients")

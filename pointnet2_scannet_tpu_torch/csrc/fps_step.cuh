@@ -1,6 +1,7 @@
 // The pieces of one furthest-point-sampling step that fps.cu's kernels and
 // fps_probe.cu's timing probes share: the sentinels, the argmax order
-// (larger value, then lower index) and its warp reductions.
+// (larger value, then lower index), its warp reductions and the cluster
+// kernel's exchange of candidates between blocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -81,6 +82,10 @@ struct Best<float> {
     lo = __reduce_max_sync(0xffffffffu, hi == m ? lo : 0u);
     hi = m;
   }
+  // *this <- the better of *this and o
+  __device__ __forceinline__ void take(const Best& o) {
+    if (o.hi > hi || (o.hi == hi && o.lo > lo)) *this = o;
+  }
   __device__ __forceinline__ int index() const { return static_cast<int>(~lo); }
 };
 
@@ -91,6 +96,7 @@ struct Best<double> {
   static __device__ __forceinline__ Best make(double v, int i) { return Best{v, i}; }
   static __device__ __forceinline__ Best none() { return Best{-CUDART_INF, kP2NoIndex}; }
   __device__ __forceinline__ void warp_reduce() { p2_warp_argmax_all(v, i); }
+  __device__ __forceinline__ void take(const Best& o) { p2_better(v, i, o.v, o.i); }
   __device__ __forceinline__ int index() const { return i; }
 };
 
@@ -124,4 +130,150 @@ __device__ __forceinline__ void p2_step(const T* sx, const T* sy, const T* sz, i
       }
     }
   }
+}
+
+// The cluster kernel's exchange. A candidate's index is a tag: its global
+// index shifted left by kP2SlotBits, or-ed with the slot that holds its
+// point (the rank of its block in the cluster; a warp's, in the probes).
+// Indices are unique, so the tag orders ties as the index does.
+constexpr int kP2SlotBits = 8;
+
+// Shared memory of the cluster by address (PTX): the shared-window address
+// of p, and that address in block `rank`.
+__device__ __forceinline__ unsigned p2_smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned p2_mapa(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// A transaction barrier (mbarrier) in the block's shared memory, and stores
+// into another block that count their bytes on that block's barrier
+// (st.async): a phase completes when its one arrival (the expected bytes)
+// has come and every byte has landed.
+__device__ __forceinline__ void p2_mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void p2_mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void p2_mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" :: "r"(bar), "r"(bytes) : "memory");
+}
+// Waits until the phase of that parity has completed. A wait that has not
+// ended after 2^22 tries (seconds; a step takes about a microsecond) is a
+// fault: it traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void p2_mbar_wait(unsigned bar, unsigned parity) {
+  for (int spin = 0; spin < (1 << 22); ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+  }
+  __trap();
+}
+__device__ __forceinline__ void p2_st_async(unsigned addr, unsigned a, unsigned b, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];"
+               :: "r"(addr), "r"(a), "r"(b), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void p2_st_async(unsigned addr, float4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void p2_st_async(unsigned addr, uint4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void p2_st_async(unsigned addr, double a, double b, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f64 [%0], {%1, %2}, [%3];"
+               :: "r"(addr), "d"(a), "d"(b), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void p2_st_async(unsigned addr, double a, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f64 [%0], %1, [%2];"
+               :: "r"(addr), "d"(a), "r"(bar) : "memory");
+}
+
+// A block's candidate and its point, as the cluster kernel exchanges them.
+template <typename T>
+struct alignas(16) P2Vec4 {
+  T x, y, z, w;
+};
+
+// Sends a block's record (key and point) into the slots key and pt of
+// another block (shared::cluster addresses), counted on that block's
+// barrier bar: 24 bytes in float32, 40 in float64 (kP2RecordBytes).
+__device__ __forceinline__ void p2_send(unsigned key, unsigned pt, unsigned bar, const Best<float>& k,
+                                        const P2Vec4<float>& p) {
+  p2_st_async(key, k.hi, k.lo, bar);
+  p2_st_async(pt, make_float4(p.x, p.y, p.z, 0.f), bar);
+}
+__device__ __forceinline__ void p2_send(unsigned key, unsigned pt, unsigned bar, const Best<double>& k,
+                                        const P2Vec4<double>& p) {
+  const unsigned long long v = static_cast<unsigned long long>(__double_as_longlong(k.v));
+  p2_st_async(key, make_uint4(static_cast<unsigned>(v), static_cast<unsigned>(v >> 32),
+                              static_cast<unsigned>(k.i), 0u), bar);
+  p2_st_async(pt, p.x, p.y, bar);
+  p2_st_async(pt + 16, p.z, bar);
+}
+template <typename T>
+constexpr unsigned kP2RecordBytes = sizeof(T) == 4 ? 24u : 40u;
+
+// The slots of the exchange, in every block of a cluster of up to 8: per
+// step parity, block r's record in key[.][r] and pt[.][r], and the barrier
+// that counts the bytes coming into this block.
+template <typename T>
+struct P2Exchange {
+  Best<T> key[2][8];
+  P2Vec4<T> pt[2][8];
+  unsigned long long bar[2];
+};
+
+// Before the cluster's first barrier: both barriers expect one arrival a
+// phase, made visible to the cluster.
+template <typename T>
+__device__ __forceinline__ void p2_exchange_init(P2Exchange<T>& ex) {
+  if (threadIdx.x == 0) {
+    p2_mbar_init(p2_smem(&ex.bar[0]));
+    p2_mbar_init(p2_smem(&ex.bar[1]));
+    p2_mbar_init_fence();
+  }
+}
+
+// Step j (>= 1) of the exchange, every thread of the block, w the block's
+// candidate (tag: global index << kP2SlotBits | rank) in every thread and
+// its point at local index (tag >> kP2SlotBits) - base of sx, sy, sz.
+// Thread 0 makes the step's arrival, expecting csize records; lane r <
+// csize of warp 0 sends the block's record into block r; every thread
+// waits for its own block's barrier, then each warp reduces the csize keys
+// itself. Returns the winner's tag, its point in p. The slots and barrier
+// of step j are used again at step j + 2, and a block sends step j + 2's
+// record only after it has received step j + 1's from every block, each
+// sent after that block's barrier of step j + 1 (__syncthreads), which its
+// warps reach only after reading step j's slots.
+template <typename T>
+__device__ __forceinline__ int p2_exchange(P2Exchange<T>& ex, int j, int rank, int csize, const Best<T>& w,
+                                           const T* sx, const T* sy, const T* sz, int base,
+                                           P2Vec4<T>& p) {
+  const int buf = j & 1;
+  const unsigned bar = p2_smem(&ex.bar[buf]);
+  if (threadIdx.x == 0) p2_mbar_expect(bar, csize * kP2RecordBytes<T>);
+  if (threadIdx.x < static_cast<unsigned>(csize)) {
+    const int tag = w.index();
+    const int l = tag == kP2NoIndex ? 0 : (tag >> kP2SlotBits) - base;
+    const unsigned r = threadIdx.x;
+    p2_send(p2_mapa(p2_smem(&ex.key[buf][rank]), r), p2_mapa(p2_smem(&ex.pt[buf][rank]), r),
+            p2_mapa(bar, r), w, P2Vec4<T>{sx[l], sy[l], sz[l], T(0)});
+  }
+  p2_mbar_wait(bar, ((j - 1) >> 1) & 1);
+  const int lane = threadIdx.x & 31;
+  Best<T> k = lane < csize ? ex.key[buf][lane] : Best<T>::none();
+  k.warp_reduce();
+  const int win = k.index();
+  p = ex.pt[buf][win & ((1 << kP2SlotBits) - 1)];
+  return win;
 }

@@ -42,6 +42,7 @@ _i = ctypes.c_int
 _SIGNATURES = {
     "p2_fps": [_vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_fps_probe": [_i, _vp, _i, _i, _i, _i, _vp, _vp],
+    "p2_fps_clusters": [_i, _i, _i, _i, _i, _i, ctypes.POINTER(_i)],
     "p2_ball_query": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, _i, _i, _i, _i, _vp, _i, _vp],
     "p2_ball_query_multi": [_vp, _vp, _i, _i, _i, ctypes.c_float, _i, ctypes.c_float, _i, _i, _i,
                             _i, _i, _vp, _vp, _i, _vp],

@@ -6,7 +6,7 @@ queries (b, csrc/ball_query.cu; c, csrc/ball_query_multi.cu) and of the
 fused gather-matmul (k, csrc/fused_gather_mm.cu), on one GPU, at the shapes
 chip_smoke.py checks them at.
 
-    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [i] [b] [c] [j] [k] [host] [serve] [ptxas] [--routes]
+    python -m pointnet2_scannet_tpu_torch.ops.cuda.profile_scatter [h] [f] [d] [a] [probe_a] [i] [b] [c] [j] [k] [host] [serve] [ptxas] [--routes]
 
 h at the seven backwards of the SSG train step and the ten of the MSG train
 step (the grouping and interpolation gathers' gradients of 32 synthetic
@@ -19,7 +19,7 @@ configuration's two train-step backwards (the SA2 and SA3 groupings) and at
 bench_gather_torch.py's shapes (B 32, N 8192, J 32768 uniform indices, C
 9/32/64); e at the same gathers forward; both again on bfloat16 rows (f's
 tile-by-tile sum, e's int32 pairs or 2-byte words). ptxas: the registers
-ptxas reported for e's, f's and h's kernels, building the library in this
+ptxas reported for e's, f's, h's and a's kernels, building the library in this
 process (run it as a file with PYTHONPATH=<an older checkout> to read that
 checkout's). For each call: the longest run of
 one index (the skew), the wrapper's time between CUDA events (launch cost
@@ -29,10 +29,15 @@ levels' centroids and groupings), SSG's 4 FP interpolation gathers and
 MSG's 16 (listed from the MSG model as chip_smoke.py lists them): d's
 device and wrapper time beside torch.gather's device time on an int64
 index made beforehand, and with --routes every words-a-thread choice of
-gather_kernel.plan(). a at SSG's four levels and P3's (8, 32768) -> 1024:
-wrapper and device time and fps_kernel.plan()'s launch; then the probes of
-csrc/fps_probe.cu at SA1's shape (the time a step of each part of a step)
-and the registers and spills ptxas reported for the FPS kernels. i at SSG's
+gather_kernel.plan(). a at SSG's four levels, P3's (8, 32768) -> 1024,
+(8, 20000) -> 1024 and -> 2048 (VoteNet's SA1), (2, 32768) float64 and
+the limits (1, 131072) float32 and (1, 65536) float64, with (8, 16384)
+and P3 at B 32: wrapper and device time, µs a step, fps_kernel.plan()'s
+launch and the clusters the card holds at once, with --routes every
+candidate_plans() launch from 8192 points up.
+probe_a: the probes of csrc/fps_probe.cu at SA1's shape (the time a step of
+each part of a step; kind 6 at the cluster kernel's sizes) and the registers
+and spills ptxas reported for the FPS kernels (also under ptxas). i at SSG's
 four FP levels (32 columns: (n, m) = (8192, 1024), (1024, 256), (256, 64),
 (64, 16)) and P3's FP0 (8, 32768, 1024); b at SSG's four SA levels (radii
 0.1-0.8, 32 samples) and P3's SA1 (8, 32768 -> 1024, r 0.1), i's levels
@@ -73,19 +78,25 @@ REPS = 10
 BATCH = 32
 
 
-def level_clouds(torch, npoints: int = 8192, batch: int = BATCH) -> list:
-    """xyz of the five point sets of `batch` synthetic full-width columns:
-    plain FPS between levels (1024, 256, 64, 16 centroids)."""
+def synthetic_columns(torch, npoints: int, batch: int):
+    """xyz (batch, npoints, 3) on the card of synthetic full-width columns."""
     import numpy as np
 
     from pointnet2_scannet_tpu_torch.config import DataConfig
     from pointnet2_scannet_tpu_torch.data import WholeSceneDataset, make_synthetic_store
-    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel, gather_kernel
 
     cfg = DataConfig(npoints=npoints, use_color=True, use_normal=True)
     ds = WholeSceneDataset(make_synthetic_store(2, seed=1000), cfg, seed=0)
     cols = np.concatenate([ds.get_scene(i)[0] for i in range(len(ds))])[:batch]
-    xyz = [torch.from_numpy(cols[..., :3]).to("cuda").contiguous()]
+    return torch.from_numpy(cols[..., :3]).to("cuda").contiguous()
+
+
+def level_clouds(torch, npoints: int = 8192, batch: int = BATCH) -> list:
+    """xyz of the five point sets of `batch` synthetic full-width columns:
+    plain FPS between levels (1024, 256, 64, 16 centroids)."""
+    from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel, gather_kernel
+
+    xyz = [synthetic_columns(torch, npoints, batch)]
     for n_out in (1024, 256, 64, 16):
         idx = fps_kernel.furthest_point_sample_plain(xyz[-1], n_out)
         xyz.append(gather_kernel.gather_plain(xyz[-1], idx).contiguous())
@@ -279,15 +290,30 @@ def profile_d(torch, routes: bool) -> None:
 
 
 def fps_levels(torch) -> dict:
-    """label -> xyz of a's shapes: SSG's four levels (32 columns) and P3's
-    (8, 32768)."""
+    """label -> (xyz, centroids) of a's shapes: SSG's four levels (32
+    columns), (8, 16384) -> 1024 (the largest row of one block), P3's (8,
+    32768) -> 1024 and at B 32, (8, 20000) -> 1024 and VoteNet's SA1 (8,
+    20000) -> 2048, (2, 32768) -> 1024 in float64, and the limits: (1,
+    131072) float32 and (1, 65536) float64 -> 128."""
     xyz = level_clouds(torch)
     out = {f"SSG {x.shape[1]}->{q.shape[1]}": (x, q.shape[1]) for x, q in zip(xyz, xyz[1:])}
-    out["P3 32768->1024"] = (level_clouds(torch, npoints=32768, batch=8)[0], 1024)
+    p3, mid = synthetic_columns(torch, 32768, 32), synthetic_columns(torch, 20000, 8)
+    out["16384->1024"] = (synthetic_columns(torch, 16384, 8), 1024)
+    out["P3 32768->1024 at B 32"] = (p3, 1024)
+    p3 = p3[:8].contiguous()
+    out["P3 32768->1024"] = (p3, 1024)
+    out["20000->1024"] = (mid, 1024)
+    out["VoteNet SA1 20000->2048"] = (mid, 2048)
+    out["float64 32768->1024"] = (p3[:2].double().contiguous(), 1024)
+    out["limit 131072->128"] = (synthetic_columns(torch, 131072, 1), 128)
+    out["float64 limit 65536->128"] = (synthetic_columns(torch, 65536, 1).double().contiguous(), 128)
     return out
 
 
-def profile_a(torch) -> None:
+def profile_a(torch, routes: bool = False) -> None:
+    """a at fps_levels' shapes: device and wrapper ms, µs a step, the plan
+    and, for a cluster plan, how many clusters the card holds at once (the
+    waves of B clusters); with routes, every candidate_plans() launch."""
     from pointnet2_scannet_tpu_torch.ops.cuda import fps_kernel as fps
 
     ssg = 0.0
@@ -297,46 +323,75 @@ def profile_a(torch) -> None:
         except ValueError as e:  # an older checkout's limit
             print(f"a {label}: {e}", flush=True)
             continue
+        b, n = x.shape[:2]
         dev = sum(device_ms(torch, lambda: fps.furthest_point_sample_cuda(x, m)).values())
         wrap = wrapper_ms(torch, lambda: fps.furthest_point_sample_cuda(x, m))
         ssg += dev if label.startswith("SSG") else 0.0
-        where = f", plan {tuple(fps.plan(x.shape[1], x.dtype))}" if hasattr(fps, "plan") else ""
-        print(f"a {label} (B={x.shape[0]}): device {dev:.4f} ms ({1e3 * dev / (m - 1):.3f} us a "
+        where = f", plan {tuple(fps.plan(n, x.dtype))}" if hasattr(fps, "plan") else ""
+        if hasattr(fps, "resident_clusters") and fps.plan(n, x.dtype).variant == "cluster":
+            held = fps.resident_clusters(n, x.dtype, x.get_device())
+            where += f", {held} clusters at once ({-(-b // held)} wave(s) of B {b}; B 32: {-(-32 // held)})"
+        print(f"a {label} (B={b}): device {dev:.4f} ms ({1e3 * dev / (m - 1):.3f} us a "
               f"step), wrapper {wrap:.4f} ms{where}", flush=True)
+        if routes and hasattr(fps, "candidate_plans") and n >= 8192:
+            for p in fps.candidate_plans(n, x.dtype):
+                t = sum(device_ms(torch, lambda p=p: fps.launch(x, m, p)).values())
+                print(f"a route {label} {tuple(p)}: device {t:.4f} ms ({1e3 * t / (m - 1):.3f} us a step)",
+                      flush=True)
     print(f"a SSG summed: device {ssg:.4f} ms", flush=True)
 
 
 def probe_a(torch) -> None:
-    """The probes of csrc/fps_probe.cu at SA1's shape, where the library has
-    them, and the registers and spills ptxas reported for the FPS kernels
-    (where this process built the library)."""
+    """The probes of csrc/fps_probe.cu at SA1's shape (kind 6, the cluster
+    kernel's exchange, where the library has it, at the cluster sizes and
+    block widths fps_kernel.plan() picks), and the registers and spills
+    ptxas reported for the FPS kernels (where this process built the
+    library)."""
     from pointnet2_scannet_tpu_torch.ops.cuda import build
 
     lib = build.library()
     if hasattr(lib, "p2_fps_probe"):
         x = level_clouds(torch)[0]
         out = torch.empty((BATCH, 1024), dtype=torch.int32, device="cuda")
+        # (kind, cluster, threads, what); kinds 6-8 at B 8 as well, where
+        # every cluster of 8 blocks fits the card at once (B 32 runs 2-3 waves)
         probes = (
             (0, 1, 1024, "distance update, points in shared memory (the earlier design)"),
             (1, 1, 1024, "block reduction, shuffles and two barriers (the earlier design)"),
-            (2, 2, 1024, "cluster exchange of fps_cluster_kernel, 2 blocks of 1024"),
-            (2, 4, 256, "cluster exchange of fps_cluster_kernel, 4 blocks of 256"),
+            (2, 2, 1024, "cluster exchange of the earlier cluster kernel, 2 blocks of 1024"),
+            (2, 4, 256, "cluster exchange of the earlier cluster kernel, 4 blocks of 256"),
             (3, 1, 1024, "distance update, points in registers"),
             (4, 1, 1024, "block reduction, redux keys and one barrier"),
             (5, 2, 512, "exchange of a row split over 2 blocks of 512"),
             (5, 4, 256, "exchange of a row split over 4 blocks of 256"),
             (3, 1, 256, "distance update, points in registers, 256 threads (a 4-way split's share)"),
+            (3, 1, 864, "distance update, points in registers, 864 threads ((8, 20000)'s share)"),
+            (7, 1, 1024, "block reduction with the cluster barrier, 1 block of 1024"),
+            *((kind, c, t, f"{name}, {c} blocks of {t}{where}") for kind, name in (
+                (6, "every warp's key pushed, one cluster barrier"),
+                (8, "block reduction, one key a block pushed with release, polled"),
+                (9, "block reduction, one key a block pushed, one cluster barrier"),
+                (10, "block reduction, one key a block by st.async, transaction barrier"))
+              for c, t, where in ((1, 1024, ""), (3, 864, " ((8, 20000))"), (4, 1024, " (P3)"),
+                                  (5, 1024, " (float64 20000)"), (8, 1024, " (float64 32768)"),
+                                  (8, 544, " (65537)"))
+              if c > 1 or kind < 9),
         )
         for kind, cluster, threads, what in probes:
             src = x[:, : threads * 8].contiguous()
+            for b in (BATCH, 8) if kind >= 6 else (BATCH,):
+                def run(kind=kind, cluster=cluster, threads=threads, src=src, b=b):
+                    build.check(lib.p2_fps_probe(kind, build.ptr(src), b, 1024, cluster, threads,
+                                                 build.ptr(out), build.stream_of(src)), "fps_probe")
 
-            def run(kind=kind, cluster=cluster, threads=threads, src=src):
-                build.check(lib.p2_fps_probe(kind, build.ptr(src), BATCH, 1024, cluster, threads,
-                                             build.ptr(out), build.stream_of(src)), "fps_probe")
-
-            t = sum(device_ms(torch, run).values())
-            print(f"a probe {kind} {what} (B={BATCH}, {threads * 8} points a block, 1023 steps): "
-                  f"{t:.4f} ms, {1e3 * t / 1023:.3f} us a step", flush=True)
+                try:
+                    run()
+                except RuntimeError as e:  # an older library without that kind
+                    print(f"a probe {kind} {what}: {e}", flush=True)
+                    break
+                t = sum(device_ms(torch, run).values())
+                print(f"a probe {kind} {what} (B={b}, {threads * 8} points a block, 1023 steps): "
+                      f"{t:.4f} ms, {1e3 * t / 1023:.3f} us a step", flush=True)
     ptxas("a", "fps")
 
 
@@ -809,7 +864,7 @@ def main() -> int:
     from pointnet2_scannet_tpu_torch.ops.cuda import scatter_smem_kernel as ss
 
     kernels = [a for a in sys.argv[1:]
-               if a in ("h", "f", "d", "a", "i", "b", "c", "j", "k", "host", "serve", "ptxas")] or ["h", "f"]
+               if a in ("h", "f", "d", "a", "probe_a", "i", "b", "c", "j", "k", "host", "serve", "ptxas")] or ["h", "f"]
     routes = "--routes" in sys.argv[1:]
     print(f"device: {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -833,7 +888,8 @@ def main() -> int:
     if "d" in kernels:
         profile_d(torch, routes)
     if "a" in kernels:
-        profile_a(torch)
+        profile_a(torch, routes)
+    if "probe_a" in kernels:
         probe_a(torch)
     if "i" in kernels:
         profile_i(torch, routes)
@@ -863,6 +919,8 @@ def main() -> int:
         ptxas("f", "accumulate_kernel")
         ptxas("h", "scatter_add", "segment_sum")
         ptxas("h", "block_kernel")
+        ptxas("a", "fps_kernel")
+        ptxas("a", "fps_cluster_kernel")
     return 0
 
 

@@ -54,15 +54,20 @@ def _equal(got, want):
 
 
 # (N, npoint, dtype): one block a row up to 16384 float32 / 8192 float64
-# points, a cluster of blocks a row above (fps_kernel.plan), ragged shares
-# (16385, 20000, 8193) included; SSG's four levels (8192, 1024, 256 and 64
-# points in)
+# points, a cluster of 8 blocks a row above (fps_kernel.plan): points in
+# registers up to 65536 float32 / 32768 float64 at several block widths,
+# ragged shares included, and from shared memory past that up to the limits,
+# 131072 and 65536; SSG's four levels (8192, 1024, 256 and 64 points in)
 FPS_SHAPES = [
     (64, 16, torch.float32), (256, 64, torch.float32), (200, 50, torch.float32), (1024, 256, torch.float32),
     (8192, 1024, torch.float32), (16384, 512, torch.float32), (16385, 256, torch.float32),
-    (20000, 256, torch.float32), (32768, 256, torch.float32), (65536, 128, torch.float32),
+    (20000, 256, torch.float32), (32768, 256, torch.float32), (40000, 128, torch.float32),
+    (45000, 128, torch.float32), (50000, 128, torch.float32), (65536, 128, torch.float32),
+    (65537, 64, torch.float32), (131072, 32, torch.float32),
     (200, 50, torch.float64), (8192, 256, torch.float64), (8193, 128, torch.float64),
-    (20000, 128, torch.float64),
+    (12289, 128, torch.float64), (20000, 128, torch.float64), (22000, 64, torch.float64),
+    (26000, 64, torch.float64), (32768, 64, torch.float64), (32769, 32, torch.float64),
+    (65536, 32, torch.float64),
 ]
 
 
@@ -79,6 +84,42 @@ def test_fps_kernel_equals_plain(dev, n, npoint, dtype, skip):
            fps.furthest_point_sample_plain(xyz, npoint, skip_near_origin=skip))
     assert fps.launches == before + 1
     assert fps.variant_launches[variant] == count + 1
+
+
+@pytest.mark.parametrize("n,dtype", [(20000, torch.float32), (20000, torch.float64)])
+def test_fps_every_candidate_plan_equals_plain(dev, n, dtype):
+    # every cluster size that holds the row, points in registers (float32:
+    # 3-8 blocks, float64: 5-8) or from shared memory (2-8, 3-8): the
+    # launches profile_scatter --routes times
+    xyz = _cloud(n, (2, n, 3), dev).to(dtype)
+    xyz[1, n // 2:] = xyz[1, : n - n // 2].clone()
+    want = fps.furthest_point_sample_plain(xyz, 64)
+    plans = fps.candidate_plans(n, dtype)
+    assert fps.plan(n, dtype) in plans
+    for p in plans:
+        _equal(fps.launch(xyz, 64, p), want)
+
+
+@pytest.mark.parametrize("n,dtype", [(32768, torch.float32), (65537, torch.float32), (20000, torch.float64)])
+@pytest.mark.parametrize("skip", [True, False])
+def test_fps_cluster_tie_across_blocks_goes_to_the_lower_index(dev, n, dtype, skip):
+    # block 0 holds points near its first one; blocks 1.. each hold the same
+    # 64 far points at other places of their shares, so each step's largest
+    # min-distance ties across blocks and block 1's copy (the lowest global
+    # index) must win
+    p = fps.plan(n, dtype)
+    assert p.variant == "cluster" and p.cluster >= 3
+    share = -(-n // p.cluster)
+    rng = np.random.default_rng(n)
+    far = rng.uniform(1.0, 2.0, size=(64, 3))
+    xyz = rng.uniform(0.0, 0.01, size=(2, n, 3))
+    for r in range(1, p.cluster):
+        count = min(share, n - r * share)
+        xyz[:, r * share + rng.permutation(count)[:64]] = far
+    xyz = torch.from_numpy(xyz).to(dev, dtype)
+    got = fps.furthest_point_sample_cuda(xyz, 48, skip_near_origin=skip)
+    _equal(got, fps.furthest_point_sample_plain(xyz, 48, skip_near_origin=skip))
+    assert bool(((got[:, 1:] >= share) & (got[:, 1:] < 2 * share)).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])

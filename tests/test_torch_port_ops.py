@@ -632,24 +632,37 @@ def test_gather_plans_cover_their_words(sms):
 
 
 # (N, dtype, (variant, cluster, threads, ppt)): one block up to 16384 float32
-# or 8192 float64 points, a cluster of ceil(N / that) blocks above
+# or 8192 float64 points; above, a cluster of 8 blocks with 8 float32 / 4
+# float64 points a thread in registers up to 65536 / 32768 points, 16 / 8
+# from shared memory past that up to the limits; each boundary's both sides
 FPS_PLANS = [
     (64, torch.float32, ("block", 1, 64, 1)), (8192, torch.float32, ("block", 1, 1024, 8)),
-    (16384, torch.float32, ("block", 1, 1024, 16)), (16385, torch.float32, ("cluster", 2, 1024, 16)),
-    (20000, torch.float32, ("cluster", 2, 1024, 16)), (32768, torch.float32, ("cluster", 2, 1024, 16)),
-    (131072, torch.float32, ("cluster", 8, 1024, 16)), (64, torch.float64, ("block", 1, 64, 1)),
-    (8192, torch.float64, ("block", 1, 1024, 8)), (16384, torch.float64, ("cluster", 2, 1024, 8)),
-    (16385, torch.float64, ("cluster", 3, 1024, 8)), (20000, torch.float64, ("cluster", 3, 1024, 8)),
-    (32768, torch.float64, ("cluster", 4, 1024, 8)), (65536, torch.float64, ("cluster", 8, 1024, 8)),
+    (16384, torch.float32, ("block", 1, 1024, 16)), (16385, torch.float32, ("cluster", 8, 288, 8)),
+    (20000, torch.float32, ("cluster", 8, 320, 8)), (32768, torch.float32, ("cluster", 8, 512, 8)),
+    (32769, torch.float32, ("cluster", 8, 544, 8)), (65536, torch.float32, ("cluster", 8, 1024, 8)),
+    (65537, torch.float32, ("cluster", 8, 544, 16)), (100000, torch.float32, ("cluster", 8, 800, 16)),
+    (131072, torch.float32, ("cluster", 8, 1024, 16)),
+    (64, torch.float64, ("block", 1, 64, 1)), (8192, torch.float64, ("block", 1, 1024, 8)),
+    (8193, torch.float64, ("cluster", 8, 288, 4)), (16384, torch.float64, ("cluster", 8, 512, 4)),
+    (20000, torch.float64, ("cluster", 8, 640, 4)), (32768, torch.float64, ("cluster", 8, 1024, 4)),
+    (32769, torch.float64, ("cluster", 8, 544, 8)), (65536, torch.float64, ("cluster", 8, 1024, 8)),
 ]
 
 
 @pytest.mark.parametrize("n,dtype,want", FPS_PLANS)
 def test_fps_plan(n, dtype, want):
-    p = kernels.fps_kernel.plan(n, dtype)
+    fk = kernels.fps_kernel
+    p = fk.plan(n, dtype)
     assert tuple(p) == want
     share = -(-n // p.cluster)
-    assert p.threads * p.ppt >= share and 12 * share * (dtype.itemsize // 4) <= 192 * 1024
+    assert p.threads * p.ppt >= share > p.threads * p.ppt - 32 * p.ppt
+    # the share fits a block's shared memory; a cluster thread's points fit
+    # its registers, or the row is past what registers hold in MAX_CLUSTER
+    assert 12 * share * (dtype.itemsize // 4) <= 192 * 1024
+    if p.variant == "cluster":
+        regs = fk.REG_POINTS[dtype]
+        assert p.ppt == regs or (p.ppt == 2 * regs and n > fk.MAX_CLUSTER * fk.MAX_THREADS * regs)
+        assert p in fk.candidate_plans(n, dtype)
 
 
 @pytest.mark.parametrize("n,dtype", [(131073, torch.float32), (65537, torch.float64), (0, torch.float32)])
